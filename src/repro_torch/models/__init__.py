@@ -1,0 +1,14 @@
+"""Model substrate: the uniform decoder stack, in PyTorch."""
+from repro_torch.models import attention, layers, rope, transformer
+from repro_torch.models.transformer import decode_step, init_caches, init_model, prefill
+
+__all__ = [
+    "attention",
+    "layers",
+    "rope",
+    "transformer",
+    "init_model",
+    "init_caches",
+    "prefill",
+    "decode_step",
+]
