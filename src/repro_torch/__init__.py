@@ -2,7 +2,9 @@
 
 The JAX package ``repro`` stays the reference; this package mirrors its
 subpackage layout (``configs``, ``core``, ``models``, ``kernels``, ``train``,
-``launch``) and imports neither JAX nor anything of ``repro``.  The TPU's
+``launch``; the JAX package's ``examples/`` and ``benchmarks/`` live inside
+it as ``repro_torch.examples`` and ``repro_torch.benchmarks``) and imports
+neither JAX nor anything of ``repro``.  The TPU's
 Pallas kernels become CUDA C++ kernels for ``sm_90a`` (``csrc/``), built with
 ``nvcc`` at first use (``kernels/_build.py``) and bound with ``ctypes``.
 

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import generator
+from repro_torch.device import DeviceLike, generator, resolve_device
 from repro_torch.models.layers import ParamTree
 from repro_torch.models.transformer import init_model
 
@@ -36,10 +36,13 @@ def _tree_to_torch(tree: Mapping) -> dict:
     }
 
 
-def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> ParamTree:
+def params_from_numpy(tree: Mapping, cfg: ModelConfig, device: DeviceLike = None) -> ParamTree:
     """The port's parameters from the JAX package's parameter tree (numpy
-    leaves).  Names and shapes must be exactly the port's for ``cfg``;
-    dtypes are kept (bf16 serving params stay bf16)."""
+    leaves), on ``device`` (the card unless ``"cpu"``; without a card
+    ``None`` raises, as every entry point does).  Names and shapes must be
+    exactly the port's for ``cfg``; dtypes are kept (bf16 serving params
+    stay bf16)."""
+    dev = resolve_device(device)
     params = ParamTree(_tree_to_torch(tree))
     want = {n: p.shape for n, p in init_model(cfg, generator(0), "meta").named_parameters()}
     have = {n: p.shape for n, p in params.named_parameters()}
@@ -51,4 +54,4 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> ParamTree
     bad = {n: (have[n], want[n]) for n in want if have[n] != want[n]}
     if bad:
         raise ValueError(f"parameter shapes differ (have, want): {bad}")
-    return params.to(device)
+    return params.to(dev)

@@ -1,4 +1,4 @@
-"""Offload argument annotations: prefetch specs (paper §3.1).
+"""Offload argument annotations: pass-by-reference + prefetch specs (paper §3.1).
 
 The paper's kernel annotation is::
 
@@ -7,15 +7,18 @@ The paper's kernel annotation is::
     def mykernel(a, b): ...
 
 ``PrefetchSpec`` carries exactly those fields, with the JAX package's
-validation.  ``OffloadRef`` (an argument bound to a memory kind) follows with
-the memory kinds in the paper slice.
+validation; ``OffloadRef`` binds a kernel argument to a memory kind and an
+optional prefetch spec.  These are pure declarations:
+:mod:`repro_torch.core.offload` and the two streaming engines interpret them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
-__all__ = ["Access", "PrefetchSpec", "AUTO", "ON_DEMAND"]
+from repro_torch.core import memkind as mk
+
+__all__ = ["Access", "PrefetchSpec", "OffloadRef", "AUTO", "ON_DEMAND"]
 
 #: sentinel for runtime-tuned prefetch distance
 AUTO = "auto"
@@ -84,3 +87,38 @@ class PrefetchSpec:
 
 
 ON_DEMAND = PrefetchSpec(buffer_size=1, elements_per_fetch=1, distance=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class OffloadRef:
+    """Binds one kernel argument to a hierarchy level.
+
+    The argument is passed to the device *by reference*: the kernel sees the
+    data, but only chunk-sized pieces occupy device memory when ``kind`` is
+    a host kind and ``prefetch`` streaming is active.  ``spec`` is the JAX
+    package's partition spec; the port places on one device, so only
+    ``None`` (the whole tensor) is taken — sharding is ROADMAP.md queue 1
+    item 5 (multi-device and tooling).
+    """
+
+    kind: mk.MemKind = mk.DEVICE
+    spec: Optional[tuple] = None
+    prefetch: Optional[PrefetchSpec] = None
+    #: leading axis that streaming chunks (None = bulk transfer, paper "eager")
+    stream_axis: Optional[int] = 0
+
+    def __post_init__(self) -> None:
+        if self.prefetch is not None and self.kind.jax_kind == "device":
+            raise ValueError(
+                "prefetch streaming only applies to host-resident arguments; "
+                "device-kind arguments are already at the fast tier"
+            )
+        if self.spec is not None:
+            raise NotImplementedError(
+                "OffloadRef(spec=...) shards an argument; sharding is not ported "
+                "(ROADMAP.md, queue 1 item 5: multi-device and tooling)"
+            )
+
+    @property
+    def streamed(self) -> bool:
+        return self.prefetch is not None and self.stream_axis is not None

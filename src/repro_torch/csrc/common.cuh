@@ -31,6 +31,13 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, int sr
                  :: "r"(smem_addr(smem)), "l"(gmem), "r"(src_bytes));
 }
 
+// 4-byte asynchronous copy global -> shared (through L1: .cg takes only
+// 16 bytes), for rows whose stride is not a multiple of 16 bytes.
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem, int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_addr(smem)), "l"(gmem), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -41,7 +48,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Wait until at most n committed groups are still in flight.  wait_group
-// takes an immediate, so a run-time n goes through a switch; past 7 it
+// takes an immediate, so a run-time n goes through a switch; past 15 it
 // waits for all, which is correct and only overlaps less.
 __device__ __forceinline__ void cp_async_wait_n(int n) {
     switch (n) {
@@ -53,6 +60,14 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
         case 5: cp_async_wait<5>(); break;
         case 6: cp_async_wait<6>(); break;
         case 7: cp_async_wait<7>(); break;
+        case 8: cp_async_wait<8>(); break;
+        case 9: cp_async_wait<9>(); break;
+        case 10: cp_async_wait<10>(); break;
+        case 11: cp_async_wait<11>(); break;
+        case 12: cp_async_wait<12>(); break;
+        case 13: cp_async_wait<13>(); break;
+        case 14: cp_async_wait<14>(); break;
+        case 15: cp_async_wait<15>(); break;
         default: cp_async_wait<0>(); break;
     }
 }

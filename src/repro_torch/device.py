@@ -14,7 +14,9 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means ``cuda``.  Raises ``RuntimeError`` when a CUDA device
-    is asked for (or defaulted to) and none is present.
+    is asked for (or defaulted to) and none is present.  A CUDA device comes
+    back with its index (``cuda:0``), so that it compares equal to the
+    device of the tensors placed on it.
 
     Also turns TF32 off for matmuls and cuDNN: the port is held against the
     JAX package's float32 reference, and TF32 keeps only ~3 decimal digits,
@@ -26,6 +28,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch path on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev

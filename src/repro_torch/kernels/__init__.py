@@ -12,7 +12,8 @@ The CUDA sources are in ``repro_torch/csrc/``; ``_build.py`` compiles them
 with ``nvcc`` for ``sm_90a`` at first use and binds them with ``ctypes``.
 
 ``flash_attention`` carries prefill and ``decode_attention`` (with
-``decode_attention_paged``) carries decode.  The JAX package's other two TPU
-kernels, ``streamed_matmul`` and ``rglru_scan``, are not ported yet
-(ROADMAP.md).
+``decode_attention_paged``) carries decode; ``streamed_matmul`` is the
+paper's prefetch ring one level down (weights by reference, tiles streamed
+through shared memory).  The JAX package's fourth TPU kernel,
+``rglru_scan``, is not ported yet (ROADMAP.md).
 """

@@ -31,8 +31,8 @@ from repro_torch.train import steps as st
 KV_KINDS = ("device", "pinned_host", "disk_host")
 PARAM_KINDS = ("device", "pinned_host", "disk_host")
 
-_PAGED = "the paged ServeSession (ROADMAP.md, queue 1 item 1)"
-_STREAMED = "streamed weights (ROADMAP.md, queue 1 item 2: the paper slice)"
+_PAGED = "the paged ServeSession (ROADMAP.md, queue 1 item 3)"
+_STREAMED = "streamed weights (ROADMAP.md, queue 1 item 4)"
 
 
 def _sync(device: torch.device) -> None:
@@ -166,7 +166,7 @@ _NOT_PORTED = {
     "param_cache_mb": _STREAMED,
     "expert_stream": _STREAMED,
     "verify_schedule": _STREAMED,
-    "loadgen": "the load generator and SLO scheduler (ROADMAP.md, queue 1 item 1)",
+    "loadgen": "the load generator and SLO scheduler (ROADMAP.md, queue 1 item 3)",
     "model_parallel": "model parallelism (ROADMAP.md, queue 1 item 5: multi-device and tooling)",
 }
 

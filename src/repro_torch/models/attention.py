@@ -27,7 +27,7 @@ NEG_INF = -1e30
 
 _RING_TODO = (
     "sliding-window ring KV caches are not ported yet "
-    "(ROADMAP.md, queue 1 item 4: the other model families)"
+    "(ROADMAP.md, queue 1 item 1: recurrentgemma through rglru_scan)"
 )
 
 
@@ -39,7 +39,7 @@ def _check_impl(cfg: ModelConfig) -> None:
     if cfg.attn_impl == "chunked":
         raise NotImplementedError(
             "attn_impl='chunked' is not ported yet "
-            "(ROADMAP.md, queue 1 item 4: the other model families)"
+            "(ROADMAP.md, queue 1 item 7: the other model families)"
         )
     if _window_of(cfg):
         raise NotImplementedError(_RING_TODO)

@@ -12,7 +12,7 @@ Modes:
 
 Heterogeneous stacks (hybrid / ssm), MoE, audio codebooks, the vision prefix,
 M-RoPE and sinusoidal positions are not ported yet (ROADMAP.md, queue 1
-item 4).
+item 1 for the recurrentgemma hybrid, item 7 for the rest).
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if todo:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(todo)} not ported yet "
-            "(ROADMAP.md, queue 1 item 4: the other model families)"
+            "(ROADMAP.md, queue 1 item 1: recurrentgemma, item 7: the other model families)"
         )
 
 

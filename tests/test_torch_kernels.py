@@ -199,7 +199,7 @@ def test_static_auto_distance_matches_jax():
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     """No compiler is no silent fallback: the build raises."""
-    assert _build.sources() == ["decode_attention", "flash_attention"]
+    assert _build.sources() == ["decode_attention", "flash_attention", "streamed_matmul"]
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))

@@ -158,6 +158,17 @@ def test_params_from_numpy_keeps_bf16_bits_and_checks_names():
     assert tensor_from_numpy(np.zeros(3, np.int32)).dtype == torch.int32
 
 
+def test_params_from_numpy_defaults_to_the_card(monkeypatch):
+    """``device=None`` means the card, as at every entry point: without one
+    it raises instead of leaving the parameters on the CPU."""
+    jc, pc = _cfgs("float32", "pallas")
+    tree = jax.tree.map(np.asarray, jax_steps.init_train_state(jax.random.PRNGKey(2), jc)[0])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(tree, pc)
+    assert params_from_numpy(tree, pc, "cpu").embed.tok.device.type == "cpu"
+
+
 # ---------------------------------------------------------------------------
 # configs: a field-for-field copy
 # ---------------------------------------------------------------------------
