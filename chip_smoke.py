@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and the paper's offload path on one
+"""Drive the PyTorch port's serving paths and the paper's offload path on one
 NVIDIA card.
 
     python3 chip_smoke.py
@@ -11,8 +11,13 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    source, in parallel) and print the compiler's register/spill report;
 1. hold each kernel against its plain PyTorch version on the card at the
    paths' shapes (the JAX package's ``_tol``: bf16 rtol = atol = 2e-2,
-   f32 rtol 2e-4 / atol 2e-3); decode must give the same bits for three
-   ``PrefetchSpec`` rings, ``streamed_matmul`` for six;
+   f32 rtol 2e-4 / atol 2e-3; ``rglru_scan`` rtol = atol = 1e-5, its JAX
+   test's); decode must give the same bits for three ``PrefetchSpec``
+   rings, ``streamed_matmul`` for six, ``rglru_scan`` for three
+   ``(chunk_t, block_w)`` tilings; the attention kernels also at the
+   hybrid's head_dim 256 with 10 query heads over 1 KV head, on scores
+   peaked enough that a missing key block or a window off by one fails
+   (decode there at atol 2e-3);
 2. serve full-width smollm-360m (32 layers, random bf16 weights from seed 0)
    with ``attn_impl="pallas"`` through ``repro_torch.launch.serve.serve``:
    batch 4, prompt 512, gen 32, unpaged device-resident caches; the
@@ -20,6 +25,12 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
 3. check the output: shapes, token range, finite logits, and the kernel
    path's logits against the plain path's (``attn_impl="xla"``) on the same
    full-width model and prompt;
+2b. serve full-width recurrentgemma-2b (26 layers, random bf16 weights from
+   seed 0) the same way in lock-step: batch 4, prompt 3072 (longer than its
+   2048 window, so prefill places the ring and decode wraps it), gen 32;
+   ``rglru_scan``, ``flash_attention`` and ``decode_attention`` must all
+   have been launched;
+3b. check its output as in phase 3, on one 3072-token prompt;
 4. the paper's path, ``streamed_matmul``'s launch count zeroed just before
    and read just after: the quickstart's listings 1-4; the lung-NN Fig 4
    at the JAX package's full size (1.8M pixels, 100 hidden, batch 2, 120
@@ -32,9 +43,11 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    width (smollm-360m's MLP at the serving token count);
 5. time each kernel, its plain version and one PyTorch library call for the
    same function (``scaled_dot_product_attention``, ``torch.matmul``:
-   yardsticks the port never calls) with CUDA events, L2 flushed before
-   every launch, beside the least time the card could take (bytes at 3.35
-   TB/s, FLOPs at 989 TFLOP/s bf16 on the tensor cores).
+   yardsticks the port never calls; no single PyTorch call computes a
+   linear recurrence) with CUDA events, L2 flushed before every launch, at
+   both serving paths' shapes, beside the least time the card could take
+   (bytes at 3.35 TB/s; FLOPs at 989 TFLOP/s bf16 on the tensor cores, or
+   67 TFLOP/s f32 on the CUDA cores for the recurrence).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -56,8 +69,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense tensor cores
+F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 RTOL = ATOL = 2e-2  # bf16 tolerance of the JAX package's kernel tests
 F32_TOL = dict(rtol=2e-4, atol=2e-3)  # f32 tolerance of the same tests (_tol)
+LRU_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_rglru_kernel.py
+DECODE_256_TOL = dict(rtol=2e-2, atol=2e-3)  # see check_attention_256
 # the JAX package's streamed-matmul test shapes (tests/test_kernels.py)
 MM_SHAPES = [(128, 256, 128), (64, 100, 200), (7, 384, 512), (1, 128, 128), (130, 130, 130)]
 # kernel path vs plain path through 32 bf16 layers: the two round the
@@ -66,6 +82,11 @@ MM_SHAPES = [(128, 256, 128), (64, 100, 200), (7, 384, 512), (1, 128, 128), (130
 LOGIT_RTOL = 5e-2
 
 BATCH, PROMPT, GEN, SEED = 4, 512, 32, 0
+# the recurrentgemma-2b cell: a prompt longer than the 2048-token window
+HYB_PROMPT = 3072
+# the JAX package's rglru_scan test shapes (tests/test_rglru_kernel.py)
+LRU_SHAPES = [(2, 128, 256), (1, 64, 128), (3, 100, 130), (2, 8, 512), (1, 256, 64)]
+LRU_TILINGS = [(8, 128), (64, 128), (128, 256)]
 
 
 def log(msg: str) -> None:
@@ -81,9 +102,13 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def check_close(name: str, out: torch.Tensor, ref: torch.Tensor, rtol=RTOL, atol=ATOL) -> float:
-    err = max_err(out, ref)
-    ok = torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
-    log(f"  {name}: max |kernel - plain| = {err:.3e} (rtol {rtol}, atol {atol}) {'ok' if ok else 'FAIL'}")
+    o, r = out.float(), ref.float()
+    err = max_err(o, r)
+    # the largest |kernel - plain| as a share of what the tolerance allows there
+    share = ((o - r).abs() / (atol + rtol * r.abs())).max().item() if o.numel() else 0.0
+    ok = torch.allclose(o, r, rtol=rtol, atol=atol)
+    log(f"  {name}: max |kernel - plain| = {err:.3e} (rtol {rtol}, atol {atol}; "
+        f"{share:.3f} of the tolerance) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
     return err
@@ -115,18 +140,19 @@ def phase_build() -> None:
                 log(f"  {name}: {line.strip()}")
 
 
-def flash_inputs(b, s, t, n, kh, h, seed=1):
+def flash_inputs(b, s, t, n, kh, h, seed=1, qk=0.5):
+    """q and k ~ N(0, qk^2), so scores have std qk^2; v ~ N(0, 1)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return rand((b, s, n, h), g, 0.5), rand((b, t, kh, h), g, 0.5), rand((b, t, kh, h), g)
+    return rand((b, s, n, h), g, qk), rand((b, t, kh, h), g, qk), rand((b, t, kh, h), g)
 
 
-def decode_inputs(b, t, n, kh, h, lens, seed=2):
+def decode_inputs(b, t, n, kh, h, lens, seed=2, qk=0.5):
     g = torch.Generator(device="cuda").manual_seed(seed)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    return rand((b, n, h), g, 0.5), rand((b, t, kh, h), g, 0.5), rand((b, t, kh, h), g), lengths
+    return rand((b, n, h), g, qk), rand((b, t, kh, h), g, qk), rand((b, t, kh, h), g), lengths
 
 
-def phase_kernels(cfg) -> dict:
+def phase_kernels(cfg, hcfg) -> dict:
     from repro_torch.core.refspec import PrefetchSpec
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
@@ -172,9 +198,109 @@ def phase_kernels(cfg) -> dict:
                 f" (buffer_size, distance): {same}")
             if not same:
                 raise SystemExit("decode_attention: value depends on the PrefetchSpec")
+    errs.update(check_attention_256(hcfg))
+    errs.update(check_rglru_scan(hcfg))
     errs.update(check_streamed_matmul(cfg))
     torch.cuda.synchronize()
     return errs
+
+
+def check_smem_formulas() -> None:
+    """The wrappers refuse a tile or ring that does not fit before any
+    launch, by their own count of its bytes: it must be the kernels'."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru_scan import ops as lru
+
+    fl = _build.load("flash_attention", fa._SIGNATURES)
+    dl = _build.load("decode_attention", da._SIGNATURES)
+    ll = _build.load("rglru_scan", lru._SIGNATURES)
+    pairs = [(f"flash H={h}", fa.smem_bytes(h), fl.repro_flash_attention_smem_bytes(h))
+             for h in fa.HEAD_DIMS]
+    pairs += [(f"decode H={h} slots={n}", da.smem_bytes(h, n), dl.repro_decode_attention_smem_bytes(h, n))
+              for h in da.HEAD_DIMS for n in (1, 2, 3)]
+    pairs += [(f"rglru_scan rows={r} block_w={w}", lru.smem_bytes(r, w),
+               ll.repro_rglru_scan_smem_bytes(r, w)) for r, w in ((8, 128), (56, 256), (113, 128))]
+    bad = [(name, a, b) for name, a, b in pairs if a != b]
+    if bad:
+        raise SystemExit(f"shared-memory counts of the wrappers differ from the kernels': {bad}")
+    log(f"  shared-memory counts of the wrappers equal the kernels' ({len(pairs)} cases)")
+
+
+def check_attention_256(hcfg) -> dict:
+    """Both attention kernels at recurrentgemma-2b's head_dim 256, 10 query
+    heads over 1 KV head: the serving shapes (flash over the whole prompt
+    with the 2048 window; decode over full 2048-slot rings), then edges.
+
+    Over ~2048 keys a softmax of scores with std 0.25 is nearly uniform and
+    each output is a mean of ~2048 values (std ~0.02, the size of the bf16
+    atol): a dropped key block or a window off by one would pass.  So q and
+    k are drawn with scores of std 1, and decode, whose outputs are all
+    averages there, is held at atol 2e-3.  ``fault_check.py`` plants such
+    faults in a copy of the kernels and shows that these checks fail them.
+    """
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    n, kh, h, win = hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim, hcfg.window
+    check_smem_formulas()
+    errs = {}
+    for i, (b, s, t, window, qo) in enumerate([(BATCH, HYB_PROMPT, HYB_PROMPT, win, 0),
+                                                (1, 300, 300, 64, 0), (2, 100, 164, 0, 64)]):
+        q, k, v = flash_inputs(b, s, t, n, kh, h, qk=1.0)
+        out = flash_attention(q, k, v, window=window, q_offset=qo)
+        ref = attention_ref(q, k, v, window=window, q_offset=qo)
+        err = check_close(f"flash_attention B={b} S={s} T={t} N={n} KH={kh} H={h} "
+                          f"window={window} q_offset={qo}", out, ref)
+        if i == 0:
+            errs["flash_attention_256"] = err
+        del q, k, v, out, ref
+    for i, (b, t, lens) in enumerate([(BATCH, win, [win] * BATCH), (BATCH, win, [win, 1000, 1, 0]),
+                                      (1, 300, [300])]):
+        q, k, v, lengths = decode_inputs(b, t, n, kh, h, lens, qk=1.0)
+        out = decode_attention(q, k, v, lengths)
+        ref = decode_attention_ref(q, k, v, lengths)
+        err = check_close(f"decode_attention B={b} T={t} N={n} KH={kh} H={h} lengths={lens}", out, ref,
+                          **DECODE_256_TOL)
+        if i == 0:
+            errs["decode_attention_256"] = err
+    return errs
+
+
+def lru_inputs(b, s, w, seed=7):
+    """a in (0, 1) like the RG-LRU's decay, b arbitrary (the JAX test's)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.sigmoid(torch.randn((b, s, w), generator=g, device="cuda") + 2.0)
+    return a, torch.randn((b, s, w), generator=g, device="cuda") * 0.5
+
+
+def check_rglru_scan(hcfg) -> dict:
+    from repro_torch.kernels.rglru_scan import linear_recurrence, linear_recurrence_ref
+
+    full = (BATCH, HYB_PROMPT, hcfg.lru_width)
+    for b, s, w in LRU_SHAPES:
+        a, bb = lru_inputs(b, s, w)
+        check_close(f"rglru_scan ({b},{s},{w}) chunk_t=32 block_w=128",
+                    linear_recurrence(a, bb, chunk_t=32, block_w=128), linear_recurrence_ref(a, bb),
+                    **LRU_TOL)
+    a, bb = lru_inputs(*full)
+    err = check_close(f"rglru_scan {full} (the serving shape)", linear_recurrence(a, bb),
+                      linear_recurrence_ref(a, bb), **LRU_TOL)
+    for shape in ((2, 128, 256), full):
+        a, bb = lru_inputs(*shape, seed=8)
+        outs = [linear_recurrence(a, bb, chunk_t=ct, block_w=bw) for ct, bw in LRU_TILINGS]
+        same = all(torch.equal(outs[0], o) for o in outs[1:])
+        log(f"  rglru_scan {shape} bitwise equal across {LRU_TILINGS} (chunk_t, block_w): {same}")
+        if not same:
+            raise SystemExit("rglru_scan: value depends on the tiling")
+    ones = torch.ones((1, 16, 128), device="cuda")
+    forget = torch.equal(linear_recurrence(torch.zeros_like(ones), ones), ones)
+    integrate = torch.equal(linear_recurrence(ones, ones)[0, :, 0].cpu(), torch.arange(1.0, 17.0))
+    log(f"  rglru_scan decay: a = 0 gives b: {forget}; a = 1 gives cumsum(b): {integrate}")
+    if not (forget and integrate):
+        raise SystemExit("rglru_scan: wrong decay semantics")
+    return {"rglru_scan": err}
 
 
 def check_streamed_matmul(cfg) -> dict:
@@ -218,36 +344,49 @@ def check_streamed_matmul(cfg) -> dict:
     return errs
 
 
-def phase_serve(cfg) -> tuple[dict, dict]:
+def serving_kernels() -> dict:
+    """The serving paths' kernel wrappers, by name."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import linear_recurrence
+
+    return {"flash_attention": flash_attention, "decode_attention": decode_attention,
+            "rglru_scan": linear_recurrence}
+
+
+def phase_serve(cfg, prompt: int, phase: str, expect: tuple) -> tuple[dict, dict]:
+    """Serve ``cfg`` through the entry point; every serving kernel's count
+    is zeroed just before and read just after, and each of ``expect``
+    must have launched."""
     from repro_torch.launch.serve import serve
 
-    log(f"phase 2 serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab_size}, {cfg.dtype}, "
-        f"attn_impl={cfg.attn_impl}; batch {BATCH}, prompt {PROMPT}, gen {GEN}")
+    log(f"phase {phase} serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}, attn_impl={cfg.attn_impl}; batch {BATCH}, prompt {prompt}, gen {GEN}")
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    decode_attention.launches = 0
-    res = serve(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN, kv_kind="device",
+    wrappers = serving_kernels()
+    for w in wrappers.values():
+        w.launches = 0
+    res = serve(cfg, batch=BATCH, prompt_len=prompt, gen=GEN, kv_kind="device",
                 kv_page_len=0, seed=SEED)
-    launches = {"flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention.launches}
+    launches = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     log(f"  prefill {res['prefill_s'] * 1e3:.3f} ms for {BATCH} requests "
         f"({res['prefill_s'] * 1e3 / BATCH:.3f} ms each), decode {res['decode_s'] * 1e3:.3f} ms "
         f"for {res['n_steps']} steps = {res['tokens_per_s']:.1f} tok/s, "
         f"peak allocated {peak / 2**20:.1f} MiB")
     log(f"  launches during serve: {launches}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in expect) <= 0:
         raise SystemExit(f"a kernel of the path was not launched: {launches}")
     return res, launches
 
 
-def phase_check(cfg, res: dict) -> None:
+def phase_check(cfg, res: dict, prompt: int, phase: str) -> None:
+    from repro_torch.launch.serve import step_pos
     from repro_torch.train import steps as st
 
-    log("phase 3 output checks")
+    log(f"phase {phase} output checks ({cfg.name})")
     gen = res["generated"]
     if gen.shape != (BATCH, GEN) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
         raise SystemExit(f"generated tokens malformed: shape {gen.shape}, "
@@ -256,15 +395,17 @@ def phase_check(cfg, res: dict) -> None:
     # the kernel path against the plain path on the full-width model
     params = st.init_params(cfg, SEED, "cuda")
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    tokens = torch.randint(1, cfg.vocab_size, (1, PROMPT), generator=g, device="cuda")
+    tokens = torch.randint(1, cfg.vocab_size, (1, prompt), generator=g, device="cuda")
+    pos = step_pos(cfg, 1, prompt, "cuda")  # the serve loop's, on its schedule
     out = {}
     for impl in ("pallas", "xla"):
         c = dataclasses.replace(cfg, attn_impl=impl)
-        logits, caches = st.make_prefill_step(c, 1, PROMPT + 2)(params, {"tokens": tokens})
+        logits, caches = st.make_prefill_step(c, 1, prompt + 2)(params, {"tokens": tokens})
         nxt = logits[:, -1].argmax(-1)
-        logits2, _ = st.make_decode_step(c)(params, caches, {"tokens": nxt[:, None]},
-                                            torch.tensor([PROMPT], dtype=torch.int32, device="cuda"))
+        logits2, _ = st.make_decode_step(c)(params, caches, {"tokens": nxt[:, None]}, pos)
         out[impl] = (logits.float(), logits2.float())
+        del caches
+    del params
     for i, step in enumerate(("prefill", "decode")):
         a, b = out["pallas"][i], out["xla"][i]
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
@@ -395,71 +536,118 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 30) -> float:
     return total / reps
 
 
-def phase_times(cfg, errs: dict, launches: dict) -> list:
+def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
+    """Least time on the card: the larger of bytes over the memory rate and
+    operations over the peak rate for their type, in ms, and which."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def flash_row(cell, b, s, n, kh, h, window, launches, err, flush) -> dict:
+    """Prefill attention of ``b`` prompts of ``s`` tokens."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    grp = n // kh
+    q, k, v = flash_inputs(b, s, s, n, kh, h)
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k.repeat_interleave(grp, 2), v.repeat_interleave(grp, 2)))
+    pos = torch.arange(s, device="cuda")
+    mask = pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    pairs = int(mask.sum())  # (query, key) pairs the causal band holds
+    b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), 4 * b * pairs * n * h)
+    if window:
+        library = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    else:
+        library = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    return dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:32", cell=cell,
+        shape=[b, s, n, kh, h, window], launches=launches, max_abs_err=err,
+        ms=time_ms(lambda: flash_attention(q, k, v, window=window), flush),
+        plain_ms=time_ms(lambda: attention_ref(q, k, v, window=window), flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, flush),
+    )
+
+
+def decode_row(cell, t, n, kh, h, lens, launches, err, flush) -> dict:
+    """One decode step of the batch against its caches."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
-    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
-    from repro_torch.kernels.streamed_matmul import matmul_ref, streamed_matmul
 
-    n, kh, h = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     grp = n // kh
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
-    rows = []
-
-    def bound(nbytes, flops):
-        tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
-        return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
-
-    log("phase 5 times (CUDA events, L2 flushed before each launch)")
-    # prefill attention of one request
-    q, k, v = flash_inputs(1, PROMPT, PROMPT, n, kh, h)
-    qs, ks, vs = (x.transpose(1, 2) for x in (q, k.repeat_interleave(grp, 2), v.repeat_interleave(grp, 2)))
-    pairs = PROMPT * (PROMPT + 1) // 2
-    b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), 4 * pairs * n * h)
-    rows.append(dict(
-        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:32",
-        launches=launches["flash_attention"], max_abs_err=errs["flash_attention"],
-        ms=time_ms(lambda: flash_attention(q, k, v), flush),
-        plain_ms=time_ms(lambda: attention_ref(q, k, v), flush),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True), flush),
-    ))
-    # one decode step of the batch against its caches
-    t = PROMPT + GEN
-    lens = [t, 300, 77, 1]
-    q, k, v, lengths = decode_inputs(BATCH, t, n, kh, h, lens)
+    q, k, v, lengths = decode_inputs(len(lens), t, n, kh, h, lens)
     qs = q[:, :, None, :]
     ks, vs = (x.repeat_interleave(grp, 2).transpose(1, 2) for x in (k, v))
     mask = (torch.arange(t, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
     valid = sum(lens)
-    b_ms, b_by = bound(2 * 2 * q.numel() + 4 * BATCH + 2 * 2 * valid * kh * h, 4 * valid * n * h)
-    rows.append(dict(
+    b_ms, b_by = bound(2 * 2 * q.numel() + 4 * len(lens) + 2 * 2 * valid * kh * h, 4 * valid * n * h)
+    return dict(
         name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention/kernel.py:36",
-        launches=launches["decode_attention"], max_abs_err=errs["decode_attention"],
+        replaces="src/repro/kernels/decode_attention/kernel.py:36", cell=cell,
+        shape=[len(lens), t, n, kh, h], launches=launches, max_abs_err=err,
         ms=time_ms(lambda: decode_attention(q, k, v, lengths), flush),
         plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, lengths), flush),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), flush),
+    )
+
+
+def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict) -> list:
+    from repro_torch.kernels.rglru_scan import linear_recurrence, linear_recurrence_ref
+    from repro_torch.kernels.streamed_matmul import matmul_ref, streamed_matmul
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    smol, hyb = cfg.name, hcfg.name
+    log("phase 5 times (CUDA events, L2 flushed before each launch)")
+    rows = [
+        # prefill attention of one request / of the lock-step batch
+        flash_row(smol, 1, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0,
+                  launches["flash_attention"], errs["flash_attention"], flush),
+        flash_row(hyb, BATCH, HYB_PROMPT, hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim, hcfg.window,
+                  hlaunches["flash_attention"], errs["flash_attention_256"], flush),
+        # one decode step: per-slot lengths; the hybrid's full 2048-slot rings
+        decode_row(smol, PROMPT + GEN, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                   [PROMPT + GEN, 300, 77, 1], launches["decode_attention"], errs["decode_attention"],
+                   flush),
+        decode_row(hyb, hcfg.window, hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim,
+                   [hcfg.window] * BATCH, hlaunches["decode_attention"], errs["decode_attention_256"],
+                   flush),
+    ]
+    # the recurrence of one rec layer's prefill: read a and b, write h, f32
+    shape = (BATCH, HYB_PROMPT, hcfg.lru_width)
+    a, b = lru_inputs(*shape)
+    b_ms, b_by = bound(3 * 4 * a.numel(), 2 * a.numel(), F32_FLOP_PER_S)
+    rows.append(dict(
+        name="rglru_scan", route="cuda", source="src/repro_torch/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan/kernel.py:30", cell=hyb, shape=list(shape),
+        launches=hlaunches["rglru_scan"], max_abs_err=errs["rglru_scan"],
+        ms=time_ms(lambda: linear_recurrence(a, b), flush),
+        plain_ms=time_ms(lambda: linear_recurrence_ref(a, b), flush, reps=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
+    del a, b
     # the full-width MLP projections, bf16: tensor-core bound
     for i, (m, k, n) in enumerate(mlp_shapes(cfg)):
         x, w = mm_inputs(m, k, n, torch.bfloat16)
         b_ms, b_by = bound(2 * (m * k + k * n + m * n), 2 * m * k * n)
         rows.append(dict(
             name="streamed_matmul", route="cuda", source="src/repro_torch/csrc/streamed_matmul.cu",
-            replaces="src/repro/kernels/streamed_matmul/kernel.py:38", shape=[m, k, n],
-            launches=launches["streamed_matmul"], max_abs_err=errs[f"streamed_matmul_{i}"],
+            replaces="src/repro/kernels/streamed_matmul/kernel.py:38", cell="lung-NN Fig 4",
+            shape=[m, k, n], launches=launches["streamed_matmul"],
+            max_abs_err=errs[f"streamed_matmul_{i}"],
             ms=time_ms(lambda: streamed_matmul(x, w), flush),
             plain_ms=time_ms(lambda: matmul_ref(x, w), flush),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: torch.matmul(x, w), flush),
         ))
     for r in rows:
-        log(f"  {r['name']}{r.get('shape', '')}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"  {r['name']} {r['cell']} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return rows
 
 
@@ -472,13 +660,19 @@ def main() -> int:
 
     resolve_device("cuda")  # TF32 off: the plain versions are f32-exact references
     cfg = dataclasses.replace(get_config("smollm-360m"), attn_impl="pallas")
+    hcfg = dataclasses.replace(get_config("recurrentgemma-2b"), attn_impl="pallas")
     t0 = time.perf_counter()
     phase_build()
-    errs = phase_kernels(cfg)
-    res, launches = phase_serve(cfg)
-    phase_check(cfg, res)
+    errs = phase_kernels(cfg, hcfg)
+    res, launches = phase_serve(cfg, PROMPT, "2", ("flash_attention", "decode_attention"))
+    phase_check(cfg, res, PROMPT, "3")
+    del res
+    hres, hlaunches = phase_serve(hcfg, HYB_PROMPT, "2b",
+                                  ("rglru_scan", "flash_attention", "decode_attention"))
+    phase_check(hcfg, hres, HYB_PROMPT, "3b")
+    del hres
     launches["streamed_matmul"] = phase_paper(cfg)
-    rows = phase_times(cfg, errs, launches)
+    rows = phase_times(cfg, hcfg, errs, launches, hlaunches)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

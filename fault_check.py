@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Show that chip_smoke.py's head_dim-256 attention checks catch planted
+faults in the kernels.
+
+    python3 fault_check.py
+
+For the unmodified kernels and for each fault in ``FAULTS`` it copies
+``chip_smoke.py`` and ``src/`` into ``build/fault_check/<name>/``, edits one
+line of a kernel source there, and runs chip_smoke's ``check_attention_256``
+in that copy, whose kernels build from the copy's sources.  It prints each
+run's check lines (the largest |kernel - plain| and its share of the
+tolerance) and exits 0 iff the unmodified kernels pass and every planted
+fault fails.  Needs a CUDA card and ``nvcc``.
+"""
+from __future__ import annotations
+
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "fault_check"
+
+#: name -> (kernel source, line as it is, line with the fault)
+FAULTS = {
+    "decode_drops_last_ring_stage": (
+        "decode_attention.cu",
+        "const int needed = (len + BKV - 1) / BKV;",
+        "const int needed = (len + BKV - 1) / BKV - 1;",
+    ),
+    "flash_window_off_by_one": (
+        "flash_attention.cu",
+        "if (window) ok = ok && kpos > qp - window;",
+        "if (window) ok = ok && kpos >= qp - window;",
+    ),
+}
+
+_RUN = """
+import chip_smoke
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+resolve_device("cuda")
+chip_smoke.check_attention_256(get_config("recurrentgemma-2b"))
+"""
+
+
+def copy_with(name: str, fault) -> Path:
+    """A copy of the checkout's program under ``WORK/name`` with ``fault``
+    (``None``: unmodified) planted in it."""
+    dst = WORK / name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(ROOT / "src", dst / "src", ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy2(ROOT / "chip_smoke.py", dst)
+    if fault is not None:
+        source, line, planted = fault
+        path = dst / "src" / "repro_torch" / "csrc" / source
+        text = path.read_text()
+        if text.count(line) != 1:
+            raise SystemExit(f"{name}: the line to edit is not once in {source}: {line!r}")
+        path.write_text(text.replace(line, planted))
+    return dst
+
+
+def main() -> int:
+    runs = {"unmodified": None, **FAULTS}
+    procs = {name: subprocess.Popen([sys.executable, "-c", _RUN], cwd=copy_with(name, fault),
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, fault in runs.items()}
+    failed = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        failed[name] = proc.returncode != 0
+        print(f"{name}: {'fails' if failed[name] else 'passes'} (exit {proc.returncode})")
+        for line in out.splitlines():
+            if "tolerance" in line or "Error" in line:
+                print(f"  {line.strip()}")
+    shutil.rmtree(WORK, ignore_errors=True)
+    caught = not failed["unmodified"] and all(failed[name] for name in FAULTS)
+    print(f"unmodified kernels pass and every planted fault fails: {caught}")
+    return 0 if caught else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

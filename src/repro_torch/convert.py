@@ -3,7 +3,10 @@
 The tests feed both packages the same weights: the JAX package initialises
 them, ``jax.tree.map(np.asarray, params)`` turns them into numpy, and
 :func:`params_from_numpy` builds the port's parameters from that tree, name
-for name (``{"blocks": {"attn": {"wq": ...}}}`` -> ``blocks.attn.wq``).
+for name (``{"blocks": {"attn": {"wq": ...}}}`` -> ``blocks.attn.wq``), in
+each of the JAX tree's layouts: stacked uniform blocks, the hybrid's period
+tree (``blocks.periods.pos_0.rec.w_a``, ``blocks.tail_1.mlp.wi``) and
+unrolled blocks (``blocks.layer_000...``).
 """
 from __future__ import annotations
 

@@ -24,8 +24,13 @@
 namespace {
 
 constexpr int BKV = 64;      // key rows per ring stage
-constexpr int THREADS = 128;
 constexpr int MAXG = 16;     // query heads per KV head
+
+// threads per block: 128, or one per column of the head where H > 128 (the
+// PV product gives each thread one column; every output's sums run in one
+// order whatever the block size, so H = 64 and 128 keep their bits)
+template <int H>
+constexpr int threads_of() { return H > 128 ? H : 128; }
 
 template <int H>
 struct Smem {
@@ -37,7 +42,7 @@ struct Smem {
     }
 };
 
-template <int H>
+template <int H, int THREADS = threads_of<H>()>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const int* __restrict__ lengths,
@@ -47,6 +52,8 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     constexpr int CPR = H / 8;                  // 16-byte chunks per row
     constexpr int RSTEP = THREADS / H;          // PV: heads between a thread's outputs
     constexpr int NACC = MAXG / RSTEP;          // PV: outputs per thread
+    constexpr int KSPLIT = THREADS / BKV;       // scores: threads per key
+    constexpr int SHEADS = MAXG / KSPLIT;       // scores: heads per thread
 
     extern __shared__ __align__(16) unsigned char smem[];
     bf16* Kr = reinterpret_cast<bf16*>(smem);
@@ -101,25 +108,26 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         __syncthreads();
         const int slot = i % slots;
 
-        // scores: thread owns key kj and heads half, half + 2, ...
+        // scores: thread owns key kj and heads half, half + KSPLIT, ...
         {
             const int kj = tid % BKV, half = tid / BKV;
-            float sacc[MAXG / 2];
+            float sacc[SHEADS];
 #pragma unroll
-            for (int a = 0; a < MAXG / 2; ++a) sacc[a] = 0.f;
+            for (int a = 0; a < SHEADS; ++a) sacc[a] = 0.f;
             const bf16* krow = Kr + ((size_t)slot * BKV + kj) * KS;
 #pragma unroll 2
             for (int c = 0; c < H; c += 8) {
                 float kf[8];
                 unpack_bf16x8(krow + c, kf);
 #pragma unroll
-                for (int a = 0; a < MAXG / 2; ++a)
-                    if (half + 2 * a < G) sacc[a] = dot8(Qs + (half + 2 * a) * H + c, kf, sacc[a]);
+                for (int a = 0; a < SHEADS; ++a)
+                    if (half + KSPLIT * a < G)
+                        sacc[a] = dot8(Qs + (half + KSPLIT * a) * H + c, kf, sacc[a]);
             }
             const bool ok = i * BKV + kj < len;
 #pragma unroll
-            for (int a = 0; a < MAXG / 2; ++a) {
-                const int g = half + 2 * a;
+            for (int a = 0; a < SHEADS; ++a) {
+                const int g = half + KSPLIT * a;
                 if (g < G) Ss[g * BKV + kj] = ok ? sacc[a] * sm_scale : REPRO_NEG_INF;
             }
         }
@@ -201,7 +209,7 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
         cudaGetLastError();  // clear it, or the next launch's check reports it
         return (int)err;
     }
-    decode_attention_kernel<H><<<B * KH, THREADS, smem, stream>>>(
+    decode_attention_kernel<H><<<B * KH, threads_of<H>(), smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const int*>(lengths), static_cast<bf16*>(o), T, N, KH, distance, slots,
         sm_scale);
@@ -209,6 +217,17 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
 }
 
 }  // namespace
+
+// Bytes of shared memory a block takes at head dim H with a ring of `slots`
+// stages (0: not a kernel's H).
+extern "C" int repro_decode_attention_smem_bytes(int H, int slots) {
+    switch (H) {
+        case 64: return (int)Smem<64>::bytes(slots);
+        case 128: return (int)Smem<128>::bytes(slots);
+        case 256: return (int)Smem<256>::bytes(slots);
+        default: return 0;
+    }
+}
 
 // q (B, N, H), k/v (B, T, KH, H) contiguous bf16; lengths (B,) int32;
 // o (B, N, H).  Returns the launch's cudaGetLastError() code.
@@ -224,6 +243,8 @@ extern "C" int repro_decode_attention_bf16(const void* q, const void* k, const v
             return launch<64>(q, k, v, lengths, o, B, T, N, KH, distance, slots, sm_scale, st);
         case 128:
             return launch<128>(q, k, v, lengths, o, B, T, N, KH, distance, slots, sm_scale, st);
+        case 256:
+            return launch<256>(q, k, v, lengths, o, B, T, N, KH, distance, slots, sm_scale, st);
         default:
             return (int)cudaErrorInvalidValue;
     }

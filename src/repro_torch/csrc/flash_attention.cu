@@ -18,15 +18,21 @@
 // CUDA cores in f32: wgmma, TMA and a warp-specialised pipeline are later
 // work, and so this first kernel is far from its bound.
 //
-// Grid: (ceil(S / bq), B * KH); block: 128 threads; bq = ROWS / G queries.
-// Row r of the tile is query s0 + r / G, head kh * G + r % G.
+// Grid: (ceil(S / bq), B * KH); block: max(128, H) threads; bq = ROWS / G
+// queries.  Row r of the tile is query s0 + r / G, head kh * G + r % G.
+// In the PV product each thread owns one of the H columns, so at H = 256
+// the block has 256 threads; every output's sums run in one order whatever
+// the block size, so H = 64 and 128 keep their 128 threads and their bits.
 #include "common.cuh"
 
 namespace {
 
 constexpr int ROWS = 64;     // q rows (queries x group heads) per block
 constexpr int BKV = 64;      // key rows per pipeline stage
-constexpr int THREADS = 128;
+
+// threads per block: 128, or one per column of the head where H > 128
+template <int H>
+constexpr int threads_of() { return H > 128 ? H : 128; }
 
 template <int H>
 struct Smem {
@@ -39,7 +45,7 @@ struct Smem {
     static constexpr size_t bytes = m_off + 3 * ROWS * 4;
 };
 
-template <int H>
+template <int H, int THREADS = threads_of<H>()>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -50,6 +56,8 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     constexpr int CPR = H / 8;                  // 16-byte chunks per row
     constexpr int RSTEP = THREADS / H;          // PV: rows between a thread's outputs
     constexpr int NACC = ROWS / RSTEP;          // PV: outputs per thread
+    constexpr int KSPLIT = THREADS / BKV;       // scores: threads per key
+    constexpr int SROWS = ROWS / KSPLIT;        // scores: rows per thread
 
     extern __shared__ __align__(16) unsigned char smem[];
     float* Qs = reinterpret_cast<float*>(smem + L::q_off);
@@ -128,25 +136,26 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
         __syncthreads();
 
-        // scores: thread owns key kj and rows half, half + 2, ...
+        // scores: thread owns key kj and rows half, half + KSPLIT, ...
         {
             const int kj = tid % BKV, half = tid / BKV;
-            float sacc[ROWS / 2];
+            float sacc[SROWS];
 #pragma unroll
-            for (int i = 0; i < ROWS / 2; ++i) sacc[i] = 0.f;
+            for (int i = 0; i < SROWS; ++i) sacc[i] = 0.f;
             const bf16* krow = Ks + (buf * BKV + kj) * KS;
 #pragma unroll 2
             for (int c = 0; c < H; c += 8) {
                 float kf[8];
                 unpack_bf16x8(krow + c, kf);
 #pragma unroll
-                for (int i = 0; i < ROWS / 2; ++i)
-                    if (half + 2 * i < rows) sacc[i] = dot8(Qs + (half + 2 * i) * H + c, kf, sacc[i]);
+                for (int i = 0; i < SROWS; ++i)
+                    if (half + KSPLIT * i < rows)
+                        sacc[i] = dot8(Qs + (half + KSPLIT * i) * H + c, kf, sacc[i]);
             }
             const int kpos = j * BKV + kj;
 #pragma unroll
-            for (int i = 0; i < ROWS / 2; ++i) {
-                const int r = half + 2 * i;
+            for (int i = 0; i < SROWS; ++i) {
+                const int r = half + KSPLIT * i;
                 if (r < rows) Ss[r * BKV + kj] = valid(r, kpos) ? sacc[i] * sm_scale : REPRO_NEG_INF;
             }
         }
@@ -231,13 +240,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
     }
     const int bq = ROWS / (N / KH);
     dim3 grid((S + bq - 1) / bq, B * KH);
-    flash_attention_kernel<H><<<grid, THREADS, smem, stream>>>(
+    flash_attention_kernel<H><<<grid, threads_of<H>(), smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<bf16*>(o), S, T, N, KH, causal, window, q_offset, sm_scale);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// Bytes of shared memory a block takes at head dim H (0: not a kernel's H).
+extern "C" int repro_flash_attention_smem_bytes(int H) {
+    switch (H) {
+        case 64: return (int)Smem<64>::bytes;
+        case 128: return (int)Smem<128>::bytes;
+        case 256: return (int)Smem<256>::bytes;
+        default: return 0;
+    }
+}
 
 // q (B, S, N, H), k/v (B, T, KH, H), o (B, S, N, H): contiguous bf16.
 // Returns the launch's cudaGetLastError() code.
@@ -252,6 +271,8 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const vo
             return launch<64>(q, k, v, o, B, S, T, N, KH, causal, window, q_offset, sm_scale, st);
         case 128:
             return launch<128>(q, k, v, o, B, S, T, N, KH, causal, window, q_offset, sm_scale, st);
+        case 256:
+            return launch<256>(q, k, v, o, B, S, T, N, KH, causal, window, q_offset, sm_scale, st);
         default:
             return (int)cudaErrorInvalidValue;
     }

@@ -12,8 +12,9 @@ The CUDA sources are in ``repro_torch/csrc/``; ``_build.py`` compiles them
 with ``nvcc`` for ``sm_90a`` at first use and binds them with ``ctypes``.
 
 ``flash_attention`` carries prefill and ``decode_attention`` (with
-``decode_attention_paged``) carries decode; ``streamed_matmul`` is the
-paper's prefetch ring one level down (weights by reference, tiles streamed
-through shared memory).  The JAX package's fourth TPU kernel,
-``rglru_scan``, is not ported yet (ROADMAP.md).
+``decode_attention_paged``) carries decode; ``rglru_scan``
+(``linear_recurrence``) carries the RG-LRU's recurrence in the hybrid's
+prefill; ``streamed_matmul`` is the paper's prefetch ring one level down
+(weights by reference, tiles streamed through shared memory).  Every TPU
+kernel of the JAX package has its counterpart here.
 """

@@ -31,6 +31,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers / shared memory / spills into the build log
 )
 
+#: dynamic shared memory one block may use on the H100 (227 KB); every
+#: wrapper refuses a tile or ring above it before any launch
+SMEM_LIMIT = 232448
+
 #: loaded libraries by source name; guarded by ``_LOCK``
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

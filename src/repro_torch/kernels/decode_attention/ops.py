@@ -21,6 +21,7 @@ import torch
 from repro_torch.core.engine import static_auto_distance
 from repro_torch.core.refspec import PrefetchSpec
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SMEM_LIMIT
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _DEFAULT_SPEC = PrefetchSpec(buffer_size=2, elements_per_fetch=1, distance=1)
@@ -29,7 +30,7 @@ _DEFAULT_SPEC = PrefetchSpec(buffer_size=2, elements_per_fetch=1, distance=1)
 #: kernel's BKV and MAXG)
 BLOCK_KV = 64
 MAX_GROUP = 16
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -37,15 +38,32 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
         ctypes.c_int,
     ),
+    "repro_decode_attention_smem_bytes": ([_I, _I], ctypes.c_int),
 }
 
 
-def ring_of(spec: PrefetchSpec, cache_len: int) -> tuple[int, int]:
+def smem_bytes(h: int, slots: int) -> int:
+    """Shared memory of one block of the kernel at head dim ``h`` with a
+    ring of ``slots`` stages: K (rows padded by 8) and V per stage, then the
+    f32 q, scores and softmax state (``Smem<H>`` in the CUDA source)."""
+    return slots * BLOCK_KV * (2 * h + 8) * 2 + (MAX_GROUP * h + MAX_GROUP * BLOCK_KV + 3 * MAX_GROUP) * 4
+
+
+def ring_of(spec: PrefetchSpec, cache_len: int, h: int) -> tuple[int, int]:
     """``(distance, slots)`` of the kernel's ring for a cache of
-    ``cache_len`` rows; ``"auto"`` resolves to a static head start."""
+    ``cache_len`` rows at head dim ``h``; ``"auto"`` resolves to a static
+    head start.  Raises ``ValueError`` when the ring does not fit the card."""
     n_t = -(-cache_len // BLOCK_KV)
     distance = spec.numeric_distance(static_auto_distance(n_t))
-    return distance, max(spec.buffer_size, distance + 1, 1)
+    slots = max(spec.buffer_size, distance + 1, 1)
+    if smem_bytes(h, slots) > SMEM_LIMIT:
+        fit = (SMEM_LIMIT - smem_bytes(h, 0)) // (smem_bytes(h, 1) - smem_bytes(h, 0))
+        raise ValueError(
+            f"decode_attention: a ring of {slots} stages at head dim {h} needs "
+            f"{smem_bytes(h, slots)} bytes of shared memory, more than the {SMEM_LIMIT} "
+            f"bytes a block can use on the H100 (at most {fit} stages)"
+        )
+    return distance, slots
 
 
 def decode_attention(
@@ -60,9 +78,10 @@ def decode_attention(
     :func:`decode_attention_ref`.
 
     On a CUDA tensor this launches the kernel (bf16 q/k/v, int32 lengths,
-    contiguous, head dim 64 or 128) or raises; on a CPU tensor it runs the
-    plain version.  Lengths are clamped to ``[0, T]`` by the kernel.  A
-    ring deeper than the card's shared memory holds fails the launch.
+    contiguous, head dim 64, 128 or 256) or raises; on a CPU tensor it runs
+    the plain version.  Lengths are clamped to ``[0, T]`` by the kernel.  A
+    ring deeper than the card's shared memory holds raises ``ValueError``
+    before any launch, on every device.
     """
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B,N,H), k/v (B,T,KH,H); got {tuple(q.shape)}, "
@@ -74,6 +93,7 @@ def decode_attention(
                          f"{tuple(lengths.shape)} do not match")
     if not (q.device == k.device == v.device == lengths.device):
         raise ValueError("q, k, v and lengths must be on one device")
+    distance, slots = ring_of(spec, t, h)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths)
     if q.device.type != "cuda":
@@ -89,7 +109,6 @@ def decode_attention(
         raise ValueError(f"at most {MAX_GROUP} query heads per KV head, got {n // kh}")
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("q/k/v must be 16-byte aligned")
-    distance, slots = ring_of(spec, t)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -18,13 +18,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SMEM_LIMIT
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 #: the CUDA kernel's key block (rows of K/V staged per pipeline step) and
 #: its q rows per CTA (queries x the G heads of one KV head)
 BLOCK_KV = 64
 BLOCK_ROWS = 64
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -32,7 +33,16 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
         ctypes.c_int,
     ),
+    "repro_flash_attention_smem_bytes": ([_I], ctypes.c_int),
 }
+
+
+def smem_bytes(h: int) -> int:
+    """Shared memory of one block of the kernel at head dim ``h``: the f32
+    q tile, two stages of K (rows padded by 8) and V, the scores and the
+    softmax state (``Smem<H>`` in the CUDA source)."""
+    return (BLOCK_ROWS * h * 4 + 2 * BLOCK_KV * (h + 8) * 2 + 2 * BLOCK_KV * h * 2
+            + BLOCK_ROWS * BLOCK_KV * 4 + 3 * BLOCK_ROWS * 4)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -44,6 +54,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
+    if smem_bytes(h) > SMEM_LIMIT:
+        raise ValueError(f"flash_attention: a tile at head dim {h} needs {smem_bytes(h)} bytes "
+                         f"of shared memory, more than the {SMEM_LIMIT} bytes a block can use "
+                         "on the H100")
 
 
 def flash_attention(
@@ -58,7 +72,9 @@ def flash_attention(
     """GQA flash attention; the value of :func:`attention_ref`.
 
     On a CUDA tensor this launches the kernel (bf16, contiguous, head dim
-    64 or 128) or raises; on a CPU tensor it runs the plain version.
+    64, 128 or 256) or raises; on a CPU tensor it runs the plain version.
+    A head dim whose tile does not fit the card's shared memory raises
+    ``ValueError`` on every device.
     """
     _check(q, k, v)
     b, s, n, h = q.shape

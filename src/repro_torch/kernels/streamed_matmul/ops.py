@@ -28,6 +28,7 @@ import torch
 from repro_torch.core.engine import static_auto_distance
 from repro_torch.core.refspec import PrefetchSpec
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SMEM_LIMIT
 from repro_torch.kernels.streamed_matmul.ref import matmul_ref
 
 _DEFAULT_SPEC = PrefetchSpec(buffer_size=2, elements_per_fetch=1, distance=1)
@@ -37,8 +38,6 @@ BLOCK_M, BLOCK_N, BLOCK_K = 64, 64, 32
 #: padded row of the x tile in shared memory, in elements, per dtype
 _X_STRIDE = {torch.float32: BLOCK_K + 4, torch.bfloat16: BLOCK_K + 8}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: dynamic shared memory one block may use on the H100 (227 KB)
-SMEM_LIMIT = 232448
 #: deepest lookahead the kernel's ``cp.async.wait_group`` switch covers
 MAX_DISTANCE = 15
 

@@ -1,18 +1,22 @@
 """Where the serving time goes on the card: a torch.profiler breakdown.
 
-Runs the port's serving path (``repro_torch.launch.serve``'s prefill and
-decode steps) on full-width smollm-360m and profiles one request's prefill
-and a window of batched decode steps.  For each phase it prints the host
-wall time (ended by a device synchronise; the fastest and the median of a
-few repeats, since the host's clock is noisy), the device busy time (the sum
-of kernel time the profiler saw), the device idle share, the kernel
-launches, and the kernels that take the most device time.
+Runs the port's serving path (``repro_torch.launch.serve``'s prefill of the
+batch and its decode steps, on either of its schedules) on a full-width
+model and profiles the prefill and a window of batched decode steps.  For
+each phase it prints the host wall time (ended by a device synchronise; the
+fastest and the median of a few repeats, since the host's clock is noisy),
+the device busy time (the sum of kernel time the profiler saw), the device
+idle share, the kernel launches, and the kernels that take the most device
+time.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      [--arch smollm-360m|recurrentgemma-2b] [--prompt-len 512] \\
       [--attn-impl pallas|xla] [--out profile_serve.json]
 
-The cell is chip_smoke.py's: batch 4, prompt 512, random bf16 weights
-from seed 0; 8 decode steps are profiled.
+Batch 4, random bf16 weights from seed 0; 8 decode steps are profiled.
+chip_smoke.py's cells take prompt 512 for smollm-360m and 3072 for
+recurrentgemma-2b (longer than its 2048 window).  Prefill times are per
+request: the batch's over 4.
 
 Needs a CUDA card; it measures the device and has no CPU mode.
 """
@@ -28,11 +32,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch import serve as sv
 from repro_torch.train import steps as st
 
-BATCH, PROMPT, STEPS, SEED = 4, 512, 8, 0
+BATCH, STEPS, SEED = 4, 8, 0
 TOP = 8  # kernels listed per phase
 REPEATS = 5  # unprofiled wall-time repeats
 
@@ -65,40 +70,42 @@ def _breakdown(prof, wall_s: float, n: int, top: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="smollm-360m", choices=ARCHS)
+    ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--attn-impl", default="pallas", choices=("xla", "pallas"),
                     help="pallas: the CUDA attention kernels; xla: the plain path")
     ap.add_argument("--out", default=None, help="also write the breakdown here as JSON")
     args = ap.parse_args()
 
     dev = resolve_device("cuda")
-    cfg = dataclasses.replace(get_config("smollm-360m"), attn_impl=args.attn_impl)
+    cfg = dataclasses.replace(get_config(args.arch), attn_impl=args.attn_impl)
+    prompt = args.prompt_len
     params = st.init_params(cfg, SEED, dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    prompts = torch.randint(1, cfg.vocab_size, (BATCH, PROMPT), generator=g, device=dev)
-    max_len = PROMPT + STEPS + 2
-    prefill = st.make_prefill_step(cfg, 1, max_len)
+    prompts = torch.randint(1, cfg.vocab_size, (BATCH, prompt), generator=g, device=dev)
+    max_len = prompt + STEPS + 2
     decode = st.make_decode_step(cfg)
 
-    def prefill_one():
-        return prefill(params, {"tokens": prompts[:1]})
+    def prefill_once():
+        return sv.prefill_all(cfg, params, prompts, max_len)
 
-    slots = [prefill(params, {"tokens": prompts[b:b + 1]}) for b in range(BATCH)]
-    caches = {k: torch.cat([c[k] for _, c in slots], dim=1) for k in slots[0][1]}
-    tokens = torch.cat([lg[:, -1].argmax(-1) for lg, _ in slots])[:, None]
+    first, caches = prefill_once()
+    tokens = first.long()[:, None]
 
     def decode_steps(caches, tokens):
         for i in range(STEPS):
-            pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int32, device=dev)
+            pos = sv.step_pos(cfg, BATCH, prompt + i, dev)
             logits, caches = decode(params, caches, {"tokens": tokens}, pos)
             tokens = logits[:, -1].argmax(-1)[:, None]
         return tokens
 
-    decode_steps({k: v.clone() for k, v in caches.items()}, tokens)  # warm-up
+    decode_steps(st.clone_caches(caches), tokens)  # warm-up
     torch.cuda.synchronize()
 
-    report = {"card": torch.cuda.get_device_name(0), "attn_impl": args.attn_impl,
-              "batch": BATCH, "prompt_len": PROMPT}
-    phases = (("prefill (one request)", prefill_one, 1),
+    report = {"card": torch.cuda.get_device_name(0), "arch": args.arch,
+              "attn_impl": args.attn_impl, "batch": BATCH, "prompt_len": prompt}
+    schedule = "lock-step" if sv.lock_step(cfg) else "one request at a time"
+    phases = ((f"prefill (per request; batch of {BATCH}, {schedule})", prefill_once, BATCH),
               ("decode (one batched step)", lambda: decode_steps(caches, tokens), STEPS))
     # wall times first, without the profiler: once it has run, its tracing
     # adds host time to every later launch

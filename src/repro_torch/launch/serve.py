@@ -1,21 +1,29 @@
 """Greedy-decode serving on one card: the unpaged device-resident path.
 
 The counterpart of the JAX package's ``serve(..., kv_page_len=0)`` with
-``kv_kind="device"`` (``repro/launch/serve.py:_serve_unpaged``): one prefill
-per request, the caches stacked on the batch axis, a warm-up decode on a
-copy of the caches, then a timed greedy loop with per-slot positions.  It
-is the baseline every serving placement must match.
+``kv_kind="device"`` (``repro/launch/serve.py:_serve_unpaged``), with its two
+schedules.  Pageable (full-attention) caches: one prefill per request, the
+caches stacked on the batch axis, and per-slot positions.  Ring and
+recurrent caches (recurrentgemma's; ``slot_pos`` is shared across the
+batch): one batched prefill of all prompts and one scalar position per step
+(lock-step).  Either way a warm-up decode runs on a copy of the caches, then
+a timed greedy loop.  It is the baseline every serving placement must match.
 
 The paged ``ServeSession``, host and disk cache kinds, streamed weights,
 the load generator and model parallelism are later slices (ROADMAP.md).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --batch 4 --prompt-len 512 --gen 32 --kv-page-len 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+      --batch 4 --prompt-len 3072 --gen 32 --kv-page-len 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+      --smoke --device cpu --kv-page-len 0
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -40,6 +48,43 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@functools.lru_cache(maxsize=None)
+def lock_step(cfg) -> bool:
+    """True iff ``cfg`` serves in lock-step: its caches hold a ring
+    (``slot_pos`` shared across the batch) or recurrent states, so requests
+    cannot be prefilled one at a time or decoded at per-slot positions."""
+    return not st.paged_cache_supported(st.abstract_caches(cfg, 1, 1))
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    return logits[..., -1, :].argmax(dim=-1).to(torch.int32)
+
+
+def prefill_all(cfg, params: ParamTree, prompts: torch.Tensor, max_len: int) -> tuple[torch.Tensor, dict]:
+    """Prefill every row of ``prompts`` ((B, S) token ids on the device) into
+    caches of ``max_len`` positions.  Returns each request's first greedy
+    token ((B,) int32) and the caches.  Pageable caches prefill one request
+    at a time and stack on the batch axis; in :func:`lock_step` all rows
+    prefill in one batch."""
+    if lock_step(cfg):
+        logits, caches = st.make_prefill_step(cfg, prompts.shape[0], max_len)(params, {"tokens": prompts})
+        return _greedy(logits), caches
+    prefill_fn = st.make_prefill_step(cfg, 1, max_len)
+    first, slot_caches = [], []
+    for b in range(prompts.shape[0]):
+        logits, cache = prefill_fn(params, {"tokens": prompts[b:b + 1]})
+        first.append(_greedy(logits))
+        slot_caches.append(cache)
+    # (L, B, T, K, H): requests stack on the batch axis
+    return torch.cat(first), {k: torch.cat([c[k] for c in slot_caches], dim=1) for k in slot_caches[0]}
+
+
+def step_pos(cfg, batch: int, pos: int, device) -> torch.Tensor:
+    """The decode step's position ``pos``: one per slot ((B,) int32), or one
+    scalar in :func:`lock_step`."""
+    return torch.full(() if lock_step(cfg) else (batch,), pos, dtype=torch.int32, device=device)
+
+
 def serve_loop(
     cfg,
     params: ParamTree,
@@ -52,34 +97,22 @@ def serve_loop(
     """Serve one greedy request per row of ``prompts`` ((B, S) int32) for
     ``gen`` tokens with ``params`` on ``device``.
 
-    The first token of each request comes from its prefill; ``gen - 1``
-    decode steps follow.  Tokens stay on the device until the loop ends.
+    The first token of each request comes from its prefill
+    (:func:`prefill_all`); ``gen - 1`` decode steps follow.  Tokens stay on
+    the device until the loop ends.
     """
     batch, prompt_len = prompts.shape
-    max_len = prompt_len + gen
-    prefill_fn = st.make_prefill_step(cfg, 1, max_len)
+    # decided before the clock starts: the first call builds a cache tree on
+    # the meta device, a one-time cost of the process that is not prefill
+    lock_step(cfg)
     decode_fn = st.make_decode_step(cfg)
     prompts_t = torch.tensor(np.asarray(prompts), dtype=torch.long, device=device)
-
-    def argmax(logits: torch.Tensor) -> torch.Tensor:
-        return logits[..., -1, :].argmax(dim=-1).to(torch.int32)
-
-    def step_pos(i: int) -> torch.Tensor:
-        return torch.full((batch,), prompt_len + i, dtype=torch.int32, device=device)
 
     def step_batch(tok: torch.Tensor) -> dict:
         return {"tokens": tok.to(torch.long).reshape(-1, 1)}
 
     t0 = time.perf_counter()
-    slot_caches, first = [], []
-    for b in range(batch):
-        logits, cache = prefill_fn(params, {"tokens": prompts_t[b:b + 1]})
-        first.append(argmax(logits))
-        slot_caches.append(cache)
-    # (L, B, T, K, H): requests stack on the batch axis
-    caches = {k: torch.cat([c[k] for c in slot_caches], dim=1) for k in slot_caches[0]}
-    del slot_caches
-    tokens = torch.cat(first)
+    tokens, caches = prefill_all(cfg, params, prompts_t, prompt_len + gen)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -87,16 +120,17 @@ def serve_loop(
         # one step on a throwaway copy (the step updates caches in place), so
         # the timed loop does not include first-call costs such as the kernels'
         # build and load
-        caches_w = {k: v.clone() for k, v in caches.items()}
-        decode_fn(params, caches_w, step_batch(tokens), step_pos(0))
+        caches_w = st.clone_caches(caches)
+        decode_fn(params, caches_w, step_batch(tokens), step_pos(cfg, batch, prompt_len, device))
         del caches_w
         _sync(device)
 
     out_tokens = [tokens]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, caches = decode_fn(params, caches, step_batch(tokens), step_pos(i))
-        tokens = argmax(logits)
+        pos = step_pos(cfg, batch, prompt_len + i, device)
+        logits, caches = decode_fn(params, caches, step_batch(tokens), pos)
+        tokens = _greedy(logits)
         out_tokens.append(tokens)
     _sync(device)
     t_decode = time.perf_counter() - t0

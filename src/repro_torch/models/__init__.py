@@ -1,10 +1,11 @@
-"""Model substrate: the uniform decoder stack, in PyTorch."""
-from repro_torch.models import attention, layers, rope, transformer
+"""Model substrate: the uniform decoder stack and the recurrentgemma hybrid, in PyTorch."""
+from repro_torch.models import attention, layers, rglru, rope, transformer
 from repro_torch.models.transformer import decode_step, init_caches, init_model, prefill
 
 __all__ = [
     "attention",
     "layers",
+    "rglru",
     "rope",
     "transformer",
     "init_model",

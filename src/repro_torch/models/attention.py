@@ -1,15 +1,24 @@
-"""GQA attention over full-attention KV caches.
+"""GQA attention: full / sliding-window, with ring-buffer KV caches.
 
 Layouts follow the JAX package: q/k/v weights ``(D, N, H)`` / ``(D, K, H)``,
-output weight ``(N, H, D)``; activations ``(B, S, N, H)``; the cache is
-``{"k": (B, T, K, H), "v": ...}`` with slot ``t`` holding position ``t``.
-GQA is computed grouped: q ``(B, S, K, G, H)`` against k/v ``(B, T, K, H)``;
-KV heads are never materialized ``G``-fold.  Softmax in f32.
+output weight ``(N, H, D)``; activations ``(B, S, N, H)``.  GQA is computed
+grouped: q ``(B, S, K, G, H)`` against k/v ``(B, T, K, H)``; KV heads are
+never materialized ``G``-fold.  Softmax in f32.
+
+Cache layout (the JAX package's):
+  full attention: ``{"k": (B, T, K, H), "v": ...}`` — slot ``t`` holds
+  position ``t``.
+  sliding window (``swa``, and the hybrid's local attention):
+  ``{"k": (B, W, K, H), "v": ..., "slot_pos": (W,) int32}`` — a ring;
+  ``slot_pos[j]`` is the absolute position held in slot ``j`` (-1 = empty),
+  shared across the batch, so a ring decodes with one scalar position.
 
 ``cfg.attn_impl == "pallas"`` (the JAX name of the kernel path) routes
-prefill through the flash-attention kernel and decode through the
-decode-attention kernel.  Sliding-window ring caches and
-``attn_impl="chunked"`` are not ported yet.
+prefill through the flash-attention kernel (with the window) and decode
+through the decode-attention kernel.  Over a ring the valid slots are
+always the prefix ``[0, min(pos + 1, W))`` and softmax does not depend on
+the order of the keys, so decode takes ``lengths = min(pos + 1, W)``.
+``attn_impl="chunked"`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,12 +34,6 @@ from repro_torch.models.layers import Params
 
 NEG_INF = -1e30
 
-_RING_TODO = (
-    "sliding-window ring KV caches are not ported yet "
-    "(ROADMAP.md, queue 1 item 1: recurrentgemma through rglru_scan)"
-)
-
-
 def _window_of(cfg: ModelConfig) -> int:
     return cfg.window if (cfg.attn_type == "swa" or cfg.family == "hybrid") else 0
 
@@ -41,8 +44,6 @@ def _check_impl(cfg: ModelConfig) -> None:
             "attn_impl='chunked' is not ported yet "
             "(ROADMAP.md, queue 1 item 7: the other model families)"
         )
-    if _window_of(cfg):
-        raise NotImplementedError(_RING_TODO)
 
 
 # ---------------------------------------------------------------------------
@@ -70,13 +71,14 @@ def init_attention(cfg: ModelConfig, *, generator: torch.Generator, device: torc
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
                device: Optional[torch.device] = None) -> dict:
-    if cfg.attn_type == "swa" or (cfg.family == "hybrid" and cfg.window):
-        raise NotImplementedError(_RING_TODO)
     k, h = cfg.n_kv_heads, cfg.head_dim
-    return {
+    cache = {
         "k": torch.zeros((batch, cache_len, k, h), dtype=dtype, device=device),
         "v": torch.zeros((batch, cache_len, k, h), dtype=dtype, device=device),
     }
+    if cfg.attn_type == "swa" or (cfg.family == "hybrid" and cfg.window):
+        cache["slot_pos"] = torch.full((cache_len,), -1, dtype=torch.int32, device=device)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -148,23 +150,35 @@ def attention_prefill(
 ) -> tuple[torch.Tensor, dict]:
     """Causal attention over the prompt + populate the KV cache.
 
-    The cache is written in place (the JAX package returns an updated copy):
-    the first ``min(S, T)`` slots receive the prompt's keys and values.
+    The cache is written in place (the JAX package returns an updated copy).
+    A full cache's first ``min(S, T)`` slots receive the prompt's keys and
+    values; a ring of W slots keeps the last ``min(S, W)`` at slots
+    ``position % W``, matching ring-buffer decode.
     """
     _check_impl(cfg)
     q, k, v = _project_qkv(cfg, p, x)
     if angles is not None:
         q = rope.apply_rope(q, angles)
         k = rope.apply_rope(k, angles)
+    window = _window_of(cfg)
     if cfg.attn_impl == "pallas":
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                              window=window)
     else:
-        out = _gqa_attend(cfg, q, k, v, causal_mask(x.shape[1], device=x.device))
+        out = _gqa_attend(cfg, q, k, v, causal_mask(x.shape[1], window, device=x.device))
     out = _out_proj(p, out, x.dtype)
 
-    take = min(x.shape[1], cache["k"].shape[1])
-    cache["k"][:, :take] = k[:, :take].to(cache["k"].dtype)
-    cache["v"][:, :take] = v[:, :take].to(cache["v"].dtype)
+    s, cache_len = x.shape[1], cache["k"].shape[1]
+    take = min(s, cache_len)
+    if "slot_pos" in cache:
+        positions = torch.arange(s - take, s, device=x.device)
+        slots = positions % cache_len
+        cache["k"][:, slots] = k[:, s - take:].to(cache["k"].dtype)
+        cache["v"][:, slots] = v[:, s - take:].to(cache["v"].dtype)
+        cache["slot_pos"][slots] = positions.to(torch.int32)
+    else:
+        cache["k"][:, :take] = k[:, :take].to(cache["k"].dtype)
+        cache["v"][:, :take] = v[:, :take].to(cache["v"].dtype)
     return out, cache
 
 
@@ -176,13 +190,16 @@ def attention_decode(
     cache: dict,
     pos: Union[int, torch.Tensor],  # next position to write; or (B,) per slot
 ) -> tuple[torch.Tensor, dict]:
-    """One decode step with KV-cache append.
+    """One decode step with KV-cache append (ring for windowed archs).
 
     ``pos`` may be a per-batch-slot vector (the serving path: every slot
-    decodes its own context position).  The new K/V row is written into
-    the cache in place at ``pos`` (the JAX package returns an updated copy);
-    attention then covers slots ``[0, pos]``.  Under ``attn_impl="pallas"``
-    that is the decode kernel with ``lengths = pos + 1``.
+    decodes its own context position); that needs a full-attention cache,
+    since a ring's ``slot_pos`` is shared across the batch.  The new K/V row
+    is written into the cache in place (the JAX package returns an updated
+    copy): at ``pos`` in a full cache, at ``pos % W`` in a ring.  Attention
+    then covers slots ``[0, pos]``, or the ring's valid slots.  Under
+    ``attn_impl="pallas"`` that is the decode kernel with ``lengths = pos +
+    1``, or ``min(pos + 1, W)`` over a ring.
     """
     _check_impl(cfg)
     q, k, v = _project_qkv(cfg, p, x)
@@ -191,7 +208,15 @@ def attention_decode(
         k = rope.apply_rope(k, angles)
 
     b, cache_len = cache["k"].shape[:2]
-    pos = torch.as_tensor(pos, device=x.device).expand(b)  # a scalar: every slot's position
+    pos = torch.as_tensor(pos, device=x.device)
+    if "slot_pos" in cache:
+        if pos.dim() == 1:
+            raise NotImplementedError(
+                "per-slot decode positions require a full-attention cache "
+                "(ring slot_pos is shared across the batch)"
+            )
+        return _ring_decode(cfg, p, q, k, v, cache, pos, x.dtype)
+    pos = pos.expand(b)  # a scalar: every slot's position
     rows = torch.arange(b, device=x.device)
     cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
@@ -203,3 +228,21 @@ def attention_decode(
         mask = (torch.arange(cache_len, device=x.device)[None, :] <= pos[:, None])[:, None, :]
         out = _gqa_attend(cfg, q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask)
     return _out_proj(p, out, x.dtype), cache
+
+
+def _ring_decode(cfg: ModelConfig, p: Params, q, k, v, cache: dict, pos: torch.Tensor, dt):
+    """Decode against a ring at the scalar position ``pos`` (a 0-d tensor):
+    indexed by tensors, so no step waits on the device."""
+    b, cache_len = cache["k"].shape[:2]
+    slot = (pos % cache_len).reshape(1).long()
+    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    cache["slot_pos"].index_copy_(0, slot, pos.reshape(1).to(torch.int32))
+    if cfg.attn_impl == "pallas":
+        lengths = torch.clamp(pos + 1, max=cache_len).to(torch.int32).expand(b).contiguous()
+        out = decode_attention(q[:, 0], cache["k"], cache["v"], lengths)[:, None]
+    else:
+        sp = cache["slot_pos"]
+        valid = (sp >= 0) & (sp >= pos - cache_len + 1) & (sp <= pos)
+        out = _gqa_attend(cfg, q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), valid[None])
+    return _out_proj(p, out, dt), cache

@@ -1,4 +1,5 @@
-"""Step builders for serving: prefill and decode, plus parameter setup.
+"""Step builders for serving: prefill and decode, plus parameter and cache
+setup.
 
 Counterparts of the JAX package's ``make_prefill_step`` /
 ``make_decode_step`` (``repro/train/steps.py``).  PyTorch runs eagerly, so a
@@ -8,7 +9,7 @@ in later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 
@@ -58,3 +59,25 @@ def init_params(cfg: ModelConfig, seed: int, device) -> ParamTree:
 def abstract_caches(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     """Cache shapes and dtypes on the meta device — no allocation."""
     return transformer.init_caches(cfg, batch, seq_len, cfg.compute_dtype, "meta")
+
+
+def clone_caches(caches: Mapping) -> dict:
+    """A deep copy of a cache tree (the steps update caches in place)."""
+    return {k: clone_caches(v) if isinstance(v, Mapping) else v.clone() for k, v in caches.items()}
+
+
+def paged_cache_supported(cache_template: Mapping) -> bool:
+    """True iff every cache leaf is a full-attention ``k``/``v`` tensor of
+    rank >= 4, one that can be paged along its context axis and decoded with
+    per-slot positions (the JAX package's ``core/kvpager.py``).  Ring
+    buffers (``slot_pos`` shared across the batch) and recurrent states (no
+    context axis) cannot: such caches serve in lock-step."""
+    def leaves(tree, name=None):
+        if isinstance(tree, Mapping):
+            for k, v in tree.items():
+                yield from leaves(v, k)
+        else:
+            yield name, tree
+
+    flat = list(leaves(cache_template))
+    return bool(flat) and all(name in ("k", "v") and t.dim() >= 4 for name, t in flat)

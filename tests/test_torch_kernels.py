@@ -6,6 +6,9 @@ them.  Inputs are made with numpy from a seed and handed to both.  Tests
 marked ``cuda`` run the CUDA kernels against the plain versions on a card
 and skip without one.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -160,6 +163,45 @@ def test_decode_matches_flash_single_token():
 
 
 # ---------------------------------------------------------------------------
+# head dim 256 (recurrentgemma's local attention) and shared memory
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,window", [(64, 16), (100, 0)])
+def test_flash_attention_head_dim_256_matches_jax(s, window):
+    arrays = _inputs(10, [(1, s, 10, 256), (1, s, 1, 256), (1, s, 1, 256)], [0.5, 0.5, 1.0])
+    (jq, jk, jv), (q, k, v) = _to(arrays, torch.float32)
+    ref = jax_flash_attention(jq, jk, jv, causal=True, window=window, block_q=64, block_kv=64)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(_f32(out), _f32(ref), **F32_TOL)
+
+
+def test_decode_attention_head_dim_256_matches_jax():
+    arrays = _inputs(11, [(2, 10, 256), (2, 48, 1, 256), (2, 48, 1, 256)], [0.5, 0.5, 1.0])
+    (jq, jk, jv), (q, k, v) = _to(arrays, torch.float32)
+    lengths = np.asarray([48, 17], np.int32)
+    ref = jax_decode_attention(jq, jk, jv, jnp.asarray(lengths))
+    out = decode_attention(q, k, v, torch.from_numpy(lengths), spec=PrefetchSpec(3, 1, 2))
+    np.testing.assert_allclose(_f32(out), _f32(ref), **F32_TOL)
+
+
+def test_attention_refuses_what_does_not_fit_shared_memory_on_every_device():
+    """A ring or tile over the 232,448 bytes a block may use raises
+    ``ValueError`` before any launch, on the CPU too."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    assert fa.smem_bytes(256) == 215_808 <= fa.SMEM_LIMIT < fa.smem_bytes(512)
+    assert da.smem_bytes(256, 3) == 3 * 66_560 + 20_672 <= da.SMEM_LIMIT < da.smem_bytes(256, 4)
+    q, k = torch.zeros(1, 10, 256), torch.zeros(1, 64, 1, 256)
+    one = torch.ones(1, dtype=torch.int32)
+    assert decode_attention(q, k, k, one, spec=PrefetchSpec(3, 1, 2)).shape == q.shape
+    with pytest.raises(ValueError, match="at most 3 stages"):
+        decode_attention(q, k, k, one, spec=PrefetchSpec(4, 1, 3))
+    with pytest.raises(ValueError, match="232448"):
+        flash_attention(torch.zeros(1, 8, 2, 512), torch.zeros(1, 8, 1, 512), torch.zeros(1, 8, 1, 512))
+
+
+# ---------------------------------------------------------------------------
 # PrefetchSpec and the ring
 # ---------------------------------------------------------------------------
 
@@ -199,12 +241,25 @@ def test_static_auto_distance_matches_jax():
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     """No compiler is no silent fallback: the build raises."""
-    assert _build.sources() == ["decode_attention", "flash_attention", "streamed_matmul"]
+    assert _build.sources() == ["decode_attention", "flash_attention", "rglru_scan", "streamed_matmul"]
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def test_fault_check_plants_each_fault_on_one_kernel_line():
+    """``fault_check.py`` edits one line of a kernel source per fault: the
+    line must stand exactly once in the source it names."""
+    path = Path(__file__).resolve().parents[1] / "fault_check.py"
+    spec = importlib.util.spec_from_file_location("fault_check", path)
+    fault_check = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fault_check)
+    assert fault_check.FAULTS
+    for source, line, planted in fault_check.FAULTS.values():
+        assert (_build.CSRC / source).read_text().count(line) == 1
+        assert planted != line
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +306,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     qb = q.to(torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(qb, qb[:, :, :2], qb[:, :, :2])
-    with pytest.raises(RuntimeError, match="CUDA error"):  # a ring deeper than shared memory
+    with pytest.raises(ValueError, match="232448"):  # a ring deeper than shared memory
         decode_attention(qb[:, 0], qb[:, :, :2].contiguous(), qb[:, :, :2].contiguous(),
                          torch.ones(1, dtype=torch.int32, device=cuda),
                          spec=PrefetchSpec(buffer_size=20, distance=3))

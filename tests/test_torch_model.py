@@ -198,7 +198,7 @@ def test_registry_matches_jax():
 # what is not ported raises
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "recurrentgemma-2b", "xlstm-1.3b",
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-1.3b",
                                   "qwen3-moe-235b-a22b", "musicgen-medium", "qwen2-vl-72b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -206,10 +206,32 @@ def test_unported_families_raise(arch):
 
 
 def test_unported_attention_modes_raise():
+    """``attn_impl="chunked"`` raises; sliding-window rings are ported: an
+    olmo-1b smoke config with ``attn_type="swa"``, window 4, prefills 9
+    tokens and decodes 5 steps (scalar positions) equal to the JAX package."""
     pc = dataclasses.replace(get_smoke_config("smollm-360m"), attn_impl="chunked")
     params = st.init_params(pc, 0, "cpu")
     with pytest.raises(NotImplementedError, match="chunked"):
         st.make_prefill_step(pc, 1, 8)(params, {"tokens": torch.ones(1, 4, dtype=torch.long)})
-    swa = dataclasses.replace(get_smoke_config("olmo-1b"), attn_type="swa", window=4)
-    with pytest.raises(NotImplementedError, match="ring"):
-        transformer.init_caches(swa, 1, 8)
+    jc, pc = _cfgs("float32", "pallas", "olmo-1b")
+    jc, pc = (dataclasses.replace(c, attn_type="swa", window=4) for c in (jc, pc))
+    jparams = jax_steps.init_train_state(jax.random.PRNGKey(0), jc)[0]
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), pc, "cpu")
+    tokens = np.random.default_rng(12).integers(1, jc.vocab_size, (B, 9), dtype=np.int32)
+    jcaches = jax_tf.init_caches(jc, B, 16, jc.compute_dtype)
+    jl, jcaches = jax_tf.prefill(jc, jparams, {"tokens": jnp.asarray(tokens)}, jcaches)
+    with torch.no_grad():
+        caches = transformer.init_caches(pc, B, 16, pc.compute_dtype, "cpu")
+        tl, caches = transformer.prefill(pc, params, {"tokens": torch.from_numpy(tokens).long()}, caches)
+    assert tuple(caches["slot_pos"].shape) == (pc.n_layers, 4)
+    for i in range(5):
+        np.testing.assert_allclose(_f32(tl), _f32(jl), err_msg=f"step {i}", **F32_TOL)
+        nxt = np.asarray(jnp.argmax(jl[:, -1], axis=-1), np.int32)
+        jl, jcaches = jax_tf.decode_step(jc, jparams, {"tokens": jnp.asarray(nxt[:, None])}, jcaches,
+                                         jnp.asarray(9 + i, jnp.int32))
+        with torch.no_grad():
+            tl, caches = transformer.decode_step(pc, params, {"tokens": torch.tensor(nxt[:, None]).long()},
+                                                 caches, torch.tensor(9 + i, dtype=torch.int32))
+    np.testing.assert_allclose(_f32(tl), _f32(jl), **F32_TOL)
+    for name in ("k", "v", "slot_pos"):
+        np.testing.assert_allclose(_f32(caches[name]), _f32(jcaches[name]), err_msg=name, **F32_TOL)
