@@ -9,12 +9,17 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
 
 0. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the compiler's register/spill report;
+   the tensor-core libraries (``streamed_matmul``, ``flash_attention``) must
+   hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in their
+   SASS (``cuobjdump -sass``) and spill nothing;
 1. hold each kernel against its plain PyTorch version on the card at the
    paths' shapes (the JAX package's ``_tol``: bf16 rtol = atol = 2e-2,
    f32 rtol 2e-4 / atol 2e-3; ``rglru_scan`` rtol = atol = 1e-5, its JAX
    test's); decode must give the same bits for three ``PrefetchSpec``
-   rings, ``streamed_matmul`` for six, ``rglru_scan`` for three
-   ``(chunk_t, block_w)`` tilings; the attention kernels also at the
+   rings, ``streamed_matmul`` for six (on its tensor-core route at both of
+   smollm-360m's MLP shapes), ``rglru_scan`` for three
+   ``(chunk_t, block_w)`` tilings; flash also at head_dim 128 with 1 and 8
+   query heads per KV head and a window; the attention kernels also at the
    hybrid's head_dim 256 with 10 query heads over 1 KV head, on scores
    peaked enough that a missing key block or a window off by one fails
    (decode there at atol 2e-3);
@@ -40,14 +45,19 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    exact payload per group — and again with the weights at ``DiskHost``
    through ``stream_host(policy=DISK_PARAMS)``; the kernel sweep at 512³
    f32 and the host-stream distance sweep; ``streamed_matmul`` at full
-   width (smollm-360m's MLP at the serving token count);
+   width (smollm-360m's MLP at the serving token count), which must take
+   the tensor-core route (its own launch count): each product against its
+   plain version on the same inputs, the chain against float64 as close as
+   the plain chain;
 5. time each kernel, its plain version and one PyTorch library call for the
    same function (``scaled_dot_product_attention``, ``torch.matmul``:
    yardsticks the port never calls; no single PyTorch call computes a
    linear recurrence) with CUDA events, L2 flushed before every launch, at
    both serving paths' shapes, beside the least time the card could take
    (bytes at 3.35 TB/s; FLOPs at 989 TFLOP/s bf16 on the tensor cores, or
-   67 TFLOP/s f32 on the CUDA cores for the recurrence).
+   67 TFLOP/s f32 on the CUDA cores for the recurrence); it also logs the
+   host time of one call of each serving-path wrapper and the tensor-core
+   ``streamed_matmul`` by ring depth.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -57,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -128,6 +139,11 @@ def mm_inputs(m, k, n, dtype, seed=3):
     return x, w
 
 
+#: the libraries redesigned for Hopper's tensor cores: their SASS must hold
+#: wgmma and TMA loads, and no kernel of theirs may spill
+TENSOR_CORE_LIBRARIES = ("streamed_matmul", "flash_attention")
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
@@ -135,9 +151,18 @@ def phase_build() -> None:
     paths = _build.build()
     log(f"phase 0 build: {len(paths)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
+        spilled = False
         for line in path.with_suffix(".log").read_text().splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            spilled |= bool(spill) and int(spill[1]) + int(spill[2]) > 0
+        if name in TENSOR_CORE_LIBRARIES:
+            counts = _build.sass_counts(name, ("HGMMA", "UTMALDG"))
+            log(f"  {name}: SASS holds {counts}")
+            if min(counts.values()) == 0 or spilled:
+                raise SystemExit(f"{name}: the tensor-core kernels must issue wgmma and TMA loads "
+                                 f"and spill nothing: {counts}, spilled {spilled}")
 
 
 def flash_inputs(b, s, t, n, kh, h, seed=1, qk=0.5):
@@ -167,6 +192,8 @@ def phase_kernels(cfg, hcfg) -> dict:
         (1, 256, 256, 4, 2, 64, 64, 0),
         (2, 64, 192, 4, 2, 64, 0, 128),
         (1, 128, 128, 4, 2, 128, 0, 0),
+        (1, 300, 300, 8, 8, 128, 100, 0),
+        (2, 300, 300, 8, 1, 128, 100, 20),
     ]
     for i, (b, s, t, nn, kk, hh, window, qo) in enumerate(flash_cases):
         q, k, v = flash_inputs(b, s, t, nn, kk, hh)
@@ -212,12 +239,16 @@ def check_smem_formulas() -> None:
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rglru_scan import ops as lru
+    from repro_torch.kernels.streamed_matmul import ops as smm
 
     fl = _build.load("flash_attention", fa._SIGNATURES)
     dl = _build.load("decode_attention", da._SIGNATURES)
     ll = _build.load("rglru_scan", lru._SIGNATURES)
+    sl = _build.load("streamed_matmul", smm._SIGNATURES)
     pairs = [(f"flash H={h}", fa.smem_bytes(h), fl.repro_flash_attention_smem_bytes(h))
              for h in fa.HEAD_DIMS]
+    pairs += [(f"streamed_matmul tensor cores slots={n}", smm.ring_bytes(torch.bfloat16, n),
+               sl.repro_streamed_matmul_tc_smem_bytes(n)) for n in range(1, smm.max_slots(torch.bfloat16) + 1)]
     pairs += [(f"decode H={h} slots={n}", da.smem_bytes(h, n), dl.repro_decode_attention_smem_bytes(h, n))
               for h in da.HEAD_DIMS for n in (1, 2, 3)]
     pairs += [(f"rglru_scan rows={r} block_w={w}", lru.smem_bytes(r, w),
@@ -333,14 +364,22 @@ def check_streamed_matmul(cfg) -> dict:
         errs[f"streamed_matmul_{i}"] = err
     specs = [PrefetchSpec(slots, 1, dist) for dist, slots in [(0, 1), (1, 2), (2, 3), (3, 4), (1, 4)]]
     specs.append(PrefetchSpec(5, 1, AUTO))
-    for m, k, n, dt in [(64, 256, 192, torch.float32), (*mlp_shapes(cfg)[0], torch.bfloat16)]:
+    mlp = [(*shape, torch.bfloat16) for shape in mlp_shapes(cfg)]
+    for m, k, n, dt in [(64, 256, 192, torch.float32), *mlp]:
         x, w = mm_inputs(m, k, n, dt)
+        route = ops.route(x, w)
+        tc_before = streamed_matmul.launches_tc
         outs = [streamed_matmul(x, w, spec=sp) for sp in specs]
+        tc = streamed_matmul.launches_tc - tc_before
         same = all(torch.equal(outs[0], o) for o in outs[1:])
-        log(f"  streamed_matmul ({m},{k})@({k},{n}) {dt} bitwise equal across "
-            f"{[(sp.distance, sp.buffer_size) for sp in specs]} (distance, buffer_size): {same}")
+        log(f"  streamed_matmul ({m},{k})@({k},{n}) {dt} on {route} ({tc} tensor-core launches) "
+            f"bitwise equal across {[(sp.distance, sp.buffer_size) for sp in specs]} "
+            f"(distance, buffer_size): {same}")
         if not same:
             raise SystemExit("streamed_matmul: value depends on the PrefetchSpec")
+        if dt == torch.bfloat16 and tc != len(specs):
+            raise SystemExit(f"streamed_matmul: the bf16 MLP shape took {tc} of {len(specs)} "
+                             "launches on the tensor cores")
     return errs
 
 
@@ -428,7 +467,7 @@ def phase_paper(cfg) -> int:
     from repro_torch.kernels.streamed_matmul import matmul_ref, streamed_matmul
 
     log("phase 4 the paper's offload path")
-    streamed_matmul.launches = 0
+    streamed_matmul.launches = streamed_matmul.launches_tc = 0
 
     checks = quickstart.main()
     log(f"  quickstart listings: {checks}")
@@ -504,20 +543,49 @@ def phase_paper(cfg) -> int:
     if not by["auto"]["steady_wait_s"] < by[1]["steady_wait_s"]:
         raise SystemExit("kernel_streaming: distance='auto' did not beat distance=1")
 
-    # full width: smollm-360m's MLP projections at the serving token count
+    # full width: smollm-360m's MLP projections at the serving token count,
+    # on the tensor cores
     (m, d, f), _ = mlp_shapes(cfg)
     x, w_up = mm_inputs(m, d, f, torch.bfloat16, seed=5)
     w_down = mm_inputs(1, f, d, torch.bfloat16, seed=6)[1]
+    tc_before = streamed_matmul.launches_tc
     up = streamed_matmul(x, w_up)
     y = streamed_matmul(up, w_down)
-    check_close(f"full-width MLP ({m},{d})->({m},{f})->({m},{d}) bf16", y,
-                matmul_ref(matmul_ref(x, w_up), w_down))
+    tc = streamed_matmul.launches_tc - tc_before
+    check_close(f"full-width MLP up ({m},{d})@({d},{f}) bf16", up, matmul_ref(x, w_up))
+    check_close(f"full-width MLP down ({m},{f})@({f},{d}) bf16, on the kernel's up", y,
+                matmul_ref(up, w_down))
+    check_mlp_chain(x, w_up, w_down, y)
     torch.cuda.synchronize()
     launches = streamed_matmul.launches
-    log(f"  streamed_matmul launches during the paper path: {launches}")
+    log(f"  streamed_matmul launches during the paper path: {launches} "
+        f"({streamed_matmul.launches_tc} on the tensor cores; the full-width MLP's 2 calls: {tc})")
     if launches <= 0:
         raise SystemExit("streamed_matmul was not launched on the paper path")
+    if tc != 2:
+        raise SystemExit(f"the full-width bf16 MLP took {tc} of 2 calls on the tensor cores")
     return launches
+
+
+def check_mlp_chain(x, w_up, w_down, y, margin: float = 1.1) -> None:
+    """The two-product chain against float64 (no intermediate rounding):
+    the kernel's chain must be as close to it as the plain chain, within
+    ``margin`` on the mean error.
+
+    The chain is not held to the plain chain itself: the tensor cores sum
+    in another order than f32 cuBLAS, so the bf16 intermediate rounds
+    differently in a few elements in ten thousand, and an output near zero
+    then moves by more than the bf16 tolerance of its own size, on both
+    chains alike."""
+    from repro_torch.kernels.streamed_matmul import matmul_ref
+
+    exact = (x.double() @ w_up.double()) @ w_down.double()
+    plain = matmul_ref(matmul_ref(x, w_up), w_down)
+    err_k, err_p = ((a.double() - exact).abs() for a in (y, plain))
+    log(f"  full-width MLP chain vs float64: kernel mean |err| {err_k.mean().item():.4e} (max "
+        f"{err_k.max().item():.4e}), plain mean {err_p.mean().item():.4e} (max {err_p.max().item():.4e})")
+    if err_k.mean().item() > margin * err_p.mean().item():
+        raise SystemExit("full-width MLP: the kernel's chain is farther from float64 than the plain chain")
 
 
 def time_ms(fn, flush: torch.Tensor, reps: int = 30) -> float:
@@ -557,7 +625,8 @@ def flash_row(cell, b, s, n, kh, h, window, launches, err, flush) -> dict:
     if window:
         mask &= pos[None, :] > pos[:, None] - window
     pairs = int(mask.sum())  # (query, key) pairs the causal band holds
-    b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), 4 * b * pairs * n * h)
+    flop = 4 * b * pairs * n * h
+    b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), flop)
     if window:
         library = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
     else:
@@ -568,7 +637,7 @@ def flash_row(cell, b, s, n, kh, h, window, launches, err, flush) -> dict:
         shape=[b, s, n, kh, h, window], launches=launches, max_abs_err=err,
         ms=time_ms(lambda: flash_attention(q, k, v, window=window), flush),
         plain_ms=time_ms(lambda: attention_ref(q, k, v, window=window), flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, flush), flop=flop,
     )
 
 
@@ -596,7 +665,38 @@ def decode_row(cell, t, n, kh, h, lens, launches, err, flush) -> dict:
     )
 
 
+def host_us(fn, reps: int = 200) -> float:
+    """Host time of one call that only enqueues work (no synchronise), in us."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def host_cost(cfg) -> None:
+    """What a launch costs the host, at the serving shapes: the tensor-core
+    wrappers encode their TMA tensor maps on every call (flash three,
+    streamed_matmul two); decode encodes none (log only)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.streamed_matmul import streamed_matmul
+
+    q, k, v = flash_inputs(1, PROMPT, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    dq, dk, dv, lengths = decode_inputs(BATCH, PROMPT + GEN, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                        [PROMPT + GEN] * BATCH)
+    x, w = mm_inputs(*mlp_shapes(cfg)[0], torch.bfloat16)
+    costs = {"flash_attention": host_us(lambda: flash_attention(q, k, v)),
+             "decode_attention": host_us(lambda: decode_attention(dq, dk, dv, lengths)),
+             "streamed_matmul": host_us(lambda: streamed_matmul(x, w))}
+    log("  host time per call (enqueue only, us): " + ", ".join(f"{n} {c:.1f}" for n, c in costs.items()))
+
+
 def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict) -> list:
+    from repro_torch.core.refspec import PrefetchSpec
     from repro_torch.kernels.rglru_scan import linear_recurrence, linear_recurrence_ref
     from repro_torch.kernels.streamed_matmul import matmul_ref, streamed_matmul
 
@@ -633,7 +733,8 @@ def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict) -> list:
     # the full-width MLP projections, bf16: tensor-core bound
     for i, (m, k, n) in enumerate(mlp_shapes(cfg)):
         x, w = mm_inputs(m, k, n, torch.bfloat16)
-        b_ms, b_by = bound(2 * (m * k + k * n + m * n), 2 * m * k * n)
+        flop = 2 * m * k * n
+        b_ms, b_by = bound(2 * (m * k + k * n + m * n), flop)
         rows.append(dict(
             name="streamed_matmul", route="cuda", source="src/repro_torch/csrc/streamed_matmul.cu",
             replaces="src/repro/kernels/streamed_matmul/kernel.py:38", cell="lung-NN Fig 4",
@@ -642,11 +743,20 @@ def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict) -> list:
             ms=time_ms(lambda: streamed_matmul(x, w), flush),
             plain_ms=time_ms(lambda: matmul_ref(x, w), flush),
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: torch.matmul(x, w), flush),
+            library_ms=time_ms(lambda: torch.matmul(x, w), flush), flop=flop,
         ))
+    host_cost(cfg)
+    # the tensor-core route by ring depth at the first MLP shape (log only)
+    m, k, n = mlp_shapes(cfg)[0]
+    x, w = mm_inputs(m, k, n, torch.bfloat16)
+    by_ring = {(d, s): round(time_ms(lambda: streamed_matmul(x, w, spec=PrefetchSpec(s, 1, d)), flush), 5)
+               for d, s in [(0, 1), (1, 2), (2, 3), (3, 4), (5, 6)]}
+    log(f"  streamed_matmul ({m},{k})@({k},{n}) bf16 ms by ring (distance, slots): {by_ring}")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        log(f"  {r['name']} {r['cell']} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+        flop = r.pop("flop", None)  # operations on the tensor cores, for the log only
+        rate = "" if flop is None else f", {flop / r['ms'] / 1e9:.1f} TFLOP/s"
+        log(f"  {r['name']} {r['cell']} {r['shape']}: kernel {r['ms']:.4f} ms{rate}, plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return rows
 

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Show that chip_smoke.py's head_dim-256 attention checks catch planted
-faults in the kernels.
+"""Show that chip_smoke.py's kernel checks catch planted faults in the
+kernels.
 
     python3 fault_check.py
 
 For the unmodified kernels and for each fault in ``FAULTS`` it copies
 ``chip_smoke.py`` and ``src/`` into ``build/fault_check/<name>/``, edits one
-line of a kernel source there, and runs chip_smoke's ``check_attention_256``
-in that copy, whose kernels build from the copy's sources.  It prints each
-run's check lines (the largest |kernel - plain| and its share of the
+line of a kernel source there, and runs the chip_smoke check of that source
+(``CHECKS``: ``check_attention_256`` for the attention kernels,
+``check_streamed_matmul`` for the matmul) in that copy, whose kernels build
+from the copy's sources; the unmodified copy runs every check.  It prints
+each run's check lines (the largest |kernel - plain| and its share of the
 tolerance) and exits 0 iff the unmodified kernels pass and every planted
 fault fails.  Needs a CUDA card and ``nvcc``.
 """
@@ -34,6 +36,18 @@ FAULTS = {
         "if (window) ok = ok && kpos > qp - window;",
         "if (window) ok = ok && kpos >= qp - window;",
     ),
+    "streamed_matmul_tensor_cores_stop_one_tile_short": (
+        "streamed_matmul.cu",
+        "for (int kt = 0; kt < n_kt; ++kt) {",
+        "for (int kt = 0; kt < n_kt - 1; ++kt) {",
+    ),
+}
+
+#: kernel source -> the chip_smoke check (and its model config) that must catch its faults
+CHECKS = {
+    "decode_attention.cu": ("check_attention_256", "recurrentgemma-2b"),
+    "flash_attention.cu": ("check_attention_256", "recurrentgemma-2b"),
+    "streamed_matmul.cu": ("check_streamed_matmul", "smollm-360m"),
 }
 
 _RUN = """
@@ -41,7 +55,8 @@ import chip_smoke
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 resolve_device("cuda")
-chip_smoke.check_attention_256(get_config("recurrentgemma-2b"))
+for check, config in {checks!r}:
+    getattr(chip_smoke, check)(get_config(config))
 """
 
 
@@ -64,8 +79,11 @@ def copy_with(name: str, fault) -> Path:
 
 def main() -> int:
     runs = {"unmodified": None, **FAULTS}
-    procs = {name: subprocess.Popen([sys.executable, "-c", _RUN], cwd=copy_with(name, fault),
-                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    every_check = sorted(set(CHECKS.values()))
+    procs = {name: subprocess.Popen(
+                 [sys.executable, "-c",
+                  _RUN.format(checks=every_check if fault is None else [CHECKS[fault[0]]])],
+                 cwd=copy_with(name, fault), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for name, fault in runs.items()}
     failed = {}
     for name, proc in procs.items():

@@ -4,91 +4,110 @@
 // src/repro/kernels/flash_attention/kernel.py.  What it computes is the
 // same: blockwise online softmax over key blocks, the G query heads of one
 // KV head folded into the rows of the q tile (so a K/V block is read once
-// for all G heads), optional sliding window and q_offset, key blocks above
-// the diagonal never visited, a row no key may attend to giving 0.
+// for all G heads), optional sliding window and q_offset, key blocks outside
+// [kv_begin, kv_end) never visited, a row no key may attend to giving 0;
+// f32 scores, and probabilities rounded to bf16 before the PV product.
 //
-// Bound on the H100: at the serving path's shapes (one 512-token prompt,
-// 15 heads over 5 KV heads, head_dim 64) the function must move ~2.6 MB
-// (q, k, v read once, o written once: ~0.8 us at 3.35 TB/s) against ~0.25
-// GFLOP of causal products (~0.25 us at 989 TFLOP/s), so bytes bound it.
-// The design reads q/k/v in their model layouts in place (no transpose or
-// padding copy, unlike the TPU wrapper), stages each K/V block through a
-// cp.async double buffer in shared memory (the counterpart of Mosaic's
-// implicit distance=1 pipeline) and writes o once.  The products run on the
-// CUDA cores in f32: wgmma, TMA and a warp-specialised pipeline are later
-// work, and so this first kernel is far from its bound.
+// Bound on the H100: at smollm-360m's serving shape (one 512-token prompt,
+// 15 heads over 5 KV heads, head_dim 64) the function moves ~2.6 MB against
+// ~0.25 GFLOP of causal products, so bytes bound it (~0.8 us); at
+// recurrentgemma-2b's prefill (4 x 3072 tokens, 10 heads over 1 KV head,
+// head_dim 256, window 2048) it needs ~1.7e11 FLOP on the band, so the
+// tensor cores bound it (~0.17 ms).
 //
-// Grid: (ceil(S / bq), B * KH); block: max(128, H) threads; bq = ROWS / G
-// queries.  Row r of the tile is query s0 + r / G, head kh * G + r % G.
-// In the PV product each thread owns one of the H columns, so at H = 256
-// the block has 256 threads; every output's sums run in one order whatever
-// the block size, so H = 64 and 128 keep their 128 threads and their bits.
-#include "common.cuh"
+// Design (Hopper tensor cores):
+// * Grid (ceil(S / bq), B * KH); 256 threads = two warpgroups of 64 q rows.
+//   Warpgroup w holds qw = 64 / G queries of block s0: row r is query
+//   s0 + w * qw + r / G, head kh * G + r % G.  Both warpgroups share every
+//   K/V stage, so a K/V block is read once for 2 * qw * G rows.
+// * Q is loaded once, bf16, by TMA: a 4-D map over (H, N, S, B) with box
+//   (64, G, qw, 1) lands exactly those rows, 64 columns a slab.  K and V go
+//   through a ring of 2-4 stages of 64 keys: 4-D maps over (H, KH, T, B)
+//   with box (64, 1, 64, 1), so keys past T read as zeros for each batch
+//   row.  A `full` mbarrier per slot counts a stage's bytes; an `empty` one
+//   per slot counts the eight consumer warps that are done with it.  Thread
+//   0 refills a slot only once it is empty.
+// * S = Q K^T is H / 16 wgmma m64n64k16, both operands K-major in shared
+//   memory.  The mask is applied in registers from each accumulator
+//   element's (row, key) coordinates, only in blocks that need it.  The
+//   online softmax runs in registers: a row lives in one quad of the
+//   accumulator layout, so its max and sum take two __shfl_xor.
+// * P is rounded to bf16 in registers and is the register A operand of
+//   wgmma m64nHk16 against V, MN-major (the transpose bit).
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int ROWS = 64;     // q rows (queries x group heads) per block
-constexpr int BKV = 64;      // key rows per pipeline stage
+constexpr int WG_ROWS = 64;          // q rows per consumer warpgroup
+constexpr int WGS = 2;               // consumer warpgroups per block
+constexpr int THREADS = 128 * WGS;
+constexpr int BKV = 64;              // keys per ring stage
+constexpr int SLAB = 64 * 128;       // 64 rows of 64 bf16 columns (128 bytes)
+constexpr uint32_t ALIGN = 1024;     // the swizzle atom
 
-// threads per block: 128, or one per column of the head where H > 128
+// K/V ring stages: as deep as shared memory allows at one block per SM
+// (two at H = 64, whose registers allow two blocks)
 template <int H>
-constexpr int threads_of() { return H > 128 ? H : 128; }
+constexpr int stages_of() { return H == 64 ? 4 : (H == 128 ? 3 : 2); }
 
 template <int H>
 struct Smem {
-    static constexpr int KSTRIDE = H + 8;  // padded K row: 16-byte reads hit distinct banks
-    static constexpr size_t q_off = 0;                                  // f32 [ROWS][H]
-    static constexpr size_t k_off = q_off + ROWS * H * 4;               // bf16 [2][BKV][KSTRIDE]
-    static constexpr size_t v_off = k_off + 2 * BKV * KSTRIDE * 2;      // bf16 [2][BKV][H]
-    static constexpr size_t s_off = v_off + 2 * BKV * H * 2;            // f32 [ROWS][BKV]
-    static constexpr size_t m_off = s_off + ROWS * BKV * 4;             // f32 [ROWS] x 3
-    static constexpr size_t bytes = m_off + 3 * ROWS * 4;
+    static constexpr int STAGES = stages_of<H>();
+    static constexpr int SLABS = H / 64;
+    static constexpr size_t q_bytes = (size_t)WGS * WG_ROWS * H * 2;  // [wg][slab][64 rows]
+    static constexpr size_t kv_bytes = (size_t)BKV * H * 2;            // K or V: [slab][64 keys]
+    static constexpr size_t stage_bytes = 2 * kv_bytes;               // K then V
+    static constexpr size_t stage_off = q_bytes;
+    static constexpr size_t bar_off = stage_off + (size_t)STAGES * stage_bytes;
+    static constexpr int n_bars = 1 + 2 * STAGES;                     // q, full[], empty[]
+    static constexpr size_t bytes = ALIGN + bar_off + n_bars * sizeof(uint64_t);
 };
 
-template <int H, int THREADS = threads_of<H>()>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                       int S, int T, int N, int KH, int causal, int window,
-                       int q_offset, float sm_scale) {
+// May query position qp attend to key position kpos?
+__device__ __forceinline__ bool valid(int qp, int kpos, int T, int causal, int window) {
+    bool ok = kpos < T;
+    if (causal) ok = ok && kpos <= qp;
+    if (window) ok = ok && kpos > qp - window;
+    return ok;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// O (64 x H) += P (64 x 16, registers) V (16 x H, MN-major)
+template <int H>
+__device__ __forceinline__ void pv_product(float (&o)[H / 2], const uint32_t (&a)[4], uint64_t desc_v) {
+    if constexpr (H == 64) hopper::wgmma_m64n64k16_rs<1>(o, a, desc_v, 1);
+    else if constexpr (H == 128) hopper::wgmma_m64n128k16_rs<1>(o, a, desc_v, 1);
+    else hopper::wgmma_m64n256k16_rs<1>(o, a, desc_v, 1);
+}
+
+template <int H>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                       int S, int T, int N, int KH, int causal, int window, int q_offset,
+                       float scale_log2) {
     using L = Smem<H>;
-    constexpr int KS = L::KSTRIDE;
-    constexpr int CPR = H / 8;                  // 16-byte chunks per row
-    constexpr int RSTEP = THREADS / H;          // PV: rows between a thread's outputs
-    constexpr int NACC = ROWS / RSTEP;          // PV: outputs per thread
-    constexpr int KSPLIT = THREADS / BKV;       // scores: threads per key
-    constexpr int SROWS = ROWS / KSPLIT;        // scores: rows per thread
+    constexpr int SLABS = L::SLABS, STAGES = L::STAGES;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((ALIGN - (smem_addr(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
+    uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+    uint64_t* full = qbar + 1;
+    uint64_t* empty = full + STAGES;
 
-    extern __shared__ __align__(16) unsigned char smem[];
-    float* Qs = reinterpret_cast<float*>(smem + L::q_off);
-    bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
-    bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
-    float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-    float* Ms = reinterpret_cast<float*>(smem + L::m_off);
-    float* Ls = Ms + ROWS;
-    float* As = Ls + ROWS;
-
-    const int tid = threadIdx.x;
-    const int G = N / KH;
-    const int bq = ROWS / G;
-    const int rows = bq * G;
+    const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int G = N / KH, qw = WG_ROWS / G, bq = WGS * qw;
     const int b = blockIdx.y / KH, kh = blockIdx.y % KH;
     const int s0 = blockIdx.x * bq;
     const int s_end = min(s0 + bq, S);
-
-    // q tile -> f32 shared memory (rows past S are zeros and never stored)
-    for (int idx = tid; idx < ROWS * H; idx += THREADS) {
-        const int r = idx / H, c = idx % H;
-        const int s = s0 + r / G;
-        float val = 0.f;
-        if (r < rows && s < S)
-            val = __bfloat162float(q[((size_t)(b * S + s) * N + kh * G + r % G) * H + c]);
-        Qs[idx] = val;
-    }
-    for (int r = tid; r < ROWS; r += THREADS) {
-        Ms[r] = REPRO_NEG_INF;
-        Ls[r] = 0.f;
-    }
 
     // key blocks this q block can see: up to the diagonal, after the window
     const int q_first = q_offset + s0, q_last = q_offset + s_end - 1;
@@ -97,152 +116,177 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int j_begin = kv_begin / BKV;
     const int j_end = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;
 
-    auto valid = [&](int r, int kpos) {
-        const int qp = q_offset + s0 + r / G;
-        bool ok = kpos < T;
-        if (causal) ok = ok && kpos <= qp;
-        if (window) ok = ok && kpos > qp - window;
-        return ok;
-    };
-
-    auto load_kv = [&](int j, int buf) {
-        const int t0 = j * BKV;
-        for (int idx = tid; idx < BKV * CPR; idx += THREADS) {
-            const int r = idx / CPR, c = (idx % CPR) * 8;
-            const int t = t0 + r;
-            const bool ok = t < T;
-            const size_t off = ((size_t)(b * T + (ok ? t : 0)) * KH + kh) * H + c;
-            cp_async_16(Ks + (buf * BKV + r) * KS + c, k + off, ok ? 16 : 0);
-            cp_async_16(Vs + (buf * BKV + r) * H + c, v + off, ok ? 16 : 0);
+    if (tid == 0) {
+        hopper::mbar_init(qbar, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            hopper::mbar_init(&full[s], 1);
+            hopper::mbar_init(&empty[s], WGS * 4);  // one arrival per consumer warp
         }
-        cp_async_commit();
-    };
-
-    float acc[NACC];
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-    const int col = tid % H, rg = tid / H;
-
-    if (j_begin < j_end) load_kv(j_begin, 0);
+        hopper::fence_barrier_init();
+    }
     __syncthreads();
 
+    // key block j -> slot (j - j_begin) % STAGES; its u-th fill waits for
+    // the (u - 1)-th release (thread 0 only)
+    auto issue_kv = [&](int j) {
+        const int i = j - j_begin, slot = i % STAGES, use = i / STAGES;
+        if (use > 0) hopper::mbar_wait(&empty[slot], (use - 1) & 1);
+        unsigned char* st = smem + L::stage_off + slot * L::stage_bytes;
+        hopper::mbar_arrive_expect_tx(&full[slot], (uint32_t)L::stage_bytes);
+#pragma unroll
+        for (int c = 0; c < SLABS; ++c) {
+            hopper::tma_load_4d(st + c * SLAB, &mk, &full[slot], 64 * c, kh, j * BKV, b);
+            hopper::tma_load_4d(st + L::kv_bytes + c * SLAB, &mv, &full[slot], 64 * c, kh, j * BKV, b);
+        }
+    };
+    if (tid == 0) {
+        hopper::mbar_arrive_expect_tx(qbar, (uint32_t)(WGS * SLABS * qw * G * 128));
+        for (int w = 0; w < WGS; ++w)
+#pragma unroll
+            for (int c = 0; c < SLABS; ++c)
+                hopper::tma_load_4d(smem + (w * SLABS + c) * SLAB, &mq, qbar, 64 * c, kh * G,
+                                    s0 + w * qw, b);
+        for (int j = j_begin; j < min(j_end, j_begin + STAGES - 1); ++j) issue_kv(j);
+    }
+    __syncwarp();
+
+    // this thread's two rows of its warpgroup: r and r + 8
+    const int r_lo = warp * 16 + lane / 4;
+    int qp[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) qp[h] = q_offset + s0 + wg * qw + (r_lo + 8 * h) / G;
+
+    float acc[H / 2];
+#pragma unroll
+    for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l_run[2] = {0.f, 0.f};
+    const unsigned char* qs = smem + wg * SLABS * SLAB;
+
+    hopper::mbar_wait(qbar, 0);
     for (int j = j_begin; j < j_end; ++j) {
-        const int buf = (j - j_begin) & 1;
-        if (j + 1 < j_end) {
-            load_kv(j + 1, buf ^ 1);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
+        if (tid == 0 && j + STAGES - 1 < j_end) issue_kv(j + STAGES - 1);
+        __syncwarp();
+        const int i = j - j_begin, slot = i % STAGES;
+        hopper::mbar_wait(&full[slot], (i / STAGES) & 1);
+        const unsigned char* ks = smem + L::stage_off + slot * L::stage_bytes;
+        const unsigned char* vs = ks + L::kv_bytes;
 
-        // scores: thread owns key kj and rows half, half + KSPLIT, ...
-        {
-            const int kj = tid % BKV, half = tid / BKV;
-            float sacc[SROWS];
+        // S = Q K^T over H in steps of 16
+        float s[32];
 #pragma unroll
-            for (int i = 0; i < SROWS; ++i) sacc[i] = 0.f;
-            const bf16* krow = Ks + (buf * BKV + kj) * KS;
-#pragma unroll 2
-            for (int c = 0; c < H; c += 8) {
-                float kf[8];
-                unpack_bf16x8(krow + c, kf);
+        for (int e = 0; e < 32; ++e) s[e] = 0.f;
+        hopper::fence_regs(s);
+        hopper::wgmma_fence();
 #pragma unroll
-                for (int i = 0; i < SROWS; ++i)
-                    if (half + KSPLIT * i < rows)
-                        sacc[i] = dot8(Qs + (half + KSPLIT * i) * H + c, kf, sacc[i]);
-            }
-            const int kpos = j * BKV + kj;
-#pragma unroll
-            for (int i = 0; i < SROWS; ++i) {
-                const int r = half + KSPLIT * i;
-                if (r < rows) Ss[r * BKV + kj] = valid(r, kpos) ? sacc[i] * sm_scale : REPRO_NEG_INF;
-            }
+        for (int kk = 0; kk < H / 16; ++kk) {
+            const int off = (kk / 4) * SLAB + (kk % 4) * 32;
+            hopper::wgmma_m64n64k16_ss<0>(s, hopper::desc_sw128(qs + off, 16, 1024),
+                                          hopper::desc_sw128(ks + off, 16, 1024), 1);
         }
-        __syncthreads();
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
 
-        // online softmax: one warp per row
-        {
-            const int warp = tid / 32, lane = tid % 32;
-            for (int r = warp; r < rows; r += THREADS / 32) {
-                const float x0 = Ss[r * BKV + lane], x1 = Ss[r * BKV + lane + 32];
-                const bool v0 = valid(r, j * BKV + lane), v1 = valid(r, j * BKV + lane + 32);
-                const float m_prev = Ms[r], l_prev = Ls[r];
-                const float m_new = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-                const float p0 = v0 ? expf(x0 - m_new) : 0.f;
-                const float p1 = v1 ? expf(x1 - m_new) : 0.f;
-                const float alpha = expf(m_prev - m_new);
-                const float l_new = alpha * l_prev + warp_sum(p0 + p1);
-                Ss[r * BKV + lane] = round_bf16(p0);
-                Ss[r * BKV + lane + 32] = round_bf16(p1);
-                __syncwarp();  // every lane has read Ms/Ls[r] before lane 0 writes
-                if (lane == 0) {
-                    Ms[r] = m_new;
-                    Ls[r] = l_new;
-                    As[r] = alpha;
-                }
+        // scores in the log2 domain; s[4 jn + e] is row r_lo + 8 (e / 2),
+        // key j * BKV + 8 jn + 2 (lane % 4) + e % 2
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[e] *= scale_log2;
+        const bool unmasked = (j + 1) * BKV <= T && (!causal || (j + 1) * BKV - 1 <= q_first) &&
+                              (!window || j * BKV > q_last - window);
+        if (!unmasked) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+                const int kpos = j * BKV + 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
+                if (!valid(qp[(e % 4) / 2], kpos, T, causal, window)) s[e] = REPRO_NEG_INF;
             }
         }
-        __syncthreads();
 
-        // acc = acc * alpha + P @ V; thread owns column col of rows rg, rg + RSTEP, ...
-        {
+        // online softmax: a row's four owners are one quad of lanes
+        float m_new[2] = {m_run[0], m_run[1]};
 #pragma unroll
-            for (int i = 0; i < NACC; ++i) {
-                const int r = rg + i * RSTEP;
-                if (r < rows) acc[i] *= As[r];
-            }
-            const bf16* vcol = Vs + buf * BKV * H + col;
-            for (int jj = 0; jj < BKV; jj += 4) {
-                const float w0 = __bfloat162float(vcol[(jj + 0) * H]);
-                const float w1 = __bfloat162float(vcol[(jj + 1) * H]);
-                const float w2 = __bfloat162float(vcol[(jj + 2) * H]);
-                const float w3 = __bfloat162float(vcol[(jj + 3) * H]);
+        for (int e = 0; e < 32; ++e) m_new[(e % 4) / 2] = fmaxf(m_new[(e % 4) / 2], s[e]);
+        float m_use[2], alpha[2], rsum[2] = {0.f, 0.f};
 #pragma unroll
-                for (int i = 0; i < NACC; ++i) {
-                    const int r = rg + i * RSTEP;
-                    if (r < rows) {
-                        const float4 p = *reinterpret_cast<const float4*>(Ss + r * BKV + jj);
-                        acc[i] = fmaf(p.x, w0, acc[i]);
-                        acc[i] = fmaf(p.y, w1, acc[i]);
-                        acc[i] = fmaf(p.z, w2, acc[i]);
-                        acc[i] = fmaf(p.w, w3, acc[i]);
-                    }
-                }
-            }
+        for (int h = 0; h < 2; ++h) {
+            m_new[h] = quad_max(m_new[h]);
+            // a row masked so far keeps its zeros: exp2(NEG_INF - 0) = 0
+            m_use[h] = m_new[h] == REPRO_NEG_INF ? 0.f : m_new[h];
+            alpha[h] = exp2f(m_run[h] - m_use[h]);
+            m_run[h] = m_new[h];
         }
-        __syncthreads();  // the buffer and the scores are free for the next block
+        uint32_t p[16];
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+            const int h = r % 2;  // fragment register r holds row r_lo + 8 (r % 2)
+            const float lo = exp2f(s[2 * r] - m_use[h]), hi = exp2f(s[2 * r + 1] - m_use[h]);
+            rsum[h] += lo + hi;
+            p[r] = hopper::pack_bf16x2(lo, hi);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l_run[h] = alpha[h] * l_run[h] + quad_sum(rsum[h]);
+#pragma unroll
+        for (int e = 0; e < H / 2; ++e) acc[e] *= alpha[(e % 4) / 2];
+
+        // O += P V over the block's 64 keys in steps of 16
+        hopper::fence_regs(acc);
+        hopper::fence_regs(p);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk) {
+            const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+            pv_product<H>(acc, a, hopper::desc_sw128(vs + kk * 2048, SLAB, 1024));
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[slot]);  // this warp is done with the slot
     }
 
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-        const int r = rg + i * RSTEP;
-        const int s = s0 + r / G;
-        if (r < rows && s < S) {
-            float l = Ls[r];
-            l = (l == 0.f) ? 1.f : l;  // a fully masked row gives 0
-            o[((size_t)(b * S + s) * N + kh * G + r % G) * H + col] = __float2bfloat16(acc[i] / l);
+    for (int h = 0; h < 2; ++h) {
+        const int r = r_lo + 8 * h;
+        const int s = s0 + wg * qw + r / G;
+        if (r < qw * G && s < S) {
+            const float inv = l_run[h] == 0.f ? 1.f : 1.f / l_run[h];  // a fully masked row gives 0
+            bf16* orow = o + ((size_t)(b * S + s) * N + kh * G + r % G) * H + 2 * (lane % 4);
+#pragma unroll
+            for (int jn = 0; jn < H / 8; ++jn)
+                *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jn) =
+                    __floats2bfloat162_rn(acc[4 * jn + 2 * h] * inv, acc[4 * jn + 2 * h + 1] * inv);
         }
     }
 }
 
 template <int H>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T,
-           int N, int KH, int causal, int window, int q_offset, float sm_scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T, int N, int KH,
+           int causal, int window, int q_offset, float sm_scale, cudaStream_t stream) {
+    const int G = N / KH, qw = WG_ROWS / G, bq = WGS * qw;
+    if (T == 0)  // no key at all: every row gives 0
+        return (int)cudaMemsetAsync(o, 0, (size_t)B * S * N * H * sizeof(bf16), stream);
+    CUtensorMap mq, mk, mv;
+    const uint64_t q_dims[4] = {(uint64_t)H, (uint64_t)N, (uint64_t)S, (uint64_t)B};
+    const uint64_t q_strides[3] = {(uint64_t)H * 2, (uint64_t)N * H * 2, (uint64_t)S * N * H * 2};
+    const uint32_t q_box[4] = {64, (uint32_t)G, (uint32_t)qw, 1};
+    int rc = hopper::encode_bf16_map(&mq, q, 4, q_dims, q_strides, q_box);
+    if (rc) return rc;
+    const uint64_t kv_dims[4] = {(uint64_t)H, (uint64_t)KH, (uint64_t)T, (uint64_t)B};
+    const uint64_t kv_strides[3] = {(uint64_t)H * 2, (uint64_t)KH * H * 2, (uint64_t)T * KH * H * 2};
+    const uint32_t kv_box[4] = {64, 1, BKV, 1};
+    if ((rc = hopper::encode_bf16_map(&mk, k, 4, kv_dims, kv_strides, kv_box))) return rc;
+    if ((rc = hopper::encode_bf16_map(&mv, v, 4, kv_dims, kv_strides, kv_box))) return rc;
+
     const size_t smem = Smem<H>::bytes;
     cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<H>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) {
         cudaGetLastError();  // clear it, or the next launch's check reports it
         return (int)err;
     }
-    const int bq = ROWS / (N / KH);
-    dim3 grid((S + bq - 1) / bq, B * KH);
-    flash_attention_kernel<H><<<grid, threads_of<H>(), smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), S, T, N, KH, causal, window, q_offset, sm_scale);
+    const dim3 grid((S + bq - 1) / bq, B * KH);
+    flash_attention_kernel<H><<<grid, THREADS, smem, stream>>>(
+        mq, mk, mv, static_cast<bf16*>(o), S, T, N, KH, causal, window, q_offset,
+        sm_scale * 1.4426950408889634f);
     return (int)cudaGetLastError();
 }
 
@@ -258,13 +302,15 @@ extern "C" int repro_flash_attention_smem_bytes(int H) {
     }
 }
 
-// q (B, S, N, H), k/v (B, T, KH, H), o (B, S, N, H): contiguous bf16.
-// Returns the launch's cudaGetLastError() code.
+// q (B, S, N, H), k/v (B, T, KH, H), o (B, S, N, H): contiguous bf16,
+// 16-byte aligned.  Returns the launch's cudaGetLastError() code (or the
+// tensor maps' encoding error).
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                           int B, int S, int T, int N, int KH, int H,
                                           int causal, int window, int q_offset,
                                           float sm_scale, void* stream) {
-    if (KH <= 0 || N % KH != 0 || N / KH > ROWS) return (int)cudaErrorInvalidValue;
+    if (KH <= 0 || N % KH != 0 || N / KH > WG_ROWS || B <= 0 || S <= 0 || T < 0)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (H) {
         case 64:

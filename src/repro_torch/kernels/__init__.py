@@ -16,5 +16,7 @@ with ``nvcc`` for ``sm_90a`` at first use and binds them with ``ctypes``.
 (``linear_recurrence``) carries the RG-LRU's recurrence in the hybrid's
 prefill; ``streamed_matmul`` is the paper's prefetch ring one level down
 (weights by reference, tiles streamed through shared memory).  Every TPU
-kernel of the JAX package has its counterpart here.
+kernel of the JAX package has its counterpart here.  ``flash_attention``
+and ``streamed_matmul``'s bf16 route run on the tensor cores: ``wgmma`` fed
+by TMA rings under mbarriers (``csrc/hopper.cuh``).
 """

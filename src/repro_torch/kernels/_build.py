@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -51,6 +52,22 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): cannot build the CUDA kernels")
+
+
+def _cuobjdump() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("cuobjdump"), os.path.join(cuda_home, "bin", "cuobjdump")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("cuobjdump not found (PATH or $CUDA_HOME/bin)")
+
+
+def sass_counts(name: str, opcodes: Iterable[str]) -> dict[str, int]:
+    """How many times each opcode (``HGMMA``, ``UTMALDG``, ...) stands in the
+    SASS of the built library of ``csrc/<name>.cu`` (``cuobjdump -sass``)."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(build([name])[name])], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
 
 
 def _digest(name: str) -> str:

@@ -7,9 +7,10 @@ the same contract as its wrapper (``ops.py:flash_attention``): keys past
 with a key length that is not a multiple of the kernel's key block raises,
 and a query row that no key may attend to gives 0.
 
-The CUDA kernel is ``repro_torch/csrc/flash_attention.cu``.  It reads the
-``(B, S, N, H)`` / ``(B, T, KH, H)`` layouts in place: no transpose, no
-padding copy.
+The CUDA kernel is ``repro_torch/csrc/flash_attention.cu``: ``wgmma`` on
+the tensor cores, fed by TMA, which reads the ``(B, S, N, H)`` /
+``(B, T, KH, H)`` layouts in place (no transpose, no padding copy) into a
+K/V ring under mbarriers.
 """
 from __future__ import annotations
 
@@ -21,11 +22,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import SMEM_LIMIT
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-#: the CUDA kernel's key block (rows of K/V staged per pipeline step) and
-#: its q rows per CTA (queries x the G heads of one KV head)
+#: the CUDA kernel's key block (rows of K/V per ring stage), its q rows per
+#: warpgroup (queries x the G heads of one KV head: at most 64 heads per KV
+#: head), its warpgroups per block, and its K/V ring's stages per head dim
+#: (``stages_of<H>``; two for a head dim it does not take)
 BLOCK_KV = 64
-BLOCK_ROWS = 64
+WARPGROUP_ROWS = 64
+WARPGROUPS = 2
+STAGES = {64: 4, 128: 3, 256: 2}
 HEAD_DIMS = (64, 128, 256)
+#: the 1024-byte alignment pad of the kernel's shared memory (the 128-byte
+#: swizzle's atom)
+_ALIGN_PAD = 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -38,11 +46,14 @@ _SIGNATURES = {
 
 
 def smem_bytes(h: int) -> int:
-    """Shared memory of one block of the kernel at head dim ``h``: the f32
-    q tile, two stages of K (rows padded by 8) and V, the scores and the
-    softmax state (``Smem<H>`` in the CUDA source)."""
-    return (BLOCK_ROWS * h * 4 + 2 * BLOCK_KV * (h + 8) * 2 + 2 * BLOCK_KV * h * 2
-            + BLOCK_ROWS * BLOCK_KV * 4 + 3 * BLOCK_ROWS * 4)
+    """Shared memory of one block of the kernel at head dim ``h``: the
+    alignment pad, the bf16 q tile of both warpgroups, the stages of K and
+    V, and the mbarriers: one for q, a full and an empty one per stage
+    (``Smem<H>`` in the CUDA source)."""
+    stages = STAGES.get(h, 2)
+    q_tile = WARPGROUPS * WARPGROUP_ROWS * h * 2
+    stage = 2 * BLOCK_KV * h * 2
+    return _ALIGN_PAD + q_tile + stages * stage + 8 * (1 + 2 * stages)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -94,8 +105,8 @@ def flash_attention(
         raise ValueError("the CUDA kernel takes contiguous q/k/v")
     if h not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, got {h}")
-    if n // kh > BLOCK_ROWS:
-        raise ValueError(f"at most {BLOCK_ROWS} query heads per KV head, got {n // kh}")
+    if n // kh > WARPGROUP_ROWS:
+        raise ValueError(f"at most {WARPGROUP_ROWS} query heads per KV head, got {n // kh}")
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("q/k/v must be 16-byte aligned")
     out = torch.empty_like(q)

@@ -61,6 +61,9 @@ FA_CASES = [
     (1, 100, 100, 4, 4, 64, 0, 0),
     (2, 64, 192, 4, 2, 64, 0, 128),
     (1, 128, 128, 10, 5, 64, 0, 0),
+    # head_dim 128, one and eight query heads per KV head, with a window
+    (1, 128, 128, 8, 8, 128, 32, 0),
+    (1, 128, 128, 8, 1, 128, 32, 0),
 ]
 
 
@@ -190,7 +193,7 @@ def test_attention_refuses_what_does_not_fit_shared_memory_on_every_device():
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
 
-    assert fa.smem_bytes(256) == 215_808 <= fa.SMEM_LIMIT < fa.smem_bytes(512)
+    assert fa.smem_bytes(256) == 197_672 <= fa.SMEM_LIMIT < fa.smem_bytes(512)
     assert da.smem_bytes(256, 3) == 3 * 66_560 + 20_672 <= da.SMEM_LIMIT < da.smem_bytes(256, 4)
     q, k = torch.zeros(1, 10, 256), torch.zeros(1, 64, 1, 256)
     one = torch.ones(1, dtype=torch.int32)
@@ -199,6 +202,17 @@ def test_attention_refuses_what_does_not_fit_shared_memory_on_every_device():
         decode_attention(q, k, k, one, spec=PrefetchSpec(4, 1, 3))
     with pytest.raises(ValueError, match="232448"):
         flash_attention(torch.zeros(1, 8, 2, 512), torch.zeros(1, 8, 1, 512), torch.zeros(1, 8, 1, 512))
+
+
+def test_flash_smem_bytes_counts_what_the_kernel_takes():
+    """The alignment pad (1024), the bf16 q tile of two warpgroups of 64
+    rows, 4 / 3 / 2 stages of 64 keys of K and V at head dim 64 / 128 / 256,
+    and an 8-byte mbarrier for q and two per stage."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    for h, stages in zip(fa.HEAD_DIMS, (4, 3, 2)):
+        assert fa.smem_bytes(h) == 1024 + 2 * 64 * h * 2 + stages * (2 * 64 * h * 2) + 8 * (1 + 2 * stages)
+    assert [fa.smem_bytes(h) for h in fa.HEAD_DIMS] == [83_016, 132_152, 197_672]
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +296,60 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, s, t, n, kh, h, window, qo)
     out = flash_attention(q, k, v, window=window, q_offset=qo)
     assert flash_attention.launches == before + 1
     ref = attention_ref(q, k, v, window=window, q_offset=qo)
+    np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()), **BF16_TOL)
+
+
+# (G, H): every head dim of the kernel, over 1 to 10 query heads per KV head
+FLASH_GROUPS = [(1, 128), (3, 64), (5, 64), (8, 128), (10, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 100, 2048])
+@pytest.mark.parametrize("g,h", FLASH_GROUPS)
+def test_flash_kernel_groups_and_windows_on_card(cuda, g, h, window):
+    kh = 1 if g == 10 else 2
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in
+               _inputs(12, [(2, 300, g * kh, h), (2, 300, kh, h), (2, 300, kh, h)], [0.5, 0.5, 1.0]))
+    out = flash_attention(q, k, v, window=window)
+    ref = attention_ref(q, k, v, window=window)
+    np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,n,kh,h,window,qo", [
+    (2, 100, 164, 10, 1, 256, 0, 64),      # q_offset > 0: the cache holds 64 earlier keys
+    (1, 300, 200, 8, 2, 128, 0, 0),        # T < S: keys past T are padding
+    (1, 2200, 2200, 10, 1, 256, 2048, 0),  # the window cuts the prefix
+    (2, 70, 70, 3, 1, 64, 16, 33),
+])
+def test_flash_kernel_offsets_and_short_keys_on_card(cuda, b, s, t, n, kh, h, window, qo):
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in
+               _inputs(13, [(b, s, n, h), (b, t, kh, h), (b, t, kh, h)], [0.5, 0.5, 1.0]))
+    out = flash_attention(q, k, v, window=window, q_offset=qo)
+    ref = attention_ref(q, k, v, window=window, q_offset=qo)
+    np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,t,n,kh,h,window", [(100, 128, 8, 2, 64, 0), (100, 192, 10, 1, 256, 50)])
+def test_flash_kernel_non_causal_on_card(cuda, s, t, n, kh, h, window):
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in
+               _inputs(15, [(1, s, n, h), (1, t, kh, h), (1, t, kh, h)], [0.5, 0.5, 1.0]))
+    out = flash_attention(q, k, v, causal=False, window=window)
+    ref = attention_ref(q, k, v, causal=False, window=window)
+    np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [64, 128, 256])
+def test_flash_kernel_fully_masked_rows_give_zero_on_card(cuda, h):
+    """Queries past the window of every key give 0; the rest as the plain version."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in
+               _inputs(14, [(1, 8, 2, h), (1, 8, 1, h), (1, 8, 1, h)], [0.5, 0.5, 1.0]))
+    assert torch.count_nonzero(flash_attention(q, k, v, window=4, q_offset=16)) == 0
+    out = flash_attention(q, k, v, window=4, q_offset=6)  # query 0 sees keys 3..6, 5..7 none
+    ref = attention_ref(q, k, v, window=4, q_offset=6)
+    assert torch.count_nonzero(out[:, 5:]) == 0 and torch.count_nonzero(out[:, :1]) > 0
     np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()), **BF16_TOL)
 
 
