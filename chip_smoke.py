@@ -9,9 +9,10 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
 
 0. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the compiler's register/spill report;
-   the tensor-core libraries (``streamed_matmul``, ``flash_attention``) must
-   hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in their
-   SASS (``cuobjdump -sass``) and spill nothing;
+   the tensor-core libraries must hold their instructions in their SASS
+   (``cuobjdump -sass``) and spill nothing: ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) in ``streamed_matmul`` and ``flash_attention``,
+   ``HMMA`` (mma.sync) in ``decode_attention``;
 1. hold each kernel against its plain PyTorch version on the card at the
    paths' shapes (the JAX package's ``_tol``: bf16 rtol = atol = 2e-2,
    f32 rtol 2e-4 / atol 2e-3; ``rglru_scan`` rtol = atol = 1e-5, its JAX
@@ -22,7 +23,10 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    query heads per KV head and a window; the attention kernels also at the
    hybrid's head_dim 256 with 10 query heads over 1 KV head, on scores
    peaked enough that a missing key block or a window off by one fails
-   (decode there at atol 2e-3);
+   (decode there at atol 2e-3), decode also at every edge of its key
+   split (lengths 0, 1, SPLIT_KV - 1, SPLIT_KV, SPLIT_KV + 1, T - 1, T),
+   bitwise equal across four rings, row by row alone, paged and in caches
+   cut to each length;
 2. serve full-width smollm-360m (32 layers, random bf16 weights from seed 0)
    with ``attn_impl="pallas"`` through ``repro_torch.launch.serve.serve``:
    batch 4, prompt 512, gen 32, unpaged device-resident caches; the
@@ -53,10 +57,11 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    same function (``scaled_dot_product_attention``, ``torch.matmul``:
    yardsticks the port never calls; no single PyTorch call computes a
    linear recurrence) with CUDA events, L2 flushed before every launch, at
-   both serving paths' shapes, beside the least time the card could take
-   (bytes at 3.35 TB/s; FLOPs at 989 TFLOP/s bf16 on the tensor cores, or
-   67 TFLOP/s f32 on the CUDA cores for the recurrence); it also logs the
-   host time of one call of each serving-path wrapper and the tensor-core
+   both serving paths' shapes and ``streamed_matmul`` on both routes (the
+   MLP in bf16, the sweep's 512³ in f32), beside the least time the card
+   could take (bytes at 3.35 TB/s; FLOPs at 989 TFLOP/s bf16 on the tensor
+   cores, or 67 TFLOP/s f32 on the CUDA cores); it also logs the host time
+   of one call of each serving-path wrapper and the tensor-core
    ``streamed_matmul`` by ring depth.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
@@ -87,6 +92,9 @@ LRU_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_rglru_kernel.py
 DECODE_256_TOL = dict(rtol=2e-2, atol=2e-3)  # see check_attention_256
 # the JAX package's streamed-matmul test shapes (tests/test_kernels.py)
 MM_SHAPES = [(128, 256, 128), (64, 100, 200), (7, 384, 512), (1, 128, 128), (130, 130, 130)]
+# the JAX package's kernel sweep (benchmarks/kernel_streaming.py): f32, the
+# CUDA-core route
+SWEEP_SHAPE = (512, 512, 512)
 # kernel path vs plain path through 32 bf16 layers: the two round the
 # attention probabilities at different points, and the difference grows
 # with depth; bound relative to the largest logit
@@ -139,9 +147,12 @@ def mm_inputs(m, k, n, dtype, seed=3):
     return x, w
 
 
-#: the libraries redesigned for Hopper's tensor cores: their SASS must hold
-#: wgmma and TMA loads, and no kernel of theirs may spill
-TENSOR_CORE_LIBRARIES = ("streamed_matmul", "flash_attention")
+#: the libraries redesigned for Hopper's tensor cores and the instructions
+#: their SASS must hold (wgmma and TMA loads; mma.sync); no kernel of theirs
+#: may spill
+TENSOR_CORE_LIBRARIES = {"streamed_matmul": ("HGMMA", "UTMALDG"),
+                         "flash_attention": ("HGMMA", "UTMALDG"),
+                         "decode_attention": ("HMMA",)}
 
 
 def phase_build() -> None:
@@ -158,10 +169,10 @@ def phase_build() -> None:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             spilled |= bool(spill) and int(spill[1]) + int(spill[2]) > 0
         if name in TENSOR_CORE_LIBRARIES:
-            counts = _build.sass_counts(name, ("HGMMA", "UTMALDG"))
+            counts = _build.sass_counts(name, TENSOR_CORE_LIBRARIES[name])
             log(f"  {name}: SASS holds {counts}")
             if min(counts.values()) == 0 or spilled:
-                raise SystemExit(f"{name}: the tensor-core kernels must issue wgmma and TMA loads "
+                raise SystemExit(f"{name}: the tensor-core kernels must issue {list(counts)} "
                                  f"and spill nothing: {counts}, spilled {spilled}")
 
 
@@ -253,9 +264,10 @@ def check_smem_formulas() -> None:
               for h in da.HEAD_DIMS for n in (1, 2, 3)]
     pairs += [(f"rglru_scan rows={r} block_w={w}", lru.smem_bytes(r, w),
                ll.repro_rglru_scan_smem_bytes(r, w)) for r, w in ((8, 128), (56, 256), (113, 128))]
+    pairs.append(("decode SPLIT_KV", da.SPLIT_KV, dl.repro_decode_attention_split_kv()))
     bad = [(name, a, b) for name, a, b in pairs if a != b]
     if bad:
-        raise SystemExit(f"shared-memory counts of the wrappers differ from the kernels': {bad}")
+        raise SystemExit(f"the wrappers' shared-memory counts or split differ from the kernels': {bad}")
     log(f"  shared-memory counts of the wrappers equal the kernels' ({len(pairs)} cases)")
 
 
@@ -268,10 +280,11 @@ def check_attention_256(hcfg) -> dict:
     each output is a mean of ~2048 values (std ~0.02, the size of the bf16
     atol): a dropped key block or a window off by one would pass.  So q and
     k are drawn with scores of std 1, and decode, whose outputs are all
-    averages there, is held at atol 2e-3.  ``fault_check.py`` plants such
-    faults in a copy of the kernels and shows that these checks fail them.
+    averages there, is held at atol 2e-3, also at every edge of its key
+    split.  ``fault_check.py`` plants such faults in a copy of the kernels
+    and shows that these checks fail them.
     """
-    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref, ops
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
     n, kh, h, win = hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim, hcfg.window
@@ -287,8 +300,10 @@ def check_attention_256(hcfg) -> dict:
         if i == 0:
             errs["flash_attention_256"] = err
         del q, k, v, out, ref
+    split, edge_t = ops.SPLIT_KV, 7 * ops.SPLIT_KV + 37  # T a multiple of neither split nor stage
+    edges = [0, 1, split - 1, split, split + 1, edge_t - 1, edge_t]
     for i, (b, t, lens) in enumerate([(BATCH, win, [win] * BATCH), (BATCH, win, [win, 1000, 1, 0]),
-                                      (1, 300, [300])]):
+                                      (1, 300, [300]), (len(edges), edge_t, edges)]):
         q, k, v, lengths = decode_inputs(b, t, n, kh, h, lens, qk=1.0)
         out = decode_attention(q, k, v, lengths)
         ref = decode_attention_ref(q, k, v, lengths)
@@ -296,7 +311,32 @@ def check_attention_256(hcfg) -> dict:
                           **DECODE_256_TOL)
         if i == 0:
             errs["decode_attention_256"] = err
+    check_decode_bits(q, k, v, lengths, out)
     return errs
+
+
+def check_decode_bits(q, k, v, lengths, out) -> None:
+    """A row's decode depends on its q, valid prefix and length alone: the
+    same bits for every ring, paged, and for each row alone in its cache,
+    in the cache cut to its length, and in a longer one."""
+    from repro_torch.core.refspec import AUTO, PrefetchSpec
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_paged
+
+    specs = [PrefetchSpec(1, 1, 0), PrefetchSpec(2, 1, 1), PrefetchSpec(3, 1, 2), PrefetchSpec(3, distance=AUTO)]
+    same = {"rings": all(torch.equal(decode_attention(q, k, v, lengths, spec=sp), out) for sp in specs),
+            "paged": torch.equal(decode_attention_paged(q, k.tensor_split(9, 1), v.tensor_split(9, 1),
+                                                        lengths), out)}
+    longer = torch.zeros((1, 77) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device).normal_()
+    alone = True
+    for i, n in enumerate(lengths.tolist()):
+        row, cut = slice(i, i + 1), max(n, 1)
+        for kk, vv in ((k[row], v[row]), (k[row, :cut].contiguous(), v[row, :cut].contiguous()),
+                       (torch.cat([k[row], longer], 1), torch.cat([v[row], longer], 1))):
+            alone &= torch.equal(decode_attention(q[row], kk, vv, lengths[row]), out[row])
+    same["alone, cut and longer"] = alone
+    log(f"  decode_attention lengths={lengths.tolist()} bitwise equal: {same}")
+    if not all(same.values()):
+        raise SystemExit(f"decode_attention: a row's value depends on more than the row: {same}")
 
 
 def lru_inputs(b, s, w, seed=7):
@@ -352,6 +392,9 @@ def check_streamed_matmul(cfg) -> dict:
             x, w = mm_inputs(m, k, n, dt)
             check_close(f"streamed_matmul ({m},{k})@({k},{n}) {dt}", streamed_matmul(x, w),
                         matmul_ref(x, w), **tol)
+    x, w = mm_inputs(*SWEEP_SHAPE, torch.float32)
+    errs["streamed_matmul_f32"] = check_close(f"streamed_matmul {SWEEP_SHAPE} float32 (the sweep's)",
+                                              streamed_matmul(x, w), matmul_ref(x, w), **F32_TOL)
     g = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn((2, 3, 32, 96), generator=g, device="cuda")
     w = torch.randn((96, 64), generator=g, device="cuda")
@@ -457,8 +500,9 @@ def phase_check(cfg, res: dict, prompt: int, phase: str) -> None:
             raise SystemExit(f"{step} logits of the kernel path disagree with the plain path")
 
 
-def phase_paper(cfg) -> int:
-    """The paper's offload path; returns ``streamed_matmul``'s launches."""
+def phase_paper(cfg) -> dict:
+    """The paper's offload path; returns ``streamed_matmul``'s launches on
+    each route."""
     import shutil
 
     from repro_torch.benchmarks import common as C
@@ -557,11 +601,12 @@ def phase_paper(cfg) -> int:
                 matmul_ref(up, w_down))
     check_mlp_chain(x, w_up, w_down, y)
     torch.cuda.synchronize()
-    launches = streamed_matmul.launches
+    launches = {"tensor_cores": streamed_matmul.launches_tc,
+                "cuda_cores": streamed_matmul.launches - streamed_matmul.launches_tc}
     log(f"  streamed_matmul launches during the paper path: {launches} "
-        f"({streamed_matmul.launches_tc} on the tensor cores; the full-width MLP's 2 calls: {tc})")
-    if launches <= 0:
-        raise SystemExit("streamed_matmul was not launched on the paper path")
+        f"(the full-width MLP's 2 calls on the tensor cores: {tc})")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"a route of streamed_matmul was not launched on the paper path: {launches}")
     if tc != 2:
         raise SystemExit(f"the full-width bf16 MLP took {tc} of 2 calls on the tensor cores")
     return launches
@@ -642,7 +687,8 @@ def flash_row(cell, b, s, n, kh, h, window, launches, err, flush) -> dict:
 
 
 def decode_row(cell, t, n, kh, h, lens, launches, err, flush) -> dict:
-    """One decode step of the batch against its caches."""
+    """One decode step of the batch against its caches.  ``launches``
+    counts both kernels of a call (the split kernel and the combine)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
@@ -738,13 +784,29 @@ def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict) -> list:
         rows.append(dict(
             name="streamed_matmul", route="cuda", source="src/repro_torch/csrc/streamed_matmul.cu",
             replaces="src/repro/kernels/streamed_matmul/kernel.py:38", cell="lung-NN Fig 4",
-            shape=[m, k, n], launches=launches["streamed_matmul"],
+            shape=[m, k, n], launches=launches["streamed_matmul"]["tensor_cores"],
             max_abs_err=errs[f"streamed_matmul_{i}"],
             ms=time_ms(lambda: streamed_matmul(x, w), flush),
             plain_ms=time_ms(lambda: matmul_ref(x, w), flush),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: torch.matmul(x, w), flush), flop=flop,
         ))
+    # the sweep's f32 product on the CUDA cores; torch.matmul with TF32 off
+    # (resolve_device), as the route's f32 tolerance needs
+    m, k, n = SWEEP_SHAPE
+    x, w = mm_inputs(m, k, n, torch.float32)
+    flop = 2 * m * k * n
+    b_ms, b_by = bound(4 * (m * k + k * n + m * n), flop, F32_FLOP_PER_S)
+    rows.append(dict(
+        name="streamed_matmul", route="cuda", source="src/repro_torch/csrc/streamed_matmul.cu",
+        replaces="src/repro/kernels/streamed_matmul/kernel.py:38", cell="lung-NN Fig 4",
+        shape=[m, k, n], launches=launches["streamed_matmul"]["cuda_cores"],
+        max_abs_err=errs["streamed_matmul_f32"],
+        ms=time_ms(lambda: streamed_matmul(x, w), flush),
+        plain_ms=time_ms(lambda: matmul_ref(x, w), flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.matmul(x, w), flush), flop=flop,
+    ))
     host_cost(cfg)
     # the tensor-core route by ring depth at the first MLP shape (log only)
     m, k, n = mlp_shapes(cfg)[0]

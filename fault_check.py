@@ -28,8 +28,13 @@ WORK = ROOT / "build" / "fault_check"
 FAULTS = {
     "decode_drops_last_ring_stage": (
         "decode_attention.cu",
-        "const int needed = (len + BKV - 1) / BKV;",
-        "const int needed = (len + BKV - 1) / BKV - 1;",
+        "const int n_stage = (stop - start + BKV - 1) / BKV;",
+        "const int n_stage = (stop - start + BKV - 1) / BKV - 1;",
+    ),
+    "decode_combine_skips_last_split": (
+        "decode_attention.cu",
+        "const int n_used = (len + SPLIT_KV - 1) / SPLIT_KV;",
+        "const int n_used = (len + SPLIT_KV - 1) / SPLIT_KV - 1;",
     ),
     "flash_window_off_by_one": (
         "flash_attention.cu",

@@ -1,5 +1,6 @@
-// Shared helpers of the port's CUDA kernels: cp.async staging, warp
-// reductions, bf16 unpacking, and the error-name export of each library.
+// Shared helpers of the port's CUDA kernels: cp.async staging, bf16
+// unpacking, the warp-level mma.sync product with its ldmatrix loads, and the
+// error-name export of each library.
 //
 // Each kernel source is compiled on its own into one shared library with a
 // plain C interface (see repro_torch/kernels/_build.py), so the exported
@@ -72,19 +73,6 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
     }
 }
 
-// Butterfly reductions: every lane gets the result, in a fixed order.
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-}
-
 // Eight bf16 values from one 16-byte shared-memory read.
 __device__ __forceinline__ void unpack_bf16x8(const bf16* p, float f[8]) {
     const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -97,23 +85,46 @@ __device__ __forceinline__ void unpack_bf16x8(const bf16* p, float f[8]) {
     }
 }
 
-// Round to bf16 and back: the probabilities enter the PV product in the
-// value dtype, as the TPU kernels cast them (p.astype(v.dtype)).
-__device__ __forceinline__ float round_bf16(float x) {
-    return __bfloat162float(__float2bfloat16(x));
+// ---------------------------------------------------------------------------
+// mma.sync (sm_80 and later): one warp's 16 x 8 x 16 bf16 product
+// ---------------------------------------------------------------------------
+
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, and r[i] receives lane's fragment of it (row
+// lane / 4, columns 2 (lane % 4) and + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(row))
+                 : "memory");
 }
 
-// dot(q[0:8], k[0:8]) accumulated onto acc in index order.
-__device__ __forceinline__ float dot8(const float* q, const float k[8], float acc) {
-    const float4 a = *reinterpret_cast<const float4*>(q);
-    const float4 b = *reinterpret_cast<const float4*>(q + 4);
-    acc = fmaf(a.x, k[0], acc);
-    acc = fmaf(a.y, k[1], acc);
-    acc = fmaf(a.z, k[2], acc);
-    acc = fmaf(a.w, k[3], acc);
-    acc = fmaf(b.x, k[4], acc);
-    acc = fmaf(b.y, k[5], acc);
-    acc = fmaf(b.z, k[6], acc);
-    acc = fmaf(b.w, k[7], acc);
-    return acc;
+// The same, transposed: r[i] receives rows 2 (lane % 4) and + 1 of column
+// lane / 4 (a B fragment from a row-major [k][n] tile).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(row))
+                 : "memory");
+}
+
+// d += a b: a 16 x 16 row-major bf16 (a[0]: row lane / 4, columns 2 (lane %
+// 4) + {0, 1}; a[1]: row + 8; a[2], a[3]: columns + 8), b 16 x 8 column-major
+// (b[0]: k rows 2 (lane % 4) + {0, 1} of column lane / 4; b[1]: k + 8), d
+// 16 x 8 f32 (d[0], d[1]: row lane / 4, columns 2 (lane % 4) + {0, 1};
+// d[2], d[3]: row + 8).
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 in one register, the first in the low half (an
+// A fragment's column order).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
 }

@@ -18,5 +18,7 @@ prefill; ``streamed_matmul`` is the paper's prefetch ring one level down
 (weights by reference, tiles streamed through shared memory).  Every TPU
 kernel of the JAX package has its counterpart here.  ``flash_attention``
 and ``streamed_matmul``'s bf16 route run on the tensor cores: ``wgmma`` fed
-by TMA rings under mbarriers (``csrc/hopper.cuh``).
+by TMA rings under mbarriers (``csrc/hopper.cuh``).  ``decode_attention``
+splits the key axis across blocks and runs both products as ``mma.sync``,
+merging the blocks' partials in a fixed order.
 """

@@ -194,7 +194,7 @@ def test_attention_refuses_what_does_not_fit_shared_memory_on_every_device():
     from repro_torch.kernels.flash_attention import ops as fa
 
     assert fa.smem_bytes(256) == 197_672 <= fa.SMEM_LIMIT < fa.smem_bytes(512)
-    assert da.smem_bytes(256, 3) == 3 * 66_560 + 20_672 <= da.SMEM_LIMIT < da.smem_bytes(256, 4)
+    assert da.smem_bytes(256, 3) == 3 * 65_536 + 768 + 8_192 <= da.SMEM_LIMIT < da.smem_bytes(256, 4)
     q, k = torch.zeros(1, 10, 256), torch.zeros(1, 64, 1, 256)
     one = torch.ones(1, dtype=torch.int32)
     assert decode_attention(q, k, k, one, spec=PrefetchSpec(3, 1, 2)).shape == q.shape
