@@ -17,8 +17,9 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    paths' shapes (the JAX package's ``_tol``: bf16 rtol = atol = 2e-2,
    f32 rtol 2e-4 / atol 2e-3; ``rglru_scan`` rtol = atol = 1e-5, its JAX
    test's); decode must give the same bits for three ``PrefetchSpec``
-   rings, ``streamed_matmul`` for six (on its tensor-core route at both of
-   smollm-360m's MLP shapes), ``rglru_scan`` for three
+   rings, ``streamed_matmul`` for six (its f32 route at 512³, where K is
+   split, at 130³ by cp.async and at 64 x 256 x 192; its tensor-core route
+   at both of smollm-360m's MLP shapes), ``rglru_scan`` for three
    ``(chunk_t, block_w)`` tilings; flash also at head_dim 128 with 1 and 8
    query heads per KV head and a window; the attention kernels also at the
    hybrid's head_dim 256 with 10 query heads over 1 KV head, on scores
@@ -26,7 +27,8 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    (decode there at atol 2e-3), decode also at every edge of its key
    split (lengths 0, 1, SPLIT_KV - 1, SPLIT_KV, SPLIT_KV + 1, T - 1, T),
    bitwise equal across four rings, row by row alone, paged and in caches
-   cut to each length;
+   cut to each length; the f32 route also at listing 4's shape, and it
+   refuses a split plan that misses or repeats a k-tile;
 2. serve full-width smollm-360m (32 layers, random bf16 weights from seed 0)
    with ``attn_impl="pallas"`` through ``repro_torch.launch.serve.serve``:
    batch 4, prompt 512, gen 32, unpaged device-resident caches; the
@@ -61,8 +63,9 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    MLP in bf16, the sweep's 512³ in f32), beside the least time the card
    could take (bytes at 3.35 TB/s; FLOPs at 989 TFLOP/s bf16 on the tensor
    cores, or 67 TFLOP/s f32 on the CUDA cores); it also logs the host time
-   of one call of each serving-path wrapper and the tensor-core
-   ``streamed_matmul`` by ring depth.
+   of one call of each serving-path wrapper, ``streamed_matmul`` by ring
+   depth on both routes, listing 4's product beside ``torch.matmul``, and
+   phase 4's kernel sweep by ring.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -93,8 +96,12 @@ DECODE_256_TOL = dict(rtol=2e-2, atol=2e-3)  # see check_attention_256
 # the JAX package's streamed-matmul test shapes (tests/test_kernels.py)
 MM_SHAPES = [(128, 256, 128), (64, 100, 200), (7, 384, 512), (1, 128, 128), (130, 130, 130)]
 # the JAX package's kernel sweep (benchmarks/kernel_streaming.py): f32, the
-# CUDA-core route
+# CUDA-core route; and quickstart listing 4's product with its ring
 SWEEP_SHAPE = (512, 512, 512)
+LISTING4_SHAPE, LISTING4_RING = (256, 512, 256), (2, 3)  # (M, K, N); (distance, slots)
+# the rings phase 5 times the matmul by (distance, slots); the kernel sweep's four are
+# (0, 1), (1, 2), (2, 3), (4, 5)
+TIMED_RINGS = [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 6)]
 # kernel path vs plain path through 32 bf16 layers: the two round the
 # attention probabilities at different points, and the difference grows
 # with depth; bound relative to the largest logit
@@ -260,6 +267,8 @@ def check_smem_formulas() -> None:
              for h in fa.HEAD_DIMS]
     pairs += [(f"streamed_matmul tensor cores slots={n}", smm.ring_bytes(torch.bfloat16, n),
                sl.repro_streamed_matmul_tc_smem_bytes(n)) for n in range(1, smm.max_slots(torch.bfloat16) + 1)]
+    pairs += [(f"streamed_matmul f32 slots={n}", smm.ring_bytes(torch.float32, n),
+               sl.repro_streamed_matmul_f32_smem_bytes(n)) for n in range(1, smm.max_slots(torch.float32) + 1)]
     pairs += [(f"decode H={h} slots={n}", da.smem_bytes(h, n), dl.repro_decode_attention_smem_bytes(h, n))
               for h in da.HEAD_DIMS for n in (1, 2, 3)]
     pairs += [(f"rglru_scan rows={r} block_w={w}", lru.smem_bytes(r, w),
@@ -385,6 +394,20 @@ def check_streamed_matmul(cfg) -> dict:
             raise SystemExit(f"streamed_matmul: the wrapper's ring stage for {dt} is "
                              f"{ops.stage_bytes(dt)} bytes, the kernel's "
                              f"{lib.repro_streamed_matmul_stage_bytes(code)}")
+    # the f32 kernel takes the wrapper's split plan and refuses one that
+    # misses a k-tile or repeats one, before it launches anything
+    m, k, n = SWEEP_SHAPE
+    x, w = mm_inputs(m, k, n, torch.float32)
+    y, work = torch.empty((m, n), device="cuda"), torch.empty((8, m, n), device="cuda")
+    plan = ops.split_plan(m, n, k)
+    for splits, kps in [(plan.splits - 1, plan.tiles_per_split), (plan.splits + 1, plan.tiles_per_split),
+                        (plan.splits, plan.tiles_per_split - 1)]:
+        rc = lib.repro_streamed_matmul_f32(x.data_ptr(), w.data_ptr(), y.data_ptr(), work.data_ptr(), m, n, k,
+                                           splits, kps, 1, 1, 2, torch.cuda.current_stream().cuda_stream)
+        if rc == 0:
+            raise SystemExit(f"streamed_matmul: the f32 kernel took a plan of {splits} splits of {kps} "
+                             f"k-tiles at {SWEEP_SHAPE}, which does not take each k-tile once")
+    log(f"  streamed_matmul f32 refuses split plans that miss or repeat a k-tile; {SWEEP_SHAPE}: {plan}")
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         tol = dict(rtol=RTOL, atol=ATOL) if dt == torch.bfloat16 else F32_TOL
@@ -395,6 +418,10 @@ def check_streamed_matmul(cfg) -> dict:
     x, w = mm_inputs(*SWEEP_SHAPE, torch.float32)
     errs["streamed_matmul_f32"] = check_close(f"streamed_matmul {SWEEP_SHAPE} float32 (the sweep's)",
                                               streamed_matmul(x, w), matmul_ref(x, w), **F32_TOL)
+    (m, k, n), (d, sl) = LISTING4_SHAPE, LISTING4_RING
+    x, w = mm_inputs(m, k, n, torch.float32)
+    check_close(f"streamed_matmul listing 4 ({m},{k})@({k},{n}) float32 ring {LISTING4_RING}",
+                streamed_matmul(x, w, spec=PrefetchSpec(sl, 1, d)), matmul_ref(x, w), **F32_TOL)
     g = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn((2, 3, 32, 96), generator=g, device="cuda")
     w = torch.randn((96, 64), generator=g, device="cuda")
@@ -408,14 +435,17 @@ def check_streamed_matmul(cfg) -> dict:
     specs = [PrefetchSpec(slots, 1, dist) for dist, slots in [(0, 1), (1, 2), (2, 3), (3, 4), (1, 4)]]
     specs.append(PrefetchSpec(5, 1, AUTO))
     mlp = [(*shape, torch.bfloat16) for shape in mlp_shapes(cfg)]
-    for m, k, n, dt in [(64, 256, 192, torch.float32), *mlp]:
+    f32 = [(64, 256, 192), SWEEP_SHAPE, (130, 130, 130)]  # the last by cp.async
+    for m, k, n, dt in [*((*shape, torch.float32) for shape in f32), *mlp]:
         x, w = mm_inputs(m, k, n, dt)
         route = ops.route(x, w)
         tc_before = streamed_matmul.launches_tc
         outs = [streamed_matmul(x, w, spec=sp) for sp in specs]
         tc = streamed_matmul.launches_tc - tc_before
         same = all(torch.equal(outs[0], o) for o in outs[1:])
-        log(f"  streamed_matmul ({m},{k})@({k},{n}) {dt} on {route} ({tc} tensor-core launches) "
+        splits = ops.split_plan(m, n, k).splits if dt == torch.float32 else 1
+        log(f"  streamed_matmul ({m},{k})@({k},{n}) {dt} on {route}, {splits} split(s) of K "
+            f"({tc} tensor-core launches) "
             f"bitwise equal across {[(sp.distance, sp.buffer_size) for sp in specs]} "
             f"(distance, buffer_size): {same}")
         if not same:
@@ -500,9 +530,9 @@ def phase_check(cfg, res: dict, prompt: int, phase: str) -> None:
             raise SystemExit(f"{step} logits of the kernel path disagree with the plain path")
 
 
-def phase_paper(cfg) -> dict:
+def phase_paper(cfg) -> tuple[dict, list]:
     """The paper's offload path; returns ``streamed_matmul``'s launches on
-    each route."""
+    each route and the kernel sweep's rows."""
     import shutil
 
     from repro_torch.benchmarks import common as C
@@ -609,7 +639,7 @@ def phase_paper(cfg) -> dict:
         raise SystemExit(f"a route of streamed_matmul was not launched on the paper path: {launches}")
     if tc != 2:
         raise SystemExit(f"the full-width bf16 MLP took {tc} of 2 calls on the tensor cores")
-    return launches
+    return launches, ks
 
 
 def check_mlp_chain(x, w_up, w_down, y, margin: float = 1.1) -> None:
@@ -741,7 +771,7 @@ def host_cost(cfg) -> None:
     log("  host time per call (enqueue only, us): " + ", ".join(f"{n} {c:.1f}" for n, c in costs.items()))
 
 
-def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict) -> list:
+def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict, sweep: list) -> list:
     from repro_torch.core.refspec import PrefetchSpec
     from repro_torch.kernels.rglru_scan import linear_recurrence, linear_recurrence_ref
     from repro_torch.kernels.streamed_matmul import matmul_ref, streamed_matmul
@@ -808,12 +838,26 @@ def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict) -> list:
         library_ms=time_ms(lambda: torch.matmul(x, w), flush), flop=flop,
     ))
     host_cost(cfg)
-    # the tensor-core route by ring depth at the first MLP shape (log only)
+    # each route by ring depth (log only): the tensor cores at the first MLP
+    # shape, f32 at the sweep's 512^3 and at listing 4's shape (the listing's
+    # own ring); the kernel sweep's rings as phase 4 timed them
     m, k, n = mlp_shapes(cfg)[0]
     x, w = mm_inputs(m, k, n, torch.bfloat16)
     by_ring = {(d, s): round(time_ms(lambda: streamed_matmul(x, w, spec=PrefetchSpec(s, 1, d)), flush), 5)
                for d, s in [(0, 1), (1, 2), (2, 3), (3, 4), (5, 6)]}
     log(f"  streamed_matmul ({m},{k})@({k},{n}) bf16 ms by ring (distance, slots): {by_ring}")
+    m, k, n = SWEEP_SHAPE
+    x, w = mm_inputs(m, k, n, torch.float32)
+    by_ring = {(d, s): round(time_ms(lambda: streamed_matmul(x, w, spec=PrefetchSpec(s, 1, d)), flush), 5)
+               for d, s in TIMED_RINGS}
+    log(f"  streamed_matmul ({m},{k})@({k},{n}) f32 ms by ring (distance, slots): {by_ring}")
+    (m, k, n), (d, s) = LISTING4_SHAPE, LISTING4_RING
+    x, w = mm_inputs(m, k, n, torch.float32)
+    log(f"  streamed_matmul listing 4 ({m},{k})@({k},{n}) f32 ring {LISTING4_RING}: kernel "
+        f"{time_ms(lambda: streamed_matmul(x, w, spec=PrefetchSpec(s, 1, d)), flush):.5f} ms, torch.matmul "
+        f"{time_ms(lambda: torch.matmul(x, w), flush):.5f} ms")
+    log("  kernel sweep (phase 4, 512^3 f32, 20 calls back to back, L2 warm) ms by ring: "
+        + str({(r["distance"], r["ring_slots"]): round(r["ms"], 5) for r in sweep}))
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         flop = r.pop("flop", None)  # operations on the tensor cores, for the log only
@@ -843,8 +887,8 @@ def main() -> int:
                                   ("rglru_scan", "flash_attention", "decode_attention"))
     phase_check(hcfg, hres, HYB_PROMPT, "3b")
     del hres
-    launches["streamed_matmul"] = phase_paper(cfg)
-    rows = phase_times(cfg, hcfg, errs, launches, hlaunches)
+    launches["streamed_matmul"], sweep = phase_paper(cfg)
+    rows = phase_times(cfg, hcfg, errs, launches, hlaunches, sweep)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -9,7 +9,9 @@ For the unmodified kernels and for each fault in ``FAULTS`` it copies
 line of a kernel source there, and runs the chip_smoke check of that source
 (``CHECKS``: ``check_attention_256`` for the attention kernels,
 ``check_streamed_matmul`` for the matmul) in that copy, whose kernels build
-from the copy's sources; the unmodified copy runs every check.  It prints
+from the copy's sources; the unmodified copy runs every check.  The f32
+route's two faults (its combine skips the last split; each split's run of
+k-tiles stops one short) must fail ``check_streamed_matmul`` too.  It prints
 each run's check lines (the largest |kernel - plain| and its share of the
 tolerance) and exits 0 iff the unmodified kernels pass and every planted
 fault fails.  Needs a CUDA card and ``nvcc``.
@@ -45,6 +47,16 @@ FAULTS = {
         "streamed_matmul.cu",
         "for (int kt = 0; kt < n_kt; ++kt) {",
         "for (int kt = 0; kt < n_kt - 1; ++kt) {",
+    ),
+    "streamed_matmul_f32_combine_skips_last_split": (
+        "streamed_matmul.cu",
+        "for (int s = 1; s < splits; ++s) acc = add(acc, part[s * count + i]);",
+        "for (int s = 1; s < splits - 1; ++s) acc = add(acc, part[s * count + i]);",
+    ),
+    "streamed_matmul_f32_split_stops_one_tile_short": (
+        "streamed_matmul.cu",
+        "const int n = max(0, min(kps, n_kt - kt0));",
+        "const int n = max(0, min(kps, n_kt - kt0) - 1);",
     ),
 }
 

@@ -6,10 +6,11 @@ The in-kernel analogue of the paper's §3.1 knobs: the weight operand stays
 in device memory and its tiles stream through the shared-memory ring of
 ``csrc/streamed_matmul.cu``.  :func:`kernel_sweep` runs the kernel at 512³
 f32 for four (distance, slots) rings, each checked against the plain
-version, with the ring's schedule from the kernel's tile sizes and its time
-on the card.  :func:`host_stream_sweep` runs the same K-tile schedule one
-level up: weight tiles stream through the transfer engine over an emulated
-link (``SWEEP_LINK``), fixed distances against ``distance="auto"``.
+version, with the ring's schedule from the kernel's tiles and split plan,
+and its time on the card.  :func:`host_stream_sweep` runs the same K-tile
+schedule one level up: weight tiles stream through the transfer engine over
+an emulated link (``SWEEP_LINK``), fixed distances against
+``distance="auto"``.
 """
 from __future__ import annotations
 
@@ -53,7 +54,9 @@ def kernel_sweep(device: DeviceLike = None, seed: int = 0) -> list[dict]:
     x = torch.randn((m, k), generator=g, device=dev)
     w = torch.randn((k, n), generator=g, device=dev)
     ref = matmul_ref(x, w)
-    tiles = (-(-m // smm.BLOCK_M)) * (-(-n // smm.BLOCK_N)) * (-(-k // smm.BLOCK_K))
+    plan = smm.split_plan(m, n, k)
+    # every block copies its split's k-tiles: one stage per (output tile, k-tile)
+    tiles = plan.grid[0] * plan.grid[1] * (-(-k // smm.BLOCK_K))
     stage = smm.stage_bytes(torch.float32)
     rows = []
     for dist, slots in [(0, 1), (1, 2), (2, 3), (4, 5)]:
@@ -62,16 +65,17 @@ def kernel_sweep(device: DeviceLike = None, seed: int = 0) -> list[dict]:
         rows.append({
             "distance": dist,
             "ring_slots": slots,
+            "splits": plan.splits,
             "copy_issues": tiles,
             "bytes_per_stage": stage,
-            "smem_ring_bytes": slots * stage,
+            "smem_ring_bytes": smm.ring_bytes(torch.float32, slots),
             "overlapped": dist > 0,
             "matches_oracle": bool(torch.allclose(out, ref, atol=1e-3)),
             "ms": (_kernel_ms(lambda: streamed_matmul(x, w, spec=spec))
                    if dev.type == "cuda" else None),
         })
     C.print_table("streamed matmul copy schedule (paper §3.1 knobs, kernel level)", rows,
-                  ["distance", "ring_slots", "copy_issues", "bytes_per_stage",
+                  ["distance", "ring_slots", "splits", "copy_issues", "bytes_per_stage",
                    "smem_ring_bytes", "matches_oracle", "ms"])
     C.save_rows("kernel_streaming", rows)
     return rows

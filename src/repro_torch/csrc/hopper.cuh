@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels, as
-// raw PTX: mbarriers, TMA tile loads, wgmma shared-memory descriptors for
-// the 128-byte swizzle, the wgmma bf16 -> f32 products the kernels issue,
-// and the host-side encoding of a TMA tensor map.
+// Hopper (sm_90a) building blocks shared by the kernels, as raw PTX:
+// mbarriers (which also report cp.async copies), TMA tile loads, wgmma
+// shared-memory descriptors for the 128-byte swizzle, the wgmma bf16 -> f32
+// products the kernels issue, and the host-side encoding of a TMA tensor map.
 //
 // The layout every kernel here uses: a tile is a stack of 128-byte rows
 // (64 bf16) that TMA writes under CU_TENSOR_MAP_SWIZZLE_128B, so eight rows
@@ -48,6 +48,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
     asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+
+// An arrival on `bar` once every cp.async this thread issued before it has
+// landed; .noinc: the arrival is one of the count the barrier was
+// initialised with.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(smem_addr(bar)) : "memory");
 }
 
 // Wait until the phase of parity `parity` has completed.  A wait that has
@@ -384,25 +391,33 @@ inline EncodeTiledFn encode_tiled_fn() {
     return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first) over `ptr`, with the
-// byte strides of dims 1.. and a box of `box` elements, 128-byte swizzle,
+// A tensor map of `rank` dims (innermost first) of `dtype` over `ptr`, with
+// the byte strides of dims 1.. and a box of `box` elements, under `swizzle`,
 // out-of-bounds elements read as zeros.  Returns a cudaError_t code.
-inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
-                           const uint64_t* strides_bytes, const uint32_t* box) {
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr, int rank,
+                      const uint64_t* dims, const uint64_t* strides_bytes, const uint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
     EncodeTiledFn fn = encode_tiled_fn();
     if (fn == nullptr) return (int)cudaErrorNotSupported;
     cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-    CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(ptr),
+    CUresult r = fn(map, dtype, (cuuint32_t)rank, const_cast<void*>(ptr),
                     reinterpret_cast<const cuuint64_t*>(dims),
                     reinterpret_cast<const cuuint64_t*>(strides_bytes),
                     reinterpret_cast<const cuuint32_t*>(box), elem_strides,
-                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) {
-        fprintf(stderr, "cuTensorMapEncodeTiled: CUresult %d (rank %d)\n", (int)r, rank);
+        fprintf(stderr, "cuTensorMapEncodeTiled: CUresult %d (rank %d, dtype %d)\n", (int)r, rank, (int)dtype);
         return (int)cudaErrorInvalidValue;
     }
     return 0;
+}
+
+// A bf16 tensor map under the 128-byte swizzle (the wgmma kernels' layout).
+inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                           const uint64_t* strides_bytes, const uint32_t* box) {
+    return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides_bytes, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper
