@@ -33,6 +33,23 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    with ``attn_impl="pallas"`` through ``repro_torch.launch.serve.serve``:
    batch 4, prompt 512, gen 32, unpaged device-resident caches; the
    kernels' launch counts are zeroed just before and read just after;
+2p. serve the same model, weights and prompts through the paged
+   ``ServeSession`` (32-token pages, one hot page, ``distance="auto"``),
+   each run with the launch counts zeroed just before and read just after:
+   (a) device pages, tokens bitwise phase 2's and the same flash and decode
+   launches; (b) pinned-host and disk pages, tokens bitwise (a)'s, one H2D
+   request and one page (1,310,720 bytes) per fetched page group, one disk
+   request per group, the device retaining less than the 89,128,960-byte
+   cache; (c) the unpaged pinned-host round trip, tokens bitwise (a)'s, one
+   H2D and one D2H request per cache leaf a step; (d) 8 requests on 4
+   slots sharing a 256-token prefix at pinned host, with and without
+   copy-on-write sharing: the same tokens, shared hits, fewer H2D bytes;
+   (e) the load generator's bursty trace (prompts 128/256/512, outputs
+   8/16/32, a 64-token shared prefix) through the SLO scheduler at pinned
+   host under the virtual clock, every offered request completed or
+   rejected, then again over the trace cut to its first phase, whose
+   requests must get the same stamps and tokens as in the whole run; then
+   one wall-clock run;
 3. check the output: shapes, token range, finite logits, and the kernel
    path's logits against the plain path's (``attn_impl="xla"``) on the same
    full-width model and prompt;
@@ -108,6 +125,10 @@ TIMED_RINGS = [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 6)]
 LOGIT_RTOL = 5e-2
 
 BATCH, PROMPT, GEN, SEED = 4, 512, 32, 0
+# phase 2p: the JAX package's default page length, one hot page; 8 requests
+# sharing a 256-token prefix; the load generator's trace
+PAGE_LEN, HOT_PAGES, SHARED_PREFIX = 32, 1, 256
+LG_PROMPTS, LG_GENS, LG_SHARED = (128, 256, 512), (8, 16, 32), 64
 # the recurrentgemma-2b cell: a prompt longer than the 2048-token window
 HYB_PROMPT = 3072
 # the JAX package's rglru_scan test shapes (tests/test_rglru_kernel.py)
@@ -466,10 +487,10 @@ def serving_kernels() -> dict:
             "rglru_scan": linear_recurrence}
 
 
-def phase_serve(cfg, prompt: int, phase: str, expect: tuple) -> tuple[dict, dict]:
-    """Serve ``cfg`` through the entry point; every serving kernel's count
-    is zeroed just before and read just after, and each of ``expect``
-    must have launched."""
+def phase_serve(cfg, prompt: int, phase: str, expect: tuple, params=None) -> tuple[dict, dict]:
+    """Serve ``cfg`` through the entry point (with ``params``, or weights
+    from ``SEED``); every serving kernel's count is zeroed just before and
+    read just after, and each of ``expect`` must have launched."""
     from repro_torch.launch.serve import serve
 
     log(f"phase {phase} serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -481,7 +502,7 @@ def phase_serve(cfg, prompt: int, phase: str, expect: tuple) -> tuple[dict, dict
     for w in wrappers.values():
         w.launches = 0
     res = serve(cfg, batch=BATCH, prompt_len=prompt, gen=GEN, kv_kind="device",
-                kv_page_len=0, seed=SEED)
+                kv_page_len=0, seed=SEED, params=params)
     launches = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     log(f"  prefill {res['prefill_s'] * 1e3:.3f} ms for {BATCH} requests "
@@ -492,6 +513,160 @@ def phase_serve(cfg, prompt: int, phase: str, expect: tuple) -> tuple[dict, dict
     if min(launches[k] for k in expect) <= 0:
         raise SystemExit(f"a kernel of the path was not launched: {launches}")
     return res, launches
+
+
+def tail_wait(step_waits: list) -> float:
+    """Median compute-blocked wait a step over the second half of the steps
+    (the steady state; the JAX package's ``serve_paged`` benchmark's)."""
+    tail = sorted(step_waits[len(step_waits) // 2:])
+    return tail[len(tail) // 2] if tail else 0.0
+
+
+def paged_run(cfg, params, name: str, **kw) -> tuple[dict, dict]:
+    """One serve through the entry point with the launch counts zeroed just
+    before and read just after; logs the run's end-to-end numbers."""
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = serving_kernels()
+    for w in wrappers.values():
+        w.launches = 0
+    kw = {"batch": BATCH, "prompt_len": PROMPT, "gen": GEN, "seed": SEED, **kw}
+    res = serve(cfg, params=params, **kw)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    st = res["stats"]
+    resident = (f", peak resident {res['peak_resident_bytes']} of {res['total_cache_bytes']} B"
+                if res["paged"] else "")
+    log(f"  {name}: prefill {res['prefill_s'] * 1e3:.3f} ms, decode "
+        f"{res['decode_s'] * 1e3 / max(res['n_steps'], 1):.3f} ms a step ({res['n_steps']} steps), "
+        f"{res['tokens_per_s']:.1f} tok/s, transfer_wait_s {st.transfer_wait_s:.6f}, tail step "
+        f"wait {tail_wait(res['step_waits']) * 1e3:.3f} ms; h2d {st.h2d_requests} req / "
+        f"{st.bytes_h2d} B over {st.n_groups} groups, d2h {st.d2h_requests} req, disk "
+        f"{st.disk_requests} req{resident}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B; launches {launches}")
+    return res, launches
+
+
+def phase_paged(cfg, params, unpaged: dict, unpaged_launches: dict) -> None:
+    """Phase 2p: the paged session at full width against phase 2's unpaged
+    run on the same weights and prompts."""
+    import numpy as np
+
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.serve import SLO, LoadGenConfig, SLOScheduler, generate
+
+    log(f"phase 2p paged serve {cfg.name}: pages of {PAGE_LEN} tokens, {HOT_PAGES} hot page, "
+        f"distance auto; batch {BATCH}, prompt {PROMPT}, gen {GEN}")
+    t0 = t_sub = time.perf_counter()
+
+    def sub_s() -> float:
+        """Seconds since the last sub-phase ended."""
+        nonlocal t_sub
+        t, t_sub = t_sub, time.perf_counter()
+        return t_sub - t
+
+    def same(name, a, b):
+        if not np.array_equal(a, b):
+            raise SystemExit(f"{name}: tokens differ from the run they must equal bitwise")
+
+    page = dict(kv_page_len=PAGE_LEN, hot_pages=HOT_PAGES, distance="auto")
+    dev, launches = paged_run(cfg, params, "(a) device pages", kv_kind="device", **page)
+    same("(a) device pages", dev["generated"], unpaged["generated"])
+    kernels = ("flash_attention", "decode_attention")
+    if any(launches[k] != unpaged_launches[k] for k in kernels):
+        raise SystemExit(f"(a) launches {launches} differ from phase 2's {unpaged_launches}")
+    if dev["stats"].h2d_requests or dev["stats"].d2h_requests:
+        raise SystemExit("(a) device pages moved over the link")
+    log(f"  (a) done ({sub_s():.1f} s)")
+
+    itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    page_bytes = 2 * cfg.n_layers * PAGE_LEN * cfg.n_kv_heads * cfg.head_dim * itemsize  # k and v
+    total = BATCH * ((PROMPT + GEN) // PAGE_LEN) * page_bytes
+    cold = BATCH * (PROMPT // PAGE_LEN - HOT_PAGES)  # cold pages fetched each step
+    groups = cold * (GEN - 1)
+    for kind in ("pinned_host", "disk_host"):
+        res, launches = paged_run(cfg, params, f"(b) {kind} pages", kv_kind=kind, **page)
+        same(f"(b) {kind}", res["generated"], dev["generated"])
+        st = res["stats"]
+        checks = {
+            "n_groups": (st.n_groups, groups),
+            "h2d_requests": (st.h2d_requests, st.n_groups),
+            "bytes_h2d": (st.bytes_h2d, st.n_groups * page_bytes),
+            "total_cache_bytes": (res["total_cache_bytes"], total),
+            "disk_requests": (st.disk_requests, st.n_groups if kind == "disk_host" else 0),
+            "per_tier disk requests": (st.per_tier()["disk"]["requests"], st.disk_requests),
+        }
+        for what, (got, want) in checks.items():
+            if got != want:
+                raise SystemExit(f"(b) {kind}: {what} {got}, expected {want}")
+        if not res["peak_resident_bytes"] < res["total_cache_bytes"]:
+            raise SystemExit(f"(b) {kind}: the device retained the whole cache")
+        if min(launches[k] for k in kernels) <= 0:
+            raise SystemExit(f"(b) {kind}: a kernel of the path was not launched: {launches}")
+        log(f"  (b) {kind} done ({sub_s():.1f} s)")
+
+    res, _ = paged_run(cfg, params, "(c) unpaged pinned_host round trip", kv_kind="pinned_host",
+                       kv_page_len=0)
+    same("(c) unpaged pinned_host", res["generated"], dev["generated"])
+    st, leaves = res["stats"], 2  # k and v
+    if not st.h2d_requests == st.d2h_requests == (GEN - 1) * leaves:
+        raise SystemExit(f"(c) h2d {st.h2d_requests} / d2h {st.d2h_requests} requests, "
+                         f"expected {(GEN - 1) * leaves} each")
+    log(f"  (c) done ({sub_s():.1f} s)")
+
+    runs = {}
+    for sharing in (True, False):
+        runs[sharing], _ = paged_run(cfg, params, f"(d) {2 * BATCH} requests, {SHARED_PREFIX} shared tokens, sharing "
+                                     f"{sharing}", kv_kind="pinned_host", n_requests=2 * BATCH,
+                                     shared_prefix_len=SHARED_PREFIX, prefix_sharing=sharing,
+                                     **page)
+    same("(d) shared vs unshared", runs[True]["generated"], runs[False]["generated"])
+    on, off = runs[True]["stats"], runs[False]["stats"]
+    if not (on.shared_hits > 0 and on.bytes_h2d < off.bytes_h2d):
+        raise SystemExit(f"(d) sharing saved nothing: {on.shared_hits} hits, "
+                         f"{on.bytes_h2d} against {off.bytes_h2d} B")
+    log(f"  (d) done ({sub_s():.1f} s)")
+
+    trace = LoadGenConfig(seed=0, prompt_lens=LG_PROMPTS, prompt_mix=(1.0,) * len(LG_PROMPTS),
+                          gen_lens=LG_GENS, gen_mix=(1.0,) * len(LG_GENS),
+                          shared_prefix_len=LG_SHARED, vocab_size=cfg.vocab_size)
+    offered = generate(trace)
+
+    def slo_run(offered, virtual_step_s):
+        """The SLO report, each request's latency record and its tokens."""
+        with ServeSession(cfg, slots=BATCH, max_len=PROMPT + GEN, kv_kind="pinned_host",
+                          page_len=PAGE_LEN, hot_pages=HOT_PAGES, params=params) as session:
+            sched = SLOScheduler(session, offered, slo=SLO(), max_queue=32,
+                                 virtual_step_s=virtual_step_s)
+            rep = sched.run()
+            tokens = {rid: req.emitted for rid, req in session.requests.items()}
+        if rep["offered"] != rep["completed"] + rep["rejected_oversize"] + rep["rejected_overload"]:
+            raise SystemExit(f"(e) offered {rep['offered']} is not completed + rejected: {rep}")
+        return rep, sched.tracked, tokens
+
+    # the virtual clock, twice: the whole trace, then the trace cut to its
+    # first phase.  Under that clock a request's stamps and tokens depend
+    # only on the requests that arrived before it (the queue is first in,
+    # first out), so the first phase's must come out equal in both runs.
+    r, tracked, tokens = slo_run(offered, 0.01)
+    first = [o for o in offered if o.arrival_s < trace.phases[0].duration_s]
+    _, tracked1, tokens1 = slo_run(first, 0.01)
+    if not tracked1 or any(tracked1[rid] != tracked[rid] or tokens1[rid] != tokens[rid]
+                           for rid in tracked1):
+        raise SystemExit("(e) two virtual-clock runs of the first phase disagree")
+    log(f"  (e) SLO trace, virtual clock (10 ms a step): offered {r['offered']}, completed "
+        f"{r['completed']}, rejected {r['rejected_oversize']} + {r['rejected_overload']}, "
+        f"{r['n_steps']} steps, {r['shared_hits']} shared hits, {r['prefill_compiles']} prefill "
+        f"widths; again over the first phase's {len(first)} requests, equal "
+        f"({sub_s():.1f} s)")
+    r, _, _ = slo_run(offered, None)
+    log(f"  (e) SLO trace, wall clock, on the card: offered {r['offered']}, completed "
+        f"{r['completed']} over {r['makespan_s']:.3f} s; TTFT p50 {r['ttft_s']['p50'] * 1e3:.3f} "
+        f"ms p99 {r['ttft_s']['p99'] * 1e3:.3f} ms; TPOT p50 {r['tpot_s']['p50'] * 1e3:.3f} ms "
+        f"p99 {r['tpot_s']['p99'] * 1e3:.3f} ms; SLO attainment {r['slo_attainment']:.3f} "
+        f"({sub_s():.1f} s)")
+    log(f"  phase 2p done in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_check(cfg, res: dict, prompt: int, phase: str) -> None:
@@ -880,7 +1055,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     errs = phase_kernels(cfg, hcfg)
-    res, launches = phase_serve(cfg, PROMPT, "2", ("flash_attention", "decode_attention"))
+    from repro_torch.train.steps import init_params
+
+    params = init_params(cfg, SEED, "cuda")  # phases 2 and 2p share them
+    res, launches = phase_serve(cfg, PROMPT, "2", ("flash_attention", "decode_attention"),
+                                params=params)
+    phase_paged(cfg, params, res, launches)
+    del params
     phase_check(cfg, res, PROMPT, "3")
     del res
     hres, hlaunches = phase_serve(hcfg, HYB_PROMPT, "2b",

@@ -1,0 +1,169 @@
+"""Paged KV-cache serving study: decode through the hierarchy vs per-step placement.
+
+    PYTHONPATH=src python -m repro_torch.benchmarks.serve_paged [--device cpu]
+
+The JAX package's ``benchmarks/serve_paged.py`` on the port.  The pre-pager
+serving path round-trips the ENTIRE KV cache through host memory
+synchronously on every decode step.  This suite serves the same requests
+four ways under the modeled Epiphany link (the paper's §5.1 constants —
+request cost + serial bandwidth):
+
+  * ``sync``        unpaged, host-homed: whole-cache D2H + H2D, blocking,
+                    per decode step,
+  * ``paged d=1``   cold pages streamed with a fixed window of 1,
+  * ``paged auto``  per-request ``AdaptiveDistance`` window,
+  * ``paged disk``  cold pages homed at the DiskHost tier (second link),
+
+plus an all-device paged reference run.  Gates:
+
+  * every schedule generates bitwise-identical tokens,
+  * steady-state per-step decode ``transfer_wait`` at ``auto`` is >= 2x
+    lower than the synchronous per-step placement,
+  * coalescing: exactly 1 H2D request per fetched page group,
+  * host/disk-homed decode retains less device memory than the full cache.
+
+Writes ``results/torch/BENCH_serve.json``.  Runs on the card unless
+``--device cpu``.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+from repro_torch.benchmarks import common as C
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.engine import EngineConfig, LinkModel, TransferEngine
+from repro_torch.core.refspec import AUTO
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import serve as sv
+
+#: the per-step cold set is kept to a few large groups (the paper's
+#: "elements per pre-fetch" lever — coalescing beats fine-grained pages when
+#: the compute window is short)
+BATCH = 2
+PAGE_LEN = 32
+PROMPT = 96
+GEN = 32
+
+#: the paper's Epiphany-class link (per-request service cost + serial
+#: bandwidth), slowed to 40 MB/s so the modeled cost dominates scheduler
+#: noise
+HOST_LINK = LinkModel(request_s=0.3e-3, bandwidth_Bps=40e6, latency_s=0.0)
+#: disk tier: slower per request, high overlappable latency
+DISK_LINK = LinkModel(request_s=0.5e-3, bandwidth_Bps=40e6, latency_s=2e-3)
+
+
+def _tail(xs, frac=0.5):
+    """Median per-step wait over the steady-state tail (median, not mean:
+    host-clock spikes would otherwise dominate the link-model signal)."""
+    xs = list(xs)
+    if not xs:
+        return 0.0
+    tail = sorted(xs[int(len(xs) * frac):])
+    return tail[len(tail) // 2]
+
+
+def _row(name, kind, distance, res) -> dict:
+    st = res["stats"]
+    row = {
+        "schedule": name,
+        "kv_kind": kind,
+        "distance": str(distance),
+        "paged": res["paged"],
+        "decode_s": res["decode_s"],
+        "tokens_per_s": res["tokens_per_s"],
+        "transfer_wait_s": st.transfer_wait_s,
+        "tail_step_wait_s": _tail(res["step_waits"]),
+        "h2d_requests": st.h2d_requests,
+        "d2h_requests": st.d2h_requests,
+        "n_groups": st.n_groups,
+        "requests_per_group": st.requests_per_group,
+        "per_tier": st.per_tier(),
+        "final_distance": st.distance_trace[-1] if st.distance_trace else None,
+    }
+    if res["paged"]:
+        row.update(
+            peak_resident_bytes=res["peak_resident_bytes"],
+            total_cache_bytes=res["total_cache_bytes"],
+            demoted_groups=res["demoted_groups"],
+            stale_drops=res["stale_drops"],
+        )
+    return row
+
+
+def run(device, tag: str = "BENCH_serve") -> list[dict]:
+    cfg = get_smoke_config("smollm-360m")
+    kw = dict(batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0, device=device)
+
+    cases = [
+        ("sync", "pinned_host", 0, "-"),
+        ("paged", "device", PAGE_LEN, AUTO),
+        ("paged", "pinned_host", PAGE_LEN, 1),
+        ("paged", "pinned_host", PAGE_LEN, AUTO),
+        ("paged", "disk_host", PAGE_LEN, AUTO),
+    ]
+    rows, gens = [], {}
+    for name, kind, page_len, dist in cases:
+        with TransferEngine(EngineConfig(link=HOST_LINK, disk_link=DISK_LINK),
+                            device=device) as engine:
+            res = sv.serve(cfg, kv_kind=kind, kv_page_len=page_len,
+                           distance=dist if dist != "-" else AUTO, engine=engine, **kw)
+        gens[f"{name}:{kind}:{dist}"] = res["generated"]
+        rows.append(_row(name, kind, dist, res))
+
+    C.print_table(
+        f"paged KV-cache serving (modeled Epiphany link, {device})",
+        rows,
+        ["schedule", "kv_kind", "distance", "decode_s", "transfer_wait_s",
+         "tail_step_wait_s", "h2d_requests", "requests_per_group", "final_distance"],
+    )
+    # every schedule must decode the same tokens, bitwise
+    ref = gens["paged:device:auto"]
+    for label, g in gens.items():
+        assert np.array_equal(g, ref), f"{label} diverged from the device run"
+    C.save_rows(tag, rows)
+    return rows
+
+
+def main(device: DeviceLike = None) -> int:
+    rows = run(resolve_device(device))
+    by = {(r["schedule"], r["kv_kind"], r["distance"]): r for r in rows}
+    sync = by[("sync", "pinned_host", "-")]
+    d1 = by[("paged", "pinned_host", "1")]
+    auto = by[("paged", "pinned_host", str(AUTO))]
+    disk = by[("paged", "disk_host", str(AUTO))]
+    dev = by[("paged", "device", str(AUTO))]
+
+    # >= 2x: the steady-state per-step compute wait against the sync schedule
+    beats_sync = auto["tail_step_wait_s"] * 2.0 <= sync["tail_step_wait_s"]
+    # the adaptive window at least matches the fixed minimal window (0.1 ms
+    # slack: when the window covers the whole cold set both are ~zero)
+    beats_d1 = auto["tail_step_wait_s"] <= d1["tail_step_wait_s"] + 1e-4
+    # coalescing: one H2D request per fetched page group; none for device
+    one_req = (
+        auto["h2d_requests"] == auto["n_groups"]
+        and disk["h2d_requests"] == disk["n_groups"]
+        and disk["per_tier"]["disk"]["requests"] == disk["n_groups"]
+        and dev["h2d_requests"] == 0
+    )
+    # the hierarchy buys headroom: the device retains less than the full cache
+    bounded = all(r["peak_resident_bytes"] < r["total_cache_bytes"] for r in (auto, disk))
+
+    print(
+        f"steady per-step wait: auto {auto['tail_step_wait_s']*1e3:.3f} ms vs "
+        f"sync {sync['tail_step_wait_s']*1e3:.3f} ms "
+        f"({sync['tail_step_wait_s']/max(auto['tail_step_wait_s'], 1e-9):.1f}x, "
+        f"gate >= 2x) vs d=1 {d1['tail_step_wait_s']*1e3:.3f} ms; "
+        f"requests/group {auto['requests_per_group']:.0f} (gate: 1); "
+        f"resident {auto['peak_resident_bytes']}/{auto['total_cache_bytes']} B "
+        f"(gate: < total); final window {auto['final_distance']}"
+    )
+    return 0 if (beats_sync and beats_d1 and one_req and bounded) else 1
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    sys.exit(main(ap.parse_args().device))

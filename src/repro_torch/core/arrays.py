@@ -6,7 +6,8 @@ hold, and what a spill chunk's memory-mapped views are) or as CPU tensors
 the card's machine does not have, so a bf16 host leaf is either a torch
 tensor or a numpy array whose dtype is *named* ``bfloat16`` (ml_dtypes, as
 the JAX package hands it out) or a ``uint16`` array that carries
-``spill_dtype == "bfloat16"`` (the spill store's view).
+``spill_dtype == "bfloat16"`` (the spill store's view, or a
+:class:`BF16HostArray`).
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["DTYPES", "dtype_of", "dtype_name", "canonical", "host_tensor", "nbytes"]
+__all__ = ["DTYPES", "BF16HostArray", "dtype_of", "dtype_name", "canonical", "host_array",
+           "host_tensor", "nbytes"]
 
 #: dtype names shared by numpy, JAX and the spill manifest
 DTYPES = {
@@ -88,3 +90,18 @@ def host_tensor(x: Any) -> torch.Tensor:
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
         t = torch.from_numpy(a)
     return t.view(torch.bfloat16) if dtype == torch.bfloat16 else t
+
+
+class BF16HostArray(np.ndarray):
+    """bf16 host data as numpy holds it here: ``uint16`` storage named
+    ``bfloat16`` by ``spill_dtype``, as the spill store's views are."""
+
+    spill_dtype = "bfloat16"
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as a numpy array sharing its memory (bf16 as a
+    :class:`BF16HostArray`)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).view(BF16HostArray)
+    return t.numpy()

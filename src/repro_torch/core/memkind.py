@@ -198,7 +198,9 @@ def _place_leaf(x: Any, kind: MemKind, dev: torch.device) -> torch.Tensor:
     if kind.jax_kind == "pinned_host":
         if t.device.type == "cpu" and t.is_pinned():
             return t
-        return t.cpu().pin_memory()  # raises where memory cannot be pinned
+        # one copy, straight into page-locked memory; raises where memory
+        # cannot be pinned
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
     # pageable host: a fresh copy if the source is device or pinned memory
     if t.device.type == "cpu" and not t.is_pinned():
         return t

@@ -11,12 +11,21 @@ time.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       [--arch smollm-360m|recurrentgemma-2b] [--prompt-len 512] \\
-      [--attn-impl pallas|xla] [--out profile_serve.json]
+      [--attn-impl pallas|xla] [--kv-page-len 32 --kv-kind pinned_host] \\
+      [--out profile_serve.json]
 
 Batch 4, random bf16 weights from seed 0; 8 decode steps are profiled.
 chip_smoke.py's cells take prompt 512 for smollm-360m and 3072 for
 recurrentgemma-2b (longer than its 2048 window).  Prefill times are per
 request: the batch's over 4.
+
+``--kv-page-len > 0`` profiles the paged decode step instead: one
+``ServeSession.step()`` (pop the cold pages, assemble the view, decode,
+cut out the current pages, demote, prefetch) with the cold pages at
+``--kv-kind``.  Beside the step's numbers it gives the device time of
+``assemble_view``'s copies and of ``update_current``'s (the kernels inside
+the ``record_function`` spans that the paged step and the pager mark), and
+the compute-blocked transfer wait a step.
 
 Needs a CUDA card; it measures the device and has no CPU mode.
 """
@@ -47,12 +56,18 @@ def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
 
 
+#: the record_function spans the paged profile marks
+SPANS = ("assemble_view", "update_current")
+
+
 def _breakdown(prof, wall_s: float, n: int, top: int) -> dict:
     """Device busy time and the top kernels, per unit (request or step).
     Only device-side events count: an operator's own entry repeats the
-    time of the kernels it launched."""
+    time of the kernels it launched, and a ``record_function`` span's
+    device-side entry covers the kernels inside it (and the gaps)."""
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and e.key not in SPANS
+            and not getattr(e, "is_user_annotation", False)]
     kernels = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in kernels)
     return {
@@ -65,7 +80,80 @@ def _breakdown(prof, wall_s: float, n: int, top: int) -> dict:
              "calls_per_unit": c / n}
             for k, us, c in kernels[:top]
         ],
+        # every kernel's launches, to tell two paths' launch counts apart
+        "launches_by_kernel": {k[:120]: c / n for k, _, c in kernels},
     }
+
+
+def _span_device_ms(prof, name: str, n: int) -> float:
+    """Device time (ms per unit) of the kernels launched inside the
+    ``record_function(name)`` spans: the host-side span's device total."""
+    for e in prof.key_averages():
+        if e.key == name and e.device_type != DeviceType.CUDA:
+            us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+            return us / 1e3 / n
+    return 0.0
+
+
+def profile_paged(cfg, params, prompts, args, report: dict) -> None:
+    """Profile one paged decode step of a full batch (see the module
+    docstring)."""
+    page = args.kv_page_len
+    warm = 2
+    gen = warm + REPEATS * STEPS + STEPS + 1  # no request retires while measured
+    session = sv.ServeSession(cfg, slots=BATCH, max_len=args.prompt_len + gen, kv_kind=args.kv_kind,
+                              page_len=page, params=params)
+    try:
+        for row in prompts.cpu().numpy():
+            session.submit(row, gen)
+        session.admit_pending()
+        for _ in range(warm):
+            session.step()
+        torch.cuda.synchronize()
+        reps, waits = [], []
+        for _ in range(REPEATS):
+            w0 = len(session.step_waits)
+            t0 = time.perf_counter()
+            for _ in range(STEPS):
+                session.step()
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) / STEPS)
+            waits += session.step_waits[w0:]
+        reps.sort()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEPS):
+                session.step()
+            torch.cuda.synchronize()
+        name = (f"paged decode (one batched step; pages of {page}, cold pages at "
+                f"{args.kv_kind})")
+        report[name] = r = _breakdown(prof, reps[0] * STEPS, STEPS, TOP)
+        r["wall_ms_per_unit_repeats"] = [w * 1e3 for w in reps]
+        r["assemble_view_device_ms"] = _span_device_ms(prof, "assemble_view", STEPS)
+        r["update_current_device_ms"] = _span_device_ms(prof, "update_current", STEPS)
+        r["transfer_wait_ms_per_step"] = {"mean": 1e3 * sum(waits) / len(waits),
+                                          "median": 1e3 * sorted(waits)[len(waits) // 2],
+                                          "max": 1e3 * max(waits)}
+        st = session.stats
+        r["h2d_bytes_per_step"] = st.bytes_h2d / session.n_steps
+        r["peak_resident_bytes"] = session.pager.peak_resident_bytes
+        r["total_cache_bytes"] = session.pager.total_cache_bytes()
+    finally:
+        session.close()
+    idle = r["device_idle_share"]
+    busy = r["device_busy_ms_per_unit"]
+    print(f"{name}: wall {r['wall_ms_per_unit']:.3f} ms (min of {REPEATS}; median "
+          f"{reps[len(reps) // 2] * 1e3:.3f}), device busy {busy:.3f} ms, idle share "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}, "
+          f"{r['kernel_launches_per_unit']:.0f} kernel launches")
+    share = f"{r['assemble_view_device_ms'] / busy:.3f}" if busy else "not measured"
+    print(f"    assemble_view {r['assemble_view_device_ms']:.4f} ms of device time a step "
+          f"({share} of busy), update_current {r['update_current_device_ms']:.4f} ms")
+    w = r["transfer_wait_ms_per_step"]
+    print(f"    compute-blocked transfer wait a step: mean {w['mean']:.3f} ms, median "
+          f"{w['median']:.3f}, max {w['max']:.3f}; H2D {r['h2d_bytes_per_step']:.0f} B a step; "
+          f"peak resident {r['peak_resident_bytes']} of {r['total_cache_bytes']} B")
+    for k in r["top_kernels"]:
+        print(f"    {k['ms_per_unit']:.4f} ms  {k['share_of_busy']:.3f}  x{k['calls_per_unit']:.0f}  {k['name']}")
 
 
 def main() -> int:
@@ -74,8 +162,14 @@ def main() -> int:
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--attn-impl", default="pallas", choices=("xla", "pallas"),
                     help="pallas: the CUDA attention kernels; xla: the plain path")
+    ap.add_argument("--kv-page-len", type=int, default=0,
+                    help="> 0: profile the paged decode step with pages of this many tokens")
+    ap.add_argument("--kv-kind", default="device", choices=sv.KV_KINDS,
+                    help="home of the cold pages (with --kv-page-len)")
     ap.add_argument("--out", default=None, help="also write the breakdown here as JSON")
     args = ap.parse_args()
+    if args.kv_kind != "device" and args.kv_page_len <= 0:
+        ap.error("--kv-kind needs --kv-page-len > 0")
 
     dev = resolve_device("cuda")
     cfg = dataclasses.replace(get_config(args.arch), attn_impl=args.attn_impl)
@@ -83,6 +177,13 @@ def main() -> int:
     params = st.init_params(cfg, SEED, dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     prompts = torch.randint(1, cfg.vocab_size, (BATCH, prompt), generator=g, device=dev)
+    report = {"card": torch.cuda.get_device_name(0), "arch": args.arch,
+              "attn_impl": args.attn_impl, "batch": BATCH, "prompt_len": prompt,
+              "kv_page_len": args.kv_page_len, "kv_kind": args.kv_kind}
+    if args.kv_page_len > 0:
+        profile_paged(cfg, params, prompts, args, report)
+        _write(args.out, report)
+        return 0
     max_len = prompt + STEPS + 2
     decode = st.make_decode_step(cfg)
 
@@ -102,8 +203,6 @@ def main() -> int:
     decode_steps(st.clone_caches(caches), tokens)  # warm-up
     torch.cuda.synchronize()
 
-    report = {"card": torch.cuda.get_device_name(0), "arch": args.arch,
-              "attn_impl": args.attn_impl, "batch": BATCH, "prompt_len": prompt}
     schedule = "lock-step" if sv.lock_step(cfg) else "one request at a time"
     phases = ((f"prefill (per request; batch of {BATCH}, {schedule})", prefill_once, BATCH),
               ("decode (one batched step)", lambda: decode_steps(caches, tokens), STEPS))
@@ -133,10 +232,14 @@ def main() -> int:
               f"{r['kernel_launches_per_unit']:.0f} kernel launches")
         for k in r["top_kernels"]:
             print(f"    {k['ms_per_unit']:.4f} ms  {k['share_of_busy']:.3f}  x{k['calls_per_unit']:.0f}  {k['name']}")
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(report, indent=1))
+    _write(args.out, report)
     return 0
+
+
+def _write(out, report: dict) -> None:
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(report, indent=1))
 
 
 if __name__ == "__main__":

@@ -12,8 +12,10 @@ from __future__ import annotations
 from typing import Callable, Mapping, Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.kvpager import assemble_view, paged_cache_supported  # noqa: F401 (re-exported)
 from repro_torch.device import generator as make_generator
 from repro_torch.models import transformer
 from repro_torch.models.layers import ParamTree
@@ -48,6 +50,27 @@ def make_decode_step(cfg: ModelConfig) -> Callable[..., tuple[torch.Tensor, dict
     return decode_step
 
 
+def make_paged_decode_step(cfg: ModelConfig) -> Callable[..., tuple[torch.Tensor, dict]]:
+    """``(params, view, batch, pos) -> (logits, caches)`` over a paged KV
+    cache (see :mod:`repro_torch.core.kvpager`).
+
+    ``view`` is the pager's per-slot tuple of page trees; ``pos`` is the (B,)
+    vector of per-slot context positions.  :func:`assemble_view` copies the
+    pages into a fresh dense cache, then the step of :func:`make_decode_step`
+    runs on it, so paged and unpaged decode run the same code on the same
+    values.  The returned caches are that assembled view, updated in place.
+    The assembly runs inside a ``record_function`` span, which a profiler
+    reads."""
+    decode_fn = make_decode_step(cfg)
+
+    def paged_decode_step(params: ParamTree, view, batch: dict, pos):
+        with record_function("assemble_view"):
+            dense = assemble_view(view)
+        return decode_fn(params, dense, batch, pos)
+
+    return paged_decode_step
+
+
 def init_params(cfg: ModelConfig, seed: int, device) -> ParamTree:
     """Serving parameters: f32 init from ``seed`` on ``device``, cast to the
     compute dtype (as the JAX package's ``init_train_state`` casts them)."""
@@ -65,19 +88,3 @@ def clone_caches(caches: Mapping) -> dict:
     """A deep copy of a cache tree (the steps update caches in place)."""
     return {k: clone_caches(v) if isinstance(v, Mapping) else v.clone() for k, v in caches.items()}
 
-
-def paged_cache_supported(cache_template: Mapping) -> bool:
-    """True iff every cache leaf is a full-attention ``k``/``v`` tensor of
-    rank >= 4, one that can be paged along its context axis and decoded with
-    per-slot positions (the JAX package's ``core/kvpager.py``).  Ring
-    buffers (``slot_pos`` shared across the batch) and recurrent states (no
-    context axis) cannot: such caches serve in lock-step."""
-    def leaves(tree, name=None):
-        if isinstance(tree, Mapping):
-            for k, v in tree.items():
-                yield from leaves(v, k)
-        else:
-            yield name, tree
-
-    flat = list(leaves(cache_template))
-    return bool(flat) and all(name in ("k", "v") and t.dim() >= 4 for name, t in flat)

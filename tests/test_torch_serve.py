@@ -110,7 +110,8 @@ def test_no_card_means_no_silent_cpu(monkeypatch):
         sv.serve(pc, batch=1, prompt_len=4, gen=2, kv_page_len=0)
 
 
-@pytest.mark.parametrize("kwargs", [dict(kv_page_len=32), dict(kv_page_len=0, kv_kind="pinned_host"),
+@pytest.mark.parametrize("kwargs", [dict(kv_page_len=32, device_budget_mb=2.0),
+                                    dict(kv_page_len=0, kv_kind="pinned_host", expert_stream=True),
                                     dict(kv_page_len=0, param_kind="disk_host")])
 def test_unported_serve_options_raise(kwargs):
     _, pc = _cfgs()
@@ -118,10 +119,10 @@ def test_unported_serve_options_raise(kwargs):
         sv.serve(pc, batch=1, prompt_len=4, gen=2, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("flags", [[], ["--kv-page-len", "0", "--loadgen"],
+@pytest.mark.parametrize("flags", [["--device-budget-mb", "2"], ["--loadgen", "--verify-schedule"],
                                    ["--kv-page-len", "0", "--model-parallel", "2"],
                                    ["--kv-page-len", "0", "--param-kind", "pinned_host"],
-                                   ["--kv-page-len", "0", "--kv-kind", "disk_host"]])
+                                   ["--kv-kind", "disk_host", "--param-cache-mb", "1"]])
 def test_cli_exits_on_unported_flags(monkeypatch, capsys, flags):
     monkeypatch.setattr(sys, "argv", ["serve", "--smoke", "--device", "cpu", *flags])
     with pytest.raises(SystemExit) as exc:
