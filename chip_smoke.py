@@ -50,6 +50,19 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    rejected, then again over the trace cut to its first phase, whose
    requests must get the same stamps and tokens as in the whole run; then
    one wall-clock run;
+2w. serve the same model, weights and prompts with the weights homed off
+   the card and streamed group by group (``param_kind``), each run with the
+   launch counts zeroed just before and read just after: (a) unpaged at
+   pinned host under ``device_budget_mb=160`` (34 groups, 818,014,080
+   bytes a pass): tokens bitwise phase 2's, the same flash and decode
+   launches, one H2D request and the plan's bytes per fetched group,
+   streamed plus cached bytes within the budget, ``max_memory_allocated``
+   logged beside phase 2's; (b) the same at disk, gen 8; (c) the paged
+   session at pinned-host pages and weights under 176 MB (the hot window's
+   cut first): tokens bitwise, the schedule verified; (d) no budget, then
+   ``param_cache_mb=0``, gen 8: 0 and all groups fetched each decode step;
+   (e) (a) under the hazard sanitizer, bitwise, and a 100 MB budget (under
+   the distance-1 floor) refused before any thread exists;
 3. check the output: shapes, token range, finite logits, and the kernel
    path's logits against the plain path's (``attn_impl="xla"``) on the same
    full-width model and prompt;
@@ -129,6 +142,12 @@ BATCH, PROMPT, GEN, SEED = 4, 512, 32, 0
 # sharing a 256-token prefix; the load generator's trace
 PAGE_LEN, HOT_PAGES, SHARED_PREFIX = 32, 1, 256
 LG_PROMPTS, LG_GENS, LG_SHARED = (128, 256, 512), (8, 16, 32), 64
+# phase 2w: the weights streamed under 160 MB (34 groups, 818,014,080 bytes a
+# pass: the tied head re-reads the embedding); the paged session's 176 MB
+# leaves the same ~160 MB once the hot window (15.7 MB) is cut; a budget under
+# the distance-1 floor; the disk and residency runs' shorter generation
+W_BUDGET_MB, W_PAGED_BUDGET_MB, W_FLOOR_MB = 160, 176, 100
+W_GROUPS, W_PASS_BYTES, W_SHORT_GEN = 34, 818_014_080, 8
 # the recurrentgemma-2b cell: a prompt longer than the 2048-token window
 HYB_PROMPT = 3072
 # the JAX package's rglru_scan test shapes (tests/test_rglru_kernel.py)
@@ -504,7 +523,7 @@ def phase_serve(cfg, prompt: int, phase: str, expect: tuple, params=None) -> tup
     res = serve(cfg, batch=BATCH, prompt_len=prompt, gen=GEN, kv_kind="device",
                 kv_page_len=0, seed=SEED, params=params)
     launches = {name: w.launches for name, w in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated()
+    peak = res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     log(f"  prefill {res['prefill_s'] * 1e3:.3f} ms for {BATCH} requests "
         f"({res['prefill_s'] * 1e3 / BATCH:.3f} ms each), decode {res['decode_s'] * 1e3:.3f} ms "
         f"for {res['n_steps']} steps = {res['tokens_per_s']:.1f} tok/s, "
@@ -667,6 +686,180 @@ def phase_paged(cfg, params, unpaged: dict, unpaged_launches: dict) -> None:
         f"p99 {r['tpot_s']['p99'] * 1e3:.3f} ms; SLO attainment {r['slo_attainment']:.3f} "
         f"({sub_s():.1f} s)")
     log(f"  phase 2p done in {time.perf_counter() - t0:.1f} s")
+
+
+def streamed_run(cfg, params, name: str, engine=None, **kw) -> tuple[dict, dict]:
+    """One serve through the entry point with the weights at a host home,
+    launch counts zeroed just before and read just after; logs the weight
+    stream's numbers."""
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = serving_kernels()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    kw = {"batch": BATCH, "prompt_len": PROMPT, "gen": GEN, "seed": SEED, "kv_page_len": 0,
+          **kw}
+    res = serve(cfg, params=params, engine=engine, **kw)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    ps, plan, rc = res["param_stats"], res["param_plan"], res["param_residency"]
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"  {name}: {plan.n_groups} groups, prefill {res['prefill_s'] * 1e3:.3f} ms, decode "
+        f"{res['decode_s'] * 1e3 / max(res['n_steps'], 1):.3f} ms a step ({res['n_steps']} steps); "
+        f"weights: {ps.n_runs} passes, {ps.unique_group_fetches} groups fetched, "
+        f"{ps.h2d_requests} H2D req / {ps.bytes_h2d} B, {ps.disk_requests} disk req, wait "
+        f"{ps.transfer_wait_s:.6f} s, peak streamed {ps.peak_inflight_bytes} B + cached "
+        f"{rc['peak_resident_bytes']} B (residency {rc['hits']} hits, {rc['entries']} entries); "
+        f"max_memory_allocated {res['max_memory_allocated']} B; launches {launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return res, launches
+
+
+def phase_streamed(cfg, params, unpaged: dict, unpaged_launches: dict) -> None:
+    """Phase 2w: the weights homed at pinned host or disk and streamed group
+    by group under a device budget, on phase 2's model, weights and prompts."""
+    import os
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.engine import EngineConfig, TransferEngine
+    from repro_torch.core.weightstream import WeightStreamPlan
+    from repro_torch.launch.serve import ServeSession, serve
+    from repro_torch.train.steps import abstract_params
+
+    log(f"phase 2w streamed weights {cfg.name}: budget {W_BUDGET_MB} MB (unpaged), "
+        f"{W_PAGED_BUDGET_MB} MB (paged); batch {BATCH}, prompt {PROMPT}, gen {GEN} "
+        f"(disk and residency: gen {W_SHORT_GEN})")
+    t0 = time.perf_counter()
+    kernels = ("flash_attention", "decode_attention")
+    want = unpaged["generated"]
+    plan = WeightStreamPlan(cfg, abstract_params(cfg), device_budget_mb=W_BUDGET_MB)
+    total = sum(plan.fetch_sequence_bytes())
+
+    def same(name, got, ref):
+        if not np.array_equal(got, ref):
+            raise SystemExit(f"2w {name}: tokens differ from the run they must equal bitwise")
+
+    def check_stream(name, res, disk: bool):
+        """One request per fetched group; the bytes of the groups fetched; the
+        plan's groups; streamed + cached bytes within the budget."""
+        ps, rc = res["param_stats"], res["param_residency"]
+        # at this budget only the head's home (ln_f) fits the cache, so every
+        # pass after the first fetches the tied table without it; from disk a
+        # head fetch whose own chunk is not resident reads two chunks (its
+        # own and the embedding's), one more disk request than groups
+        checks = {
+            "n_groups": (res["param_plan"].n_groups, W_GROUPS),
+            "bytes a pass": (total, W_PASS_BYTES),
+            "h2d_requests": (ps.h2d_requests, ps.unique_group_fetches),
+            "groups fetched": (ps.unique_group_fetches, ps.n_runs * W_GROUPS),
+            "residency hits": (rc["hits"], ps.n_runs - 1),
+            "bytes_h2d": (ps.bytes_h2d, ps.n_runs * total - rc["hits"] * plan.head_home_bytes),
+            "disk_requests": (ps.disk_requests,
+                              ps.unique_group_fetches + ps.n_runs - rc["hits"] if disk else 0),
+        }
+        for what, (got, exp) in checks.items():
+            if got != exp:
+                raise SystemExit(f"2w {name}: {what} {got}, expected {exp}")
+        held = ps.peak_inflight_bytes + rc["peak_resident_bytes"]
+        if not held <= W_BUDGET_MB * 1e6 < total:
+            raise SystemExit(f"2w {name}: streamed + cached {held} B against the budget "
+                             f"{W_BUDGET_MB} MB and {total} B a pass")
+
+    stream = dict(param_kind="pinned_host", device_budget_mb=W_BUDGET_MB)
+    res, launches = streamed_run(cfg, params, "(a) pinned_host", **stream)
+    same("(a)", res["generated"], want)
+    if any(launches[k] != unpaged_launches[k] for k in kernels):
+        raise SystemExit(f"2w (a) launches {launches} differ from phase 2's {unpaged_launches}")
+    check_stream("(a)", res, disk=False)
+    log(f"  (a) max_memory_allocated {res['max_memory_allocated']} B against phase 2's "
+        f"{unpaged['max_memory_allocated']} B")
+
+    res, launches = streamed_run(cfg, params, "(b) disk_host", param_kind="disk_host",
+                                 device_budget_mb=W_BUDGET_MB, gen=W_SHORT_GEN)
+    same("(b)", res["generated"], want[:, :W_SHORT_GEN])
+    check_stream("(b)", res, disk=True)
+    if min(launches[k] for k in kernels) <= 0:
+        raise SystemExit(f"2w (b): a kernel of the path was not launched: {launches}")
+
+    # (c) the paged session: the hot window's cut of the budget first
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = serving_kernels()
+    for w in wrappers.values():
+        w.launches = 0
+    t1 = time.perf_counter()
+    prompts = np.random.default_rng(SEED + 1).integers(1, cfg.vocab_size, (BATCH, PROMPT),
+                                                      dtype=np.int32)  # serve()'s
+    with ServeSession(cfg, slots=BATCH, max_len=PROMPT + GEN, kv_kind="pinned_host",
+                      page_len=PAGE_LEN, hot_pages=HOT_PAGES, params=params,
+                      param_kind="pinned_host", device_budget_mb=W_PAGED_BUDGET_MB) as session:
+        rids = [session.submit(p, GEN) for p in prompts]
+        out = session.run()
+        report, ps, splan = session.schedule_report, session.param_stats, session._wplan
+        pages = session.stats.n_groups
+    launches = {k: w.launches for k, w in wrappers.items()}
+    same("(c) paged", np.stack([out[r] for r in rids]), want)
+    if not report.ok or min(launches[k] for k in kernels) <= 0:
+        raise SystemExit(f"2w (c): schedule {report.ok}, launches {launches}")
+    if ps.h2d_requests != ps.unique_group_fetches:
+        raise SystemExit(f"2w (c): {ps.h2d_requests} H2D requests for "
+                         f"{ps.unique_group_fetches} groups fetched")
+    log(f"  (c) paged, pinned pages and weights at {W_PAGED_BUDGET_MB} MB: {splan.n_groups} "
+        f"groups, weights {ps.unique_group_fetches} groups / {ps.bytes_h2d} B, pages {pages} "
+        f"groups; max_memory_allocated {torch.cuda.max_memory_allocated()} B; launches "
+        f"{launches}\n{report} ({time.perf_counter() - t1:.1f} s)")
+
+    # (d) residency: no budget = an unbounded cache, the model stays on the
+    # card; param_cache_mb=0 = the uncached schedule
+    for name, kw, each in (("(d) no budget", {}, lambda n: 0),
+                           ("(d) param_cache_mb=0", {"param_cache_mb": 0.0}, lambda n: n)):
+        res, _ = streamed_run(cfg, params, name, param_kind="pinned_host", gen=W_SHORT_GEN, **kw)
+        same(name, res["generated"], want[:, :W_SHORT_GEN])
+        n = res["param_plan"].n_groups
+        fetches = res["param_step_fetches"]
+        if not fetches or any(f != each(n) for f in fetches):
+            raise SystemExit(f"2w {name}: groups fetched a step {fetches}, expected {each(n)} "
+                             f"of {n}")
+        log(f"  {name}: groups fetched a decode step {fetches} of {n}")
+
+    # (e) the hazard sanitizer on (a): the engine's and the residency cache's
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        engine = TransferEngine(EngineConfig(max_distance=plan.max_distance_for_budget()),
+                                device="cuda")
+        with engine:
+            res, _ = streamed_run(cfg, params, "(e) sanitized", engine=engine, **stream)
+        checks = engine.sanitizer.checks
+    finally:
+        del os.environ["REPRO_SANITIZE"]
+    same("(e) sanitized", res["generated"], want)
+    if not checks:
+        raise SystemExit("2w (e): the sanitizer checked nothing")
+    n_threads = threading.active_count()
+    for what, build in (
+        ("serve", lambda: serve(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=SEED,
+                                params=params, kv_page_len=0, device_budget_mb=W_FLOOR_MB,
+                                param_kind="pinned_host")),
+        ("ServeSession", lambda: ServeSession(cfg, slots=BATCH, max_len=PROMPT + GEN,
+                                              kv_kind="pinned_host", params=params,
+                                              param_kind="pinned_host",
+                                              device_budget_mb=W_FLOOR_MB)),
+    ):
+        try:
+            build()
+        except ValueError as e:
+            if threading.active_count() != n_threads:
+                raise SystemExit(f"2w (e): the refused {what} left a thread behind") from e
+            log(f"  (e) {what} at {W_FLOOR_MB} MB refused before any thread: "
+                f"{str(e).splitlines()[0]}")
+        else:
+            raise SystemExit(f"2w (e): {what} accepted a {W_FLOOR_MB} MB budget")
+    log(f"  (e) sanitized run bitwise, {checks} sanitizer checks")
+    log(f"  phase 2w done in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_check(cfg, res: dict, prompt: int, phase: str) -> None:
@@ -1061,6 +1254,7 @@ def main() -> int:
     res, launches = phase_serve(cfg, PROMPT, "2", ("flash_attention", "decode_attention"),
                                 params=params)
     phase_paged(cfg, params, res, launches)
+    phase_streamed(cfg, params, res, launches)
     del params
     phase_check(cfg, res, PROMPT, "3")
     del res

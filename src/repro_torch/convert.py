@@ -7,6 +7,13 @@ for name (``{"blocks": {"attn": {"wq": ...}}}`` -> ``blocks.attn.wq``), in
 each of the JAX tree's layouts: stacked uniform blocks, the hybrid's period
 tree (``blocks.periods.pos_0.rec.w_a``, ``blocks.tail_1.mlp.wi``) and
 unrolled blocks (``blocks.layer_000...``).
+
+The streamed-weight path carries its weights as a plan home
+(``{"groups": {key: tree}}``, host numpy leaves):
+:func:`home_from_numpy` turns the JAX package's home into the port's, leaf for
+leaf.  A ``disk_host`` home needs no conversion: both packages write the same
+spill chunks under the same ``wp/<group key>`` keys, so either package's plan
+reads the other's (``store.get(plan.spill_key(g))``).
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.arrays import BF16HostArray
 from repro_torch.device import DeviceLike, generator, resolve_device
 from repro_torch.models.layers import ParamTree
 from repro_torch.models.transformer import init_model
@@ -58,3 +66,23 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device: DeviceLike = None
     if bad:
         raise ValueError(f"parameter shapes differ (have, want): {bad}")
     return params.to(dev)
+
+
+def _host_leaf(a: np.ndarray) -> np.ndarray:
+    """A home leaf as the port holds it: bf16 (ml_dtypes, as the JAX package
+    hands it out) as a :class:`BF16HostArray` over a copy of the same bytes;
+    every other dtype as a copy."""
+    a = np.array(a, copy=True)
+    return a.view(np.uint16).view(BF16HostArray) if a.dtype.name == "bfloat16" else a
+
+
+def home_from_numpy(home: Mapping) -> dict:
+    """The port's weight home from the JAX package's
+    (``WeightStreamPlan.init_home``: ``{"groups": {key: tree}}`` of numpy
+    leaves), with the same group keys, trees and bytes.  The port's
+    ``init_home`` of the converted parameters
+    (:func:`params_from_numpy`) equals it leaf for leaf."""
+    def conv(tree):
+        return {k: conv(v) if isinstance(v, Mapping) else _host_leaf(v) for k, v in tree.items()}
+
+    return {"groups": conv(home["groups"])}

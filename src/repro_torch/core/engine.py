@@ -44,8 +44,12 @@ three-level streaming (the ``DiskHost`` tier)
 An optional :class:`LinkModel` emulates a slow interconnect (per-request
 service time + serial bandwidth occupancy + overlappable latency) for
 schedule studies; with ``link=None`` the card's real PCIe link is measured.
-Multi-device layouts (``ShardedGroupLayout``) and the hazard sanitizer are
-not ported (ROADMAP.md, queue 1 item 5: multi-device and tooling).
+The hazard sanitizer (``EngineConfig(sanitize=True)``, or ``REPRO_SANITIZE=1``
+when unset) checks every keyed transfer: a fetch whose key has a D2H
+writeback still in flight, and a staging buffer reacquired while its copy is
+in flight, raise :class:`~repro_torch.core.schedcheck.HazardError`.
+Multi-device layouts (``ShardedGroupLayout``) are not ported (ROADMAP.md,
+queue 1 item 5: multi-device and tooling).
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ import torch
 
 from repro_torch.core import tree as tr
 from repro_torch.core.arrays import canonical, dtype_name, dtype_of, host_tensor, nbytes
+from repro_torch.core.schedcheck import HazardError, HazardSanitizer, sanitize_enabled
 from repro_torch.device import DeviceLike, resolve_device
 
 log = logging.getLogger("repro_torch.engine")
@@ -187,16 +192,11 @@ class EngineConfig:
     close_timeout_s: float = 5.0
     #: CRC-verify spill-store chunk bytes in the disk stage before packing
     verify_spill: bool = True
-    #: the hazard sanitizer; not ported
-    sanitize: bool = False
-
-    def __post_init__(self) -> None:
-        if self.sanitize:
-            raise NotImplementedError(
-                "EngineConfig(sanitize=True): the hazard sanitizer comes with the schedule "
-                "verifier (core/schedcheck.py), not ported yet (ROADMAP.md, queue 1 item 5: "
-                "multi-device and tooling)"
-            )
+    #: the runtime hazard sanitizer (:mod:`repro_torch.core.schedcheck`):
+    #: a happens-before edge per keyed ticket, and raise ``HazardError`` on a
+    #: writeback-vs-fetch RAW hazard or a staging buffer reused in flight.
+    #: Defaults from ``REPRO_SANITIZE``, as in the JAX package
+    sanitize: bool = dataclasses.field(default_factory=sanitize_enabled)
 
 
 def static_auto_distance(n_chunks: int, cap: int = 4) -> int:
@@ -383,10 +383,11 @@ def _retryable(e: BaseException) -> bool:
     """Faults the bounded-retry loops may absorb.  Corruption is excluded:
     its recovery path already ran inside
     :func:`repro_torch.core.spillstore.verify_disk_leaf`, and retrying would
-    re-consume the same bad bytes."""
+    re-consume the same bad bytes.  :class:`HazardError` is excluded too: a
+    retried hazard is a hidden hazard."""
     from repro_torch.core.spillstore import SpillCorruptionError
 
-    return not isinstance(e, (KeyboardInterrupt, SystemExit, SpillCorruptionError))
+    return not isinstance(e, (KeyboardInterrupt, SystemExit, SpillCorruptionError, HazardError))
 
 
 def _is_disk_leaf(x: Any) -> bool:
@@ -400,6 +401,7 @@ class TransferFuture:
 
     __slots__ = (
         "index",
+        "key",
         "layout",
         "src_leaves",
         "n_requests",
@@ -419,8 +421,10 @@ class TransferFuture:
     )
 
     def __init__(self, index: int, layout: Optional[GroupLayout], src_leaves, n_requests: int,
-                 nbytes: int):
+                 nbytes: int, key=None):
         self.index = index
+        #: the group's logical name (sanitizer tracking); None when unnamed
+        self.key = key
         self.layout = layout
         self.src_leaves = src_leaves
         self.n_requests = n_requests
@@ -507,9 +511,12 @@ class _DiskFetchTicket:
 
 class _WritebackTicket:
     __slots__ = ("index", "n_requests", "nbytes", "retries", "_event", "_host",
-                 "_error", "ready_at")
+                 "_error", "ready_at", "key")
 
-    def __init__(self, index: int, n_requests: int, nbytes: int):
+    def __init__(self, index: int, n_requests: int, nbytes: int, key=None):
+        #: logical group key (sanitizer happens-before tracking); None when
+        #: the submitter has no stable name for the group
+        self.key = key
         self.index = index
         self.n_requests = n_requests
         self.nbytes = nbytes
@@ -545,6 +552,10 @@ class TransferEngine:
 
     def __init__(self, config: Optional[EngineConfig] = None, *, device: DeviceLike = None) -> None:
         self.config = config or EngineConfig()
+        #: runtime hazard sanitizer; None on the uninstrumented fast path
+        self.sanitizer: Optional[HazardSanitizer] = (
+            HazardSanitizer() if self.config.sanitize else None
+        )
         self.device = resolve_device(device)
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -660,11 +671,19 @@ class TransferEngine:
         one: the pool sizes itself to the worker's actual concurrency."""
         free = self._staging_free[sig]
         if free:
-            return free.pop()
+            staging = free.pop()
+            if self.sanitizer is not None:
+                self.sanitizer.on_staging_acquire(id(staging), from_pool=True)
+            return staging
         self.staging_allocs += 1
-        return layout.new_staging()
+        staging = layout.new_staging()
+        if self.sanitizer is not None:
+            self.sanitizer.on_staging_acquire(id(staging), from_pool=False)
+        return staging
 
     def _release_staging(self, sig: tuple, staging: torch.Tensor) -> None:
+        if self.sanitizer is not None:
+            self.sanitizer.on_staging_release(id(staging))
         free = self._staging_free[sig]
         if len(free) < max(1, self.config.staging_slots):
             free.append(staging)
@@ -746,16 +765,23 @@ class TransferEngine:
         self._disk_tasks.put((ticket, disk_leaves))
         return ticket
 
-    def submit_group(self, index: int, group: Pytree) -> TransferFuture:
+    def submit_group(self, index: int, group: Pytree, *, key=None) -> TransferFuture:
         """Queue the H2D transfer of one group; returns immediately.  Groups
         holding spill-store views also enqueue a stage-1 fetch on the disk
-        worker."""
+        worker.
+
+        ``key`` is the group's logical name (plan group key, KV page key):
+        the hazard sanitizer refuses a fetch whose key has a D2H writeback
+        still in flight.  ``key=None`` transfers are unchecked."""
+        if self.sanitizer is not None:
+            self.sanitizer.on_fetch(key)
         leaves = tr.leaves(group)
         consumer = self._consumer_stream()
         if self.config.coalesce:
             sig = group_signature(group, self.device)
             layout = self._layout_for_sig(sig, group)
-            fut = TransferFuture(index, layout, leaves, layout.n_requests, layout.payload_bytes)
+            fut = TransferFuture(index, layout, leaves, layout.n_requests, layout.payload_bytes,
+                                 key=key)
             ticket = self._submit_disk_stage(sig, leaves, fut)
             self._ensure_worker()
             self._tasks.put(("h2d", fut, group, True, sig, ticket, consumer))
@@ -775,20 +801,24 @@ class TransferEngine:
             if _is_disk_leaf(x):
                 disk_files.add(getattr(x, "filename", None) or id(x))
                 disk_bytes += nbytes(x)
-        fut = TransferFuture(index, None, leaves, n_host, total)
+        fut = TransferFuture(index, None, leaves, n_host, total, key=key)
         fut.disk_requests = len(disk_files)
         fut.disk_nbytes = disk_bytes
         self._ensure_worker()
         self._tasks.put(("h2d", fut, group, False, None, None, consumer))
         return fut
 
-    def submit_writeback(self, index: int, group_out: Pytree) -> _WritebackTicket:
+    def submit_writeback(self, index: int, group_out: Pytree, *, key=None) -> _WritebackTicket:
         """Queue the D2H copy of an ``rw`` group's output; returns
         immediately.  The copy waits, on the copy stream, for the work the
-        calling stream has queued so far (the group's producer)."""
+        calling stream has queued so far (the group's producer).  ``key``
+        names the group for the hazard sanitizer: until the ticket drains, a
+        fetch of the same key is a RAW hazard."""
         leaves = tr.leaves(group_out)
-        ticket = _WritebackTicket(index, len(leaves), sum(nbytes(x) for x in leaves))
+        ticket = _WritebackTicket(index, len(leaves), sum(nbytes(x) for x in leaves), key=key)
         self._pending_wb.append(ticket)
+        if self.sanitizer is not None:
+            self.sanitizer.on_writeback(key)
         ready = None
         if self._copy_stream is not None:
             ready = torch.cuda.Event()
@@ -801,12 +831,19 @@ class TransferEngine:
         """Wait for every pending writeback; returns host groups in group order."""
         tickets = sorted(self._pending_wb, key=lambda t: t.index)
         self._pending_wb = []
-        return [t.result() for t in tickets]
+        out = [t.result() for t in tickets]
+        if self.sanitizer is not None:
+            # reached only when every result landed: a failed drain keeps its
+            # keys pending, so a restart must discard before re-fetching
+            self.sanitizer.on_drained([t.key for t in tickets])
+        return out
 
     def discard_writebacks(self) -> int:
         """Drop pending writeback tickets (a failed run may have left some);
         returns the number discarded."""
         n = len(self._pending_wb)
+        if self.sanitizer is not None:
+            self.sanitizer.on_drained([t.key for t in self._pending_wb])
         self._pending_wb = []
         return n
 

@@ -225,9 +225,12 @@ class HostStreamExecutor:
 
     ``apply`` is a plain callable on tensors: ``(carry, group) -> carry``, or
     ``(carry, group) -> (carry, group_out)`` with ``writeback=True`` (the
-    paper's ``rw`` access: ``group_out`` is copied back to the host).  The
-    engine is private (``EngineConfig()`` or ``engine_config``) unless one
-    is passed; it stages onto ``device`` (the card unless ``"cpu"``).
+    paper's ``rw`` access: ``group_out`` is copied back to the host).  With
+    ``indexed=True`` it is called as ``apply(i, carry, group)``, ``i`` the
+    group's position in the run: a heterogeneous sequence whose stages
+    differ (the weight stream: embed, layer groups, head).  The engine is
+    private (``EngineConfig()`` or ``engine_config``) unless one is passed;
+    it stages onto ``device`` (the card unless ``"cpu"``).
     """
 
     def __init__(
@@ -238,11 +241,13 @@ class HostStreamExecutor:
         engine: Optional[TransferEngine] = None,
         engine_config: Optional[EngineConfig] = None,
         device: DeviceLike = None,
+        indexed: bool = False,
     ) -> None:
         if engine is not None and device is not None and resolve_device(device) != engine.device:
             raise ValueError(f"device {device} differs from the engine's {engine.device}")
         self._apply = apply
         self._writeback = writeback
+        self._indexed = indexed
         self._engine = engine or TransferEngine(engine_config, device=device)
         self._owns_engine = engine is None
         #: adaptive-distance state, persistent across run() calls
@@ -279,9 +284,13 @@ class HostStreamExecutor:
         """Execute all groups under the given schedule.  Returns the final
         carry (+ the written-back host groups when ``writeback``).
 
-        ``group_keys`` name the groups for the hazard sanitizer, which comes
-        with the schedule verifier (ROADMAP.md, queue 1 item 5); they are
-        checked for length and otherwise unused."""
+        ``group_keys``: optional logical names (one per group) passed to the
+        engine's fetches and writebacks, so the hazard sanitizer chains the
+        transfers of one group across runs; unnamed groups are unchecked.
+
+        A ``groups`` entry may be a zero-argument callable, resolved when its
+        transfer is submitted: the weight stream's residency substitution
+        must see the cache as it is when the fetch is issued."""
         if mode not in ("eager", "on_demand", "prefetch"):
             raise ValueError(f"unknown mode {mode!r}")
         if mode == "prefetch" and prefetch is None:
@@ -321,9 +330,13 @@ class HostStreamExecutor:
         #: H2D payload bytes of submitted-but-not-yet-consumed groups
         live_bytes = 0
 
+        def key_of(i: int):
+            return group_keys[i] if group_keys is not None else None
+
         def submit(i: int):
             nonlocal live_bytes
-            fut = self._engine.submit_group(i, groups[i])
+            group = groups[i]() if callable(groups[i]) else groups[i]
+            fut = self._engine.submit_group(i, group, key=key_of(i))
             st.n_transfers += 1
             st.h2d_requests += fut.n_requests
             st.bytes_h2d += fut.nbytes
@@ -364,7 +377,7 @@ class HostStreamExecutor:
                 st.disk_wait_per_group.append(fut.disk_wait_s)
             t0 = time.perf_counter()
             for i, fut in enumerate(futs):
-                carry = self._step(carry, fut.group(), outs, st, wb_tickets)
+                carry = self._step(i, carry, fut.group(), outs, st, wb_tickets, key_of(i))
                 live_bytes -= fut.nbytes
             _sync(self.device)
             st.compute_s += time.perf_counter() - t0
@@ -387,7 +400,7 @@ class HostStreamExecutor:
                 if controller is not None:
                     distance = controller.observe(w)
                 t0 = time.perf_counter()
-                carry = self._step(carry, fut.group(), outs, st, wb_tickets)
+                carry = self._step(i, carry, fut.group(), outs, st, wb_tickets, key_of(i))
                 live_bytes -= fut.nbytes
                 st.compute_s += time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -408,18 +421,19 @@ class HostStreamExecutor:
         st.total_s = time.perf_counter() - t_start
         return (carry, outs) if self._writeback else (carry, None)
 
-    def _step(self, carry: Pytree, buf: Pytree, outs: Optional[list], st: StreamStats,
-              wb_tickets: list) -> Pytree:
+    def _step(self, index: int, carry: Pytree, buf: Pytree, outs: Optional[list],
+              st: StreamStats, wb_tickets: list, wb_key=None) -> Pytree:
+        apply = (lambda c, b: self._apply(index, c, b)) if self._indexed else self._apply
         if not self._writeback:
-            return self._apply(carry, buf)
-        carry, group_out = self._apply(carry, buf)
+            return apply(carry, buf)
+        carry, group_out = apply(carry, buf)
         out_bytes = sum(nbytes(x) for x in tr.leaves(group_out))
         st.bytes_d2h += out_bytes
         st.n_transfers += 1
         if self._engine.config.async_writeback:
             # pipelined writeback: D2H runs on the engine worker while the
             # next group computes; drained in order after the loop
-            ticket = self._engine.submit_writeback(len(outs), group_out)
+            ticket = self._engine.submit_writeback(len(outs), group_out, key=wb_key)
             st.d2h_requests += ticket.n_requests
             wb_tickets.append(ticket)
             outs.append(None)  # placeholder — replaced by the drain

@@ -270,9 +270,10 @@ class PageStream:
     controller's sticky floor.  Keys pushed speculatively for a step that
     never consumes them are dropped by ``sync`` and counted.
 
-    The engine's ``submit_group`` takes no transfer key (the hazard
-    sanitizer is ROADMAP.md queue 1 item 4) and no device shardings (item
-    5), so the stream passes neither.
+    Each fetch passes its key to the engine (``submit_group(key=...)``), so
+    the hazard sanitizer refuses a fetch of a page whose demotion writeback
+    is still in flight; device shardings are not passed (one device:
+    ROADMAP.md, queue 1 item 5).
     """
 
     def __init__(
@@ -308,7 +309,7 @@ class PageStream:
         return ctl.distance
 
     def _submit(self, key: str, tree: Pytree):
-        fut = self._engine.submit_group(self._seq, tree)
+        fut = self._engine.submit_group(self._seq, tree, key=key)
         self._seq += 1
         self._inflight[key] = fut
         return fut
@@ -580,7 +581,7 @@ class KVPager:
             rec.dev = None
             rec.state = _COLD
             return
-        self.engine.submit_writeback(self._wb_seq, rec.dev)
+        self.engine.submit_writeback(self._wb_seq, rec.dev, key=self._fetch_key(table, p))
         self._wb_seq += 1
         if sp is not None:
             sp.wb_pending = True

@@ -26,37 +26,40 @@ def _children(node: Any):
     return None, None
 
 
+def _walk(node: Any, out: list) -> Any:
+    kind, kids = _children(node)
+    if kind is None:
+        out.append(node)
+        return "*"
+    return (kind, tuple(_walk(k, out) for k in kids))
+
+
 def flatten(tree: Any) -> tuple[list, Any]:
     """``(leaves, treedef)``; ``unflatten(treedef, leaves)`` rebuilds it."""
     out: list = []
+    return out, _walk(tree, out)
 
-    def walk(node):
-        kind, kids = _children(node)
-        if kind is None:
-            out.append(node)
-            return "*"
-        return (kind, tuple(walk(k) for k in kids))
 
-    return out, walk(tree)
+def _build(d: Any, it) -> Any:
+    if d == "*":
+        return next(it)
+    (kind, meta), kids = d
+    vals = [_build(k, it) for k in kids]
+    if kind == "dict":
+        return dict(zip(meta, vals))
+    if kind == "tuple":
+        return tuple(vals)
+    if kind == "list":
+        return vals
+    return None
 
 
 def unflatten(treedef: Any, leaves: list) -> Any:
-    it = iter(leaves)
-
-    def build(d):
-        if d == "*":
-            return next(it)
-        (kind, meta), kids = d
-        vals = [build(k) for k in kids]
-        if kind == "dict":
-            return dict(zip(meta, vals))
-        if kind == "tuple":
-            return tuple(vals)
-        if kind == "list":
-            return vals
-        return None
-
-    return build(treedef)
+    # module-level recursion, not a nested closure: a recursive closure is a
+    # reference cycle (function -> cell -> function) that would hold the
+    # leaves (device buffers of a landed group) until the cyclic collector
+    # runs
+    return _build(treedef, iter(leaves))
 
 
 def leaves(tree: Any) -> list:

@@ -12,7 +12,7 @@ time.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       [--arch smollm-360m|recurrentgemma-2b] [--prompt-len 512] \\
       [--attn-impl pallas|xla] [--kv-page-len 32 --kv-kind pinned_host] \\
-      [--out profile_serve.json]
+      [--param-kind pinned_host --device-budget-mb 160] [--out profile_serve.json]
 
 Batch 4, random bf16 weights from seed 0; 8 decode steps are profiled.
 chip_smoke.py's cells take prompt 512 for smollm-360m and 3072 for
@@ -26,6 +26,13 @@ cut out the current pages, demote, prefetch) with the cold pages at
 ``assemble_view``'s copies and of ``update_current``'s (the kernels inside
 the ``record_function`` spans that the paged step and the pager mark), and
 the compute-blocked transfer wait a step.
+
+``--param-kind pinned_host|disk_host`` profiles the unpaged decode step with
+the weights streamed from that home (``make_weight_streamed_decode_step``,
+under ``--device-budget-mb``; the prefill streams too and is not profiled).
+Beside the step's wall, device busy, idle share and launches it gives the
+weight stream's compute-blocked transfer wait, H2D bytes and requests, disk
+requests and groups fetched a step, and the residency cache's counters.
 
 Needs a CUDA card; it measures the device and has no CPU mode.
 """
@@ -42,6 +49,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.core.engine import EngineConfig, TransferEngine
+from repro_torch.core.hoststream import StreamStats
+from repro_torch.core.residency import ResidencyCache
+from repro_torch.core.weightstream import PARAM_KINDS, WeightStreamPlan
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as sv
 from repro_torch.train import steps as st
@@ -156,6 +167,76 @@ def profile_paged(cfg, params, prompts, args, report: dict) -> None:
         print(f"    {k['ms_per_unit']:.4f} ms  {k['share_of_busy']:.3f}  x{k['calls_per_unit']:.0f}  {k['name']}")
 
 
+def profile_streamed(cfg, params, prompts, args, report: dict) -> None:
+    """Profile the unpaged decode step with streamed weights (see the
+    module docstring)."""
+    dev = prompts.device
+    plan = WeightStreamPlan(cfg, st.abstract_params(cfg), device_budget_mb=args.device_budget_mb)
+    home, store = sv._weight_home(plan, params, args.param_kind, None)
+    del params
+    engine = TransferEngine(EngineConfig(max_distance=plan.max_distance_for_budget()), device=dev)
+    stats = StreamStats()
+    residency = ResidencyCache(plan.residency_capacity_bytes())
+    kw = dict(engine=engine, stats=stats, residency=residency)
+    max_len = args.prompt_len + STEPS + 2
+    decode = st.make_weight_streamed_decode_step(cfg, plan, paged=False, **kw)
+    try:
+        first, caches = sv.prefill_all(
+            cfg, home, prompts, max_len,
+            lambda b: st.make_weight_streamed_prefill_step(cfg, plan, b, max_len, **kw))
+        tokens = first.long()[:, None]
+
+        def decode_steps():
+            tok = tokens
+            for i in range(STEPS):
+                pos = sv.step_pos(cfg, BATCH, args.prompt_len + i, dev)
+                logits, _ = decode(home, caches, {"tokens": tok}, pos)
+                tok = logits[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+
+        decode_steps()  # warm-up
+        reps = []
+        counts0 = (stats.bytes_h2d, stats.h2d_requests, stats.disk_requests,
+                   stats.unique_group_fetches, stats.transfer_wait_s)
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            decode_steps()
+            reps.append((time.perf_counter() - t0) / STEPS)
+        n = REPEATS * STEPS
+        per_step = [(now - was) / n for now, was in zip(
+            (stats.bytes_h2d, stats.h2d_requests, stats.disk_requests,
+             stats.unique_group_fetches, stats.transfer_wait_s), counts0)]
+        reps.sort()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            decode_steps()
+        counters = residency.counters()
+    finally:
+        engine.close()
+        residency.clear()
+        if store is not None:
+            store.close()
+    name = (f"streamed decode (one batched step; weights at {args.param_kind}, budget "
+            f"{args.device_budget_mb} MB, {plan.n_groups} groups)")
+    report[name] = r = _breakdown(prof, reps[0] * STEPS, STEPS, TOP)
+    r["wall_ms_per_unit_repeats"] = [w * 1e3 for w in reps]
+    (r["h2d_bytes_per_step"], r["h2d_requests_per_step"], r["disk_requests_per_step"],
+     r["groups_fetched_per_step"], wait) = per_step
+    r["transfer_wait_ms_per_step"] = wait * 1e3
+    r["n_groups"] = plan.n_groups
+    r["residency"] = counters
+    idle = r["device_idle_share"]
+    print(f"{name}: wall {r['wall_ms_per_unit']:.3f} ms (min of {REPEATS}; median "
+          f"{reps[len(reps) // 2] * 1e3:.3f}), device busy {r['device_busy_ms_per_unit']:.3f} ms, "
+          f"idle share {'not measured' if idle is None else f'{idle:.3f}'}, "
+          f"{r['kernel_launches_per_unit']:.0f} kernel launches")
+    print(f"    compute-blocked transfer wait a step {r['transfer_wait_ms_per_step']:.3f} ms; "
+          f"H2D {r['h2d_bytes_per_step']:.0f} B in {r['h2d_requests_per_step']:.2f} requests, "
+          f"{r['disk_requests_per_step']:.2f} disk requests, {r['groups_fetched_per_step']:.2f} "
+          f"groups fetched a step; residency {r['residency']}")
+    for k in r["top_kernels"]:
+        print(f"    {k['ms_per_unit']:.4f} ms  {k['share_of_busy']:.3f}  x{k['calls_per_unit']:.0f}  {k['name']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="smollm-360m", choices=ARCHS)
@@ -166,10 +247,16 @@ def main() -> int:
                     help="> 0: profile the paged decode step with pages of this many tokens")
     ap.add_argument("--kv-kind", default="device", choices=sv.KV_KINDS,
                     help="home of the cold pages (with --kv-page-len)")
+    ap.add_argument("--param-kind", default="device", choices=PARAM_KINDS,
+                    help="home of the weights: a host kind profiles the streamed decode step")
+    ap.add_argument("--device-budget-mb", type=float, default=None,
+                    help="device budget of the streamed weights (with --param-kind)")
     ap.add_argument("--out", default=None, help="also write the breakdown here as JSON")
     args = ap.parse_args()
     if args.kv_kind != "device" and args.kv_page_len <= 0:
         ap.error("--kv-kind needs --kv-page-len > 0")
+    if args.param_kind != "device" and args.kv_page_len > 0:
+        ap.error("--param-kind profiles the unpaged streamed step; leave --kv-page-len at 0")
 
     dev = resolve_device("cuda")
     cfg = dataclasses.replace(get_config(args.arch), attn_impl=args.attn_impl)
@@ -180,8 +267,10 @@ def main() -> int:
     report = {"card": torch.cuda.get_device_name(0), "arch": args.arch,
               "attn_impl": args.attn_impl, "batch": BATCH, "prompt_len": prompt,
               "kv_page_len": args.kv_page_len, "kv_kind": args.kv_kind}
-    if args.kv_page_len > 0:
-        profile_paged(cfg, params, prompts, args, report)
+    if args.kv_page_len > 0 or args.param_kind != "device":
+        report.update(param_kind=args.param_kind, device_budget_mb=args.device_budget_mb)
+        (profile_paged if args.kv_page_len > 0 else profile_streamed)(cfg, params, prompts, args,
+                                                                       report)
         _write(args.out, report)
         return 0
     max_len = prompt + STEPS + 2

@@ -41,6 +41,12 @@ class ParamTree(nn.Module):
     def __contains__(self, k: str) -> bool:
         return k in self._parameters or k in self._modules
 
+    def as_dict(self) -> dict:
+        """The tree as nested dicts of its tensors (no copies)."""
+        out: dict = {k: p.data for k, p in self._parameters.items()}
+        out.update({k: m.as_dict() for k, m in self._modules.items()})
+        return out
+
     def index(self, i: int) -> dict:
         """Views of entry ``i`` along every leaf's leading (layer) axis."""
         out: dict = {k: p[i] for k, p in self._parameters.items()}

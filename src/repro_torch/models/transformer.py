@@ -225,6 +225,33 @@ def _store(cache: dict, state: dict) -> None:
         cache[k].copy_(v)
 
 
+def _layer_prefill(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch.Tensor,
+                   angles: Optional[torch.Tensor]) -> torch.Tensor:
+    """One layer's prefill: the body that :func:`prefill` and
+    :func:`block_group_prefill` share.  Fills ``cache`` in place."""
+    h = layers.norm_apply(p["ln1"], x, cfg.norm_type)
+    if kind == "rec":
+        h, state = rglru.rglru_block_train(cfg, p["rec"], h, cache,
+                                           use_kernel=cfg.attn_impl == "pallas")
+        _store(cache, state)
+    else:
+        h, _ = attention.attention_prefill(cfg, p["attn"], h, angles, cache)
+    return _mlp(cfg, p, x + h)
+
+
+def _layer_decode(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch.Tensor,
+                  angles: Optional[torch.Tensor], pos) -> torch.Tensor:
+    """One layer's decode step: the body that :func:`decode_step` and
+    :func:`block_group_decode` share.  Updates ``cache`` in place."""
+    h = layers.norm_apply(p["ln1"], x, cfg.norm_type)
+    if kind == "rec":
+        h, state = rglru.rglru_block_step(cfg, p["rec"], h, cache)
+        _store(cache, state)
+    else:
+        h, _ = attention.attention_decode(cfg, p["attn"], h, angles, cache, pos)
+    return _mlp(cfg, p, x + h)
+
+
 def prefill(cfg: ModelConfig, params: ParamTree, batch: dict, caches: dict,
             last_pos: Optional[int] = None) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward that also fills the caches (in place).
@@ -238,18 +265,9 @@ def prefill(cfg: ModelConfig, params: ParamTree, batch: dict, caches: dict,
     x = _embed(cfg, params, batch)
     angles = _angles(cfg, x.shape[1], device=x.device)
     for kind, path, j in layer_slots(cfg):
-        p = _at(params["blocks"], path, j)
-        cache = _at(caches, path, j)
-        h = layers.norm_apply(p["ln1"], x, cfg.norm_type)
-        if kind == "rec":
-            h, state = rglru.rglru_block_train(cfg, p["rec"], h, cache,
-                                               use_kernel=cfg.attn_impl == "pallas")
-            _store(cache, state)
-        else:
-            h, _ = attention.attention_prefill(cfg, p["attn"], h, angles, cache)
-        x = _mlp(cfg, p, x + h)
-    xl = x[:, -1:] if last_pos is None else x[:, last_pos:last_pos + 1]
-    return _head(cfg, params, xl), caches
+        x = _layer_prefill(cfg, kind, _at(params["blocks"], path, j), _at(caches, path, j), x,
+                           angles)
+    return _head(cfg, params, _last(x, last_pos)), caches
 
 
 def decode_step(cfg: ModelConfig, params: ParamTree, batch: dict, caches: dict,
@@ -262,13 +280,93 @@ def decode_step(cfg: ModelConfig, params: ParamTree, batch: dict, caches: dict,
     x = _embed(cfg, params, batch)
     angles = _angles(cfg, 1, pos=pos, device=x.device)
     for kind, path, j in layer_slots(cfg):
-        p = _at(params["blocks"], path, j)
-        cache = _at(caches, path, j)
-        h = layers.norm_apply(p["ln1"], x, cfg.norm_type)
-        if kind == "rec":
-            h, state = rglru.rglru_block_step(cfg, p["rec"], h, cache)
-            _store(cache, state)
-        else:
-            h, _ = attention.attention_decode(cfg, p["attn"], h, angles, cache, pos)
-        x = _mlp(cfg, p, x + h)
+        x = _layer_decode(cfg, kind, _at(params["blocks"], path, j), _at(caches, path, j), x,
+                          angles, pos)
     return _head(cfg, params, x), caches
+
+
+def _last(x: torch.Tensor, last_pos: Optional[int]) -> torch.Tensor:
+    return x[:, -1:] if last_pos is None else x[:, last_pos:last_pos + 1]
+
+
+# ---------------------------------------------------------------------------
+# layer-group stages (streamed parameters — see repro_torch.core.weightstream)
+#
+# The passes above consume the whole parameter tree; these stages consume ONE
+# transfer group at a time, so host- or disk-homed weights can arrive
+# mid-stack: the embed group starts the residual stream, each stacked
+# layer-group slice continues it through the same layer body
+# (``_layer_prefill`` / ``_layer_decode``) on views ``[j]`` with the
+# resident stack's strides, and the head group finishes it.  The caches are
+# updated in place, so a group prefills and decodes into ``narrow``ed views of
+# the dense cache: the same function as the monolithic pass, with no copy.
+# ---------------------------------------------------------------------------
+
+
+def _index(tree, j: int):
+    """Entry ``j`` along the leading (layer) axis of every leaf: views."""
+    if isinstance(tree, ParamTree):
+        return tree.index(j)
+    return {k: _index(v, j) if isinstance(v, dict) else v[j] for k, v in tree.items()}
+
+
+def _n_layers(tree) -> int:
+    while isinstance(tree, dict):
+        tree = tree[sorted(tree)[0]]
+    return tree.shape[0]
+
+
+def embed_stage(cfg: ModelConfig, group: Params, batch: dict, pos=None) -> torch.Tensor:
+    """Embed-group forward: ``group`` holds the plan's embed leaves
+    (``{"embed": ...}``).  Returns the first hidden states."""
+    return _embed(cfg, group, batch)
+
+
+def stage_angles(cfg: ModelConfig, batch: dict, seq_len: int, pos=None) -> Optional[torch.Tensor]:
+    """RoPE angles for the staged passes (``None`` without RoPE)."""
+    return _angles(cfg, seq_len, pos=pos, device=batch["tokens"].device)
+
+
+def block_group_prefill(cfg: ModelConfig, blocks_slice: Params, cache_slice: dict,
+                        x: torch.Tensor, angles: Optional[torch.Tensor]) -> tuple[torch.Tensor, dict]:
+    """Prefill over one stacked layer-group slice ``(Lg, ...)`` of a uniform
+    stack: fills ``cache_slice`` (``(Lg, ...)``, e.g. a view of the dense
+    cache) in place.  Returns ``(x, cache_slice)``."""
+    for j in range(_n_layers(blocks_slice)):
+        x = _layer_prefill(cfg, "attn", _index(blocks_slice, j), _index(cache_slice, j), x, angles)
+    return x, cache_slice
+
+
+def block_group_decode(cfg: ModelConfig, blocks_slice: Params, cache_slice: dict,
+                       x: torch.Tensor, angles: Optional[torch.Tensor], pos) -> tuple[torch.Tensor, dict]:
+    """One decode step over one stacked layer-group slice, the same layer
+    body as :func:`decode_step`'s.  Updates ``cache_slice`` in place.
+    Returns ``(x, cache_slice)``."""
+    for j in range(_n_layers(blocks_slice)):
+        x = _layer_decode(cfg, "attn", _index(blocks_slice, j), _index(cache_slice, j), x, angles,
+                          pos)
+    return x, cache_slice
+
+
+def block_decode_pre_moe(cfg: ModelConfig, blocks_slice: Params, cache_slice: dict, x, angles,
+                         pos):
+    """The router-first half of a MoE layer's decode step: not ported."""
+    raise NotImplementedError(
+        "block_decode_pre_moe: the MoE layers are not ported yet "
+        "(ROADMAP.md, queue 1 item 7: the other model families)"
+    )
+
+
+def head_stage_logits(cfg: ModelConfig, group: Params, x: torch.Tensor) -> torch.Tensor:
+    """Head-group logits from trunk hidden states.  ``group`` holds ``ln_f``
+    and the head weights (a tied head: the embed table, which the plan's
+    head fetch group carries)."""
+    return _head(cfg, group, x)
+
+
+def init_cache_group(cfg: ModelConfig, n_layers: int, batch: int, seq_len: int,
+                     dtype=torch.bfloat16, device=None) -> dict:
+    """Stacked decode-cache slice for ``n_layers`` uniform attention layers
+    (the per-group analogue of :func:`init_caches`)."""
+    cl = cfg.cache_len(seq_len)
+    return _stack([attention.init_cache(cfg, batch, cl, dtype, device) for _ in range(n_layers)])

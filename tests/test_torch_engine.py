@@ -149,8 +149,17 @@ def test_staging_pool_is_reused_not_grown():
 
 
 def test_sanitize_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        EngineConfig(sanitize=True)
+    """The sanitizer is ported now (this test once pinned its refusal):
+    ``EngineConfig(sanitize=True)`` builds one, and it refuses a fetch of a
+    key whose writeback is still in flight."""
+    from repro_torch.core.schedcheck import HazardError
+
+    with TransferEngine(EngineConfig(sanitize=True), device="cpu") as eng:
+        assert eng.sanitizer is not None
+        eng.submit_writeback(0, {"w": torch.ones(2)}, key="k")
+        with pytest.raises(HazardError):
+            eng.submit_group(1, np.ones(2, np.float32), key="k")
+    assert TransferEngine(EngineConfig(sanitize=False), device="cpu").sanitizer is None
 
 
 # ---------------------------------------------------------------------------

@@ -117,8 +117,10 @@ def test_serve_returns_the_jax_keys(mesh):
     res = sv.serve(pc, seed=SEED, device="cpu", **kw)
     ref = jax_serve.serve(jc, mesh, seed=SEED, **kw)
     assert res.keys() == ref.keys()
-    for key in ("param_stats", "expert_stats", "param_plan", "param_step_fetches", "param_residency"):
-        assert res[key] is None
+    for key in ("expert_stats", "param_plan", "param_residency"):  # device-resident weights
+        assert res[key] is None and ref[key] is None
+    assert res["param_stats"].h2d_requests == ref["param_stats"].h2d_requests == 0
+    assert res["param_step_fetches"] == ref["param_step_fetches"]
     assert res["generated"].shape == ref["generated"].shape == (2, 4)
     assert res["paged"] is ref["paged"] is True
 
@@ -230,16 +232,23 @@ def test_prefill_widths_are_power_of_two_buckets(mesh, params):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kwargs", [dict(param_kind="pinned_host"), dict(device_budget_mb=2.0),
-                                    dict(param_cache_mb=1.0), dict(expert_stream=True),
-                                    dict(hot_pages=-1)])
-def test_failed_constructor_leaks_nothing(params, tmp_path, kwargs):
-    """An argument the session does not take raises before any engine thread
-    or spill directory exists."""
+@pytest.mark.parametrize("kwargs, err, match", [
+    (dict(param_kind="pinned_host", device_budget_mb=0.001), ValueError,
+     "consumed by the KV hot window"),
+    (dict(param_kind="disk_host", device_budget_mb=0.1), ValueError,
+     "cannot hold even a distance-1 weight stream"),
+    (dict(param_kind="disk_host", device_budget_mb=1.0, param_cache_mb=5.0), ValueError,
+     "param_cache_mb=5.0"),
+    (dict(param_kind="pinned_host", expert_stream=True), NotImplementedError, "queue 1 item 7"),
+    (dict(hot_pages=-1), ValueError, "hot_pages"),
+])
+def test_failed_constructor_leaks_nothing(params, tmp_path, kwargs, err, match):
+    """A refused construction (a budget the hot window or the weight stream
+    cannot fit, expert streaming, a bad pager knob) raises before any engine
+    thread or spill directory exists."""
     _, pc = _cfgs()
     n0, spill = threading.active_count(), tmp_path / "kv"
-    err = ValueError if "hot_pages" in kwargs else NotImplementedError
-    with pytest.raises(err, match="hot_pages" if err is ValueError else "queue 1 item 4"):
+    with pytest.raises(err, match=match):
         sv.ServeSession(pc, slots=1, max_len=16, kv_kind="disk_host", page_len=4,
                         spill_dir=str(spill), params=params, device="cpu", **kwargs)
     assert threading.active_count() == n0
@@ -385,8 +394,8 @@ def test_paged_serve_through_the_kernels_on_card(cuda, kv_kind):
     assert st.disk_requests == (st.n_groups if kv_kind == "disk_host" else 0)
 
 
-@pytest.mark.parametrize("flags, item", [(["--param-kind", "pinned_host"], "queue 1 item 4"),
-                                         (["--verify-schedule"], "queue 1 item 4"),
+@pytest.mark.parametrize("flags, item", [(["--expert-stream"], "queue 1 item 7"),
+                                         (["--verify-schedule"], "--verify-schedule requires"),
                                          (["--model-parallel", "2"], "queue 1 item 5")])
 def test_cli_names_the_item_a_flag_waits_for(monkeypatch, capsys, flags, item):
     monkeypatch.setattr(sys, "argv", ["serve", "--smoke", "--device", "cpu", *flags])
