@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths and the paper's offload path on one
-NVIDIA card.
+"""Drive the PyTorch port's serving paths, the paper's offload path and
+training on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -97,6 +97,35 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    depth on both routes, listing 4's product beside ``torch.matmul``, and
    phase 4's kernel sweep by ring.
 
+6. train full-width smollm-360m (361,821,120 parameters, bf16, random
+   weights from seed 0, ``attn_impl="xla"``, ``remat="full"``, loss chunks of
+   512; batch 8, sequence 1024, AdamW with peak lr 1e-3, 2 warmup steps, 8
+   total) through the launcher's ``build_trainer``: (a)'s first run and
+   (e) through its driver's ``run()`` (checkpoints included), the others
+   through the same trainer's state, loader and step: (a) the AdamW state
+   on the card, 8 steps, twice from the same init (finite losses, the
+   second run bitwise the first); the step wall (median of steps 2-7), tokens/s, model FLOP/s
+   (6 N T) and its share of 989 TFLOP/s, ``max_memory_allocated``, and one
+   profiled step's device busy time, idle share, launches and top kernels;
+   the same steps with ``torch.use_deterministic_algorithms`` on (the
+   default path runs with it off); (b) bulk ``HOST_OPT`` (the state pinned
+   between steps) and (c) ``--stream-opt`` (4 groups through the transfer
+   engine, ``distance="auto"``, the moments numpy between steps, 4 H2D
+   requests and 4,341,853,440 bytes a step, the wait and writeback drain of
+   each step logged), losses and parameters bitwise (a)'s; (d) ``DISK_OPT``
+   under 2000 MB of host, 1 step: bitwise (a)'s, one disk request a
+   spilled group; (e) the driver with a failure injected at step 3
+   and checkpoints every 2 steps: one restart, the restored state bitwise
+   the saved one, every loss bitwise the unfailed run's, the time from the
+   failure to the first resumed step logged; (f) ``forward_train`` under
+   ``attn_impl="pallas"`` with gradients off, the kernel counts zeroed just
+   before and read just after: ``flash_attention`` launched once a layer
+   (32), the logits within 5e-2 of the xla path's relative to the largest
+   logit, a gradient step raising; the kernel against its plain version at
+   the training shape.  (a)-(e) launch no hand-written kernel, as in the
+   JAX package, whose gradient path runs none.  Phase 6 runs after phase 4,
+   and phase 5 times its flash shape beside the serving ones.
+
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -105,12 +134,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -150,6 +181,17 @@ W_BUDGET_MB, W_PAGED_BUDGET_MB, W_FLOOR_MB = 160, 176, 100
 W_GROUPS, W_PASS_BYTES, W_SHORT_GEN = 34, 818_014_080, 8
 # the recurrentgemma-2b cell: a prompt longer than the 2048-token window
 HYB_PROMPT = 3072
+# phase 6: full-width smollm-360m training at the JAX package's train defaults
+# (remat "full", loss chunks of 512 positions), its AdamW settings; the
+# streamed optimizer's groups; the DISK_OPT host budget and its steps; the
+# failure the driver recovers from
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PARAMS = 8, 1024, 8, 361_821_120
+TRAIN_OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+TRAIN_GROUPS, TRAIN_STATE_BYTES = 4, 4_341_853_440  # 12 bytes a parameter
+# (d) takes one step: its fsync'd disk writes cost ~10-15 s a step, and
+# phase 6 keeps within ~110 s (the CPU tests hold several disk steps)
+TRAIN_HOST_MB, TRAIN_DISK_STEPS = 2000, 1
+TRAIN_FAIL_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 4, 3, 2
 # the JAX package's rglru_scan test shapes (tests/test_rglru_kernel.py)
 LRU_SHAPES = [(2, 128, 256), (1, 64, 128), (3, 100, 130), (2, 8, 512), (1, 256, 64)]
 LRU_TILINGS = [(8, 128), (64, 128), (128, 256)]
@@ -1010,6 +1052,358 @@ def phase_paper(cfg) -> tuple[dict, list]:
     return launches, ks
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits as integers of its width (bitwise comparisons)."""
+    return t.reshape(-1).view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                               8: torch.int64}[t.element_size()])
+
+
+def same_bits(a, b) -> bool:
+    """Two trees of tensors or host arrays, bit for bit (on the card)."""
+    from repro_torch.core import tree as tr
+    from repro_torch.core.arrays import host_tensor
+
+    la, lb = tr.leaves(a), tr.leaves(b)
+    on = lambda x: host_tensor(x).to("cuda")  # noqa: E731
+    return len(la) == len(lb) and all(
+        on(x).dtype == on(y).dtype and torch.equal(bits(on(x)), bits(on(y))) for x, y in zip(la, lb))
+
+
+def train_cfg(cfg, **kw):
+    return dataclasses.replace(cfg, attn_impl="xla", remat="full", loss_chunk=512, **kw)
+
+
+def train_batch(cfg, step: int) -> dict:
+    """The launcher's batch for ``step``, on the card."""
+    from repro_torch.data import SyntheticConfig, synthetic_batch
+
+    sc = SyntheticConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    return {k: v.cuda() for k, v in synthetic_batch(cfg, sc, step).items()}
+
+
+def train_run(cfg, ckpt_dir: Path, *, steps: int = TRAIN_STEPS, run: bool = False,
+              keep_after=(), setup=None, checkpoint_every: int = 100, **kw) -> dict:
+    """Train ``cfg`` through the launcher's ``build_trainer``: with ``run``,
+    its driver's ``run()`` (the restart loop and checkpoints, the final one
+    included); else the trainer's own state, loader and step for ``steps``
+    steps (no checkpoint).  Each step's wall ends with a synchronise of the
+    card; the stream counters are read around each step; the parameters
+    after ``keep_after`` steps are cloned."""
+    import shutil
+
+    from repro_torch.core import tree as tr
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.driver import DriverConfig
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    driver = build_trainer(
+        cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, opt_cfg=AdamWConfig(**TRAIN_OPT),
+        driver_cfg=DriverConfig(total_steps=steps, checkpoint_every=checkpoint_every,
+                                checkpoint_dir=str(ckpt_dir), log_every=0),
+        seed=SEED, device="cuda", **kw)
+    inner, st = driver.step_fn, driver.stream_stats
+    out = dict(walls=[], spans=[], waits=[], drains=[], h2d=[], kept={}, driver=driver)
+    fields = ("transfer_wait_s", "writeback_drain_s", "h2d_requests", "bytes_h2d",
+              "disk_requests")
+
+    def step(state, batch):
+        before = [getattr(st, f) for f in fields] if st else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, metrics = inner(state, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out["walls"].append(t1 - t0)
+        out["spans"].append((t0, t1))
+        if st:
+            d = [getattr(st, f) - b for f, b in zip(fields, before)]
+            out["waits"].append(d[0])
+            out["drains"].append(d[1])
+            out["h2d"].append(tuple(d[2:]))
+        if len(out["walls"]) in keep_after:
+            out["kept"][len(out["walls"])] = tr.tree_map(torch.clone, new["params"])
+        return new, metrics
+
+    driver.step_fn = step
+    if setup is not None:
+        setup(driver)
+    t0 = time.perf_counter()
+    if run:
+        out["state"] = driver.run()
+        out["losses"] = [(h["step"], h["loss"]) for h in driver.history]
+    else:
+        try:
+            state, out["losses"] = driver.init_state(), []
+            for i in range(steps):
+                state, m = step(state, driver.make_batch(i))
+                out["losses"].append((i, float(m["loss"])))
+            out["state"] = state
+        finally:
+            for owned in (driver.engine, driver.spill_store):  # run()'s close order
+                if owned is not None:
+                    owned.close()
+    out["seconds"] = time.perf_counter() - t0
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else (xs[len(xs) // 2 - 1] + xs[len(xs) // 2]) / 2
+
+
+def phase_train(cfg) -> dict:
+    """Phase 6: train full-width smollm-360m on the card through the
+    launcher's driver, the AdamW state on the card, at pinned host (in bulk
+    and streamed) and spilled to disk; restart after a failure; the training
+    forward through the flash kernel.  Returns the flash kernel's launches
+    and error for the kernel table."""
+    import warnings
+
+    from repro_torch.core import memkind as mk
+    from repro_torch.core import tree as tr
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.launch.profile_serve import _breakdown
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.train import steps as st
+
+    t_phase = time.perf_counter()
+    tcfg = train_cfg(cfg)
+    n_params = sum(p.numel() for p in tr.leaves(st.abstract_train_state(tcfg)[0]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"phase 6 train {tcfg.name}: {tcfg.n_layers} layers, d_model {tcfg.d_model}, {n_params:,} "
+        f"parameters, {tcfg.dtype}, attn_impl={tcfg.attn_impl}, remat={tcfg.remat}, loss_chunk "
+        f"{tcfg.loss_chunk}; batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, AdamW {TRAIN_OPT}; "
+        f"deterministic algorithms {torch.are_deterministic_algorithms_enabled()}")
+    if n_params != TRAIN_PARAMS:
+        raise SystemExit(f"smollm-360m has {n_params} parameters, not {TRAIN_PARAMS}")
+    ckpt = ROOT / "build" / "train-ckpt"
+    since = [time.perf_counter()]
+
+    def lap() -> float:
+        now = time.perf_counter()
+        dt, since[0] = now - since[0], now
+        return dt
+
+    # (a) the state on the card, twice from the same init
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a = train_run(tcfg, ckpt, run=True, keep_after={TRAIN_DISK_STEPS})
+    peak = torch.cuda.max_memory_allocated()
+    a2 = train_run(tcfg, ckpt)
+    losses = [loss for _, loss in a["losses"]]
+    if not all(map(math.isfinite, losses)):
+        raise SystemExit(f"(a) losses not finite: {losses}")
+    if a2["losses"] != a["losses"] or not same_bits(a2["state"]["params"], a["state"]["params"]):
+        raise SystemExit("(a) a second run from the same init differs from the first")
+    wall = median(a["walls"][2:])
+    flops = 6 * n_params * tokens  # model FLOPs a step (6 N T; the attention's not counted)
+    log(f"  (a) device: losses {[round(x, 4) for x in losses]}; a second run from the same init "
+        f"bitwise equal (losses, parameters)")
+    log(f"  (a) step wall {wall * 1e3:.3f} ms (median of steps 2-7; runs {[round(w * 1e3, 3) for w in a['walls']]} "
+        f"/ {[round(w * 1e3, 3) for w in a2['walls']]} ms), {tokens / wall:.1f} tok/s, model "
+        f"{flops / wall / 1e12:.2f} TFLOP/s = {flops / wall / BF16_FLOP_PER_S:.4f} of 989 TFLOP/s; "
+        f"max_memory_allocated {peak} B; the driver's run {a['seconds']:.1f} s (its final "
+        f"checkpoint included), the second run's {a2['seconds']:.1f} s")
+    # one profiled step on (a)'s state: device busy, idle share, launches, top kernels
+    step_fn = st.make_train_step(tcfg, AdamWConfig(**TRAIN_OPT))
+    params, opt = a2["state"]["params"], a2["state"]["opt"]
+    del a2
+    batch = train_batch(tcfg, 0)
+    params, opt, _ = step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    # the step's two halves on the card (CUDA events): forward + backward, the AdamW update
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    _, _, grads = st.make_grad_step(tcfg)(params, batch)
+    ev[1].record()
+    params, opt, _ = adamw_update(AdamWConfig(**TRAIN_OPT), grads, opt, compute_dtype=tcfg.compute_dtype)
+    ev[2].record()
+    torch.cuda.synchronize()
+    del grads
+    log(f"  (a) one step's halves on the card: forward + backward {ev[0].elapsed_time(ev[1]):.3f} ms, "
+        f"AdamW update {ev[1].elapsed_time(ev[2]):.3f} ms")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        params, opt, _ = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    r = _breakdown(prof, wall, 1, 10_000)
+    idle = r["device_idle_share"]
+    classes: dict = {}
+    for k in r["top_kernels"]:
+        name = k["name"].lower()
+        cls = ("matmul" if any(w in name for w in ("gemm", "cutlass", "xmma", "cublas", "nvjet"))
+               else "softmax" if "softmax" in name
+               else "reduction" if "reduce" in name
+               else "elementwise and copies")
+        classes[cls] = classes.get(cls, 0.0) + k["ms_per_unit"]
+    log(f"  (a) profiled step: device busy {r['device_busy_ms_per_unit']:.3f} ms of the "
+        f"{wall * 1e3:.3f} ms wall, idle share {'not measured' if idle is None else f'{idle:.4f}'}, "
+        f"{r['kernel_launches_per_unit']:.0f} kernel launches; device ms by kind "
+        f"{ {c: round(v, 3) for c, v in sorted(classes.items(), key=lambda kv: -kv[1])} }; top kernels:")
+    for k in r["top_kernels"][:10]:
+        log(f"    {k['ms_per_unit']:.3f} ms  {k['share_of_busy']:.3f}  x{k['calls_per_unit']:.0f}  "
+            f"{k['name']}")
+    del params, opt, prof
+    # the same steps with torch.use_deterministic_algorithms on
+    params, opt = st.init_train_state(tcfg, SEED, "cuda")
+    walls_det, losses_det = [], []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for i in range(4):
+                b = train_batch(tcfg, i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = step_fn(params, opt, b)
+                losses_det.append(float(m["loss"]))
+                walls_det.append(time.perf_counter() - t0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del params, opt
+    log(f"  (a) deterministic algorithms on: step wall {median(walls_det[2:]) * 1e3:.3f} ms (steps 2-3; "
+        f"off: {wall * 1e3:.3f} ms), losses {'bitwise equal to' if losses_det == losses[:4] else 'DIFFER from'}"
+        f" the default path's ({lap():.1f} s)")
+
+    # (b) bulk HOST_OPT: the state at pinned host between steps
+    b_run = train_run(tcfg, ckpt, policy=mk.HOST_OPT)
+    pinned = all(x.device.type == "cpu" and x.is_pinned() for x in tr.leaves(b_run["state"]["opt"]))
+    if b_run["losses"] != a["losses"] or not same_bits(b_run["state"]["params"], a["state"]["params"]):
+        raise SystemExit("(b) bulk HOST_OPT differs from the device run")
+    if not pinned:
+        raise SystemExit("(b) the optimizer state is not at pinned host between steps")
+    log(f"  (b) bulk HOST_OPT: losses and parameters bitwise (a)'s, the state pinned between steps; "
+        f"step wall {median(b_run['walls'][2:]) * 1e3:.3f} ms ({lap():.1f} s)")
+    del b_run
+
+    # (c) --stream-opt: 4 groups through the transfer engine, distance "auto"
+    c = train_run(tcfg, ckpt, policy=mk.HOST_OPT, stream_opt=True, opt_stream_groups=TRAIN_GROUPS)
+    moments_numpy = all(isinstance(x, np.ndarray) for x in tr.leaves(c["state"]["opt"]))
+    if c["losses"] != a["losses"] or not same_bits(c["state"]["params"], a["state"]["params"]):
+        raise SystemExit("(c) the streamed optimizer differs from the device run")
+    if not moments_numpy:
+        raise SystemExit("(c) the optimizer state is not numpy between steps")
+    if any(h[:2] != (TRAIN_GROUPS, TRAIN_STATE_BYTES) for h in c["h2d"]):
+        raise SystemExit(f"(c) (H2D requests, bytes) a step {c['h2d']}, not "
+                         f"({TRAIN_GROUPS}, {TRAIN_STATE_BYTES})")
+    log(f"  (c) --stream-opt, {TRAIN_GROUPS} groups, distance auto: losses and parameters bitwise (a)'s, "
+        f"moments numpy between steps; {TRAIN_GROUPS} H2D requests and {TRAIN_STATE_BYTES:,} B a step; "
+        f"step wall {median(c['walls'][2:]) * 1e3:.3f} ms; per step: wall "
+        f"{[round(w * 1e3, 1) for w in c['walls']]} ms, transfer wait "
+        f"{[round(w * 1e3, 1) for w in c['waits']]} ms, writeback drain "
+        f"{[round(w * 1e3, 1) for w in c['drains']]} ms ({lap():.1f} s)")
+    del c
+
+    # (d) DISK_OPT under a host budget: groups past it spill to disk
+    spill = ROOT / "build" / "spill-train"
+    import shutil
+
+    shutil.rmtree(spill, ignore_errors=True)
+    try:
+        d = train_run(tcfg, ckpt, steps=TRAIN_DISK_STEPS, policy=mk.DISK_OPT, stream_opt=True,
+                      opt_stream_groups=TRAIN_GROUPS, spill_dir=str(spill),
+                      host_budget_mb=TRAIN_HOST_MB)
+        n_spilled = len(list(d["driver"].spill_store.keys()))
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    if d["losses"] != a["losses"][:TRAIN_DISK_STEPS] or not same_bits(
+            d["state"]["params"], a["kept"][TRAIN_DISK_STEPS]):
+        raise SystemExit("(d) DISK_OPT differs from the device run")
+    if not n_spilled or any(h[2] != n_spilled for h in d["h2d"]):
+        raise SystemExit(f"(d) disk requests a step {[h[2] for h in d['h2d']]}, not one per spilled "
+                         f"group ({n_spilled})")
+    log(f"  (d) DISK_OPT under {TRAIN_HOST_MB} MB of host: {n_spilled} of {TRAIN_GROUPS} groups "
+        f"spilled, one disk request each a step; losses and parameters bitwise (a)'s after "
+        f"{TRAIN_DISK_STEPS} step(s); step walls {[round(w * 1e3, 1) for w in d['walls']]} ms, transfer "
+        f"wait {[round(w * 1e3, 1) for w in d['waits']]} ms ({lap():.1f} s)")
+    del d
+
+    # (e) the driver's restart: a failure at step 3, restored from step 1's checkpoint
+    saved, restored, marks = {}, [], {}
+
+    def setup(drv):
+        real_save, real_restore, real_start = drv.ckpt.save, drv.ckpt.restore, drv.monitor.start_step
+
+        def save(step, tree, **kw):
+            saved[step] = tr.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+            t0 = time.perf_counter()
+            real_save(step, tree, **kw)
+            marks.setdefault("saves", []).append((step, time.perf_counter() - t0))
+
+        def restore(template, **kw):
+            marks["restore"] = time.perf_counter()
+            out = real_restore(template, **kw)
+            marks["restored"] = time.perf_counter()
+            restored.append(out)
+            return out
+
+        def start(step):
+            if step == TRAIN_FAIL_AT and "fail" not in marks:
+                marks["fail"] = time.perf_counter()
+            return real_start(step)
+
+        drv.ckpt.save, drv.ckpt.restore, drv.monitor.start_step = save, restore, start
+
+    e = train_run(tcfg, ckpt, steps=TRAIN_FAIL_STEPS, run=True, fail_at={TRAIN_FAIL_AT},
+                  setup=setup, checkpoint_every=TRAIN_CKPT_EVERY)
+    ref = dict(a["losses"])
+    if e["driver"].restarts != 1 or len(restored) != 1:
+        raise SystemExit(f"(e) {e['driver'].restarts} restarts, {len(restored)} restores")
+    step_r, state_r = restored[0]
+    if not same_bits(state_r, saved[step_r]):
+        raise SystemExit(f"(e) the state restored at step {step_r} differs from the one saved")
+    if any(loss != ref[s] for s, loss in e["losses"]):
+        raise SystemExit(f"(e) losses after the restart differ: {e['losses']}")
+    resumed = next(span for span in e["spans"] if span[0] > marks["fail"])
+    log(f"  (e) TrainDriver, failure injected at step {TRAIN_FAIL_AT}: 1 restart, restored step {step_r} "
+        f"bitwise as saved; every loss ({[s for s, _ in e['losses']]}) bitwise the unfailed run's; "
+        f"failure to the first resumed step's start {(resumed[0] - marks['fail']) * 1e3:.1f} ms (the "
+        f"in-flight save joined by {(marks['restore'] - marks['fail']) * 1e3:.1f} ms, the restore "
+        f"{(marks['restored'] - marks['restore']) * 1e3:.1f} ms), to its end "
+        f"{(resumed[1] - marks['fail']) * 1e3:.1f} ms; save calls (step, ms: the async one returns "
+        f"after its D2H snapshot, the final one blocks until committed) "
+        f"{[(s, round(t * 1e3, 1)) for s, t in marks['saves']]}; the driver's run "
+        f"{e['seconds']:.1f} s ({lap():.1f} s)")
+    del e, saved, restored
+
+    # (f) the training forward through the flash kernel, gradients off
+    pcfg = dataclasses.replace(tcfg, attn_impl="pallas")
+    params, _ = st.init_train_state(tcfg, SEED, "cuda")
+    batch = train_batch(tcfg, 0)
+    wrappers = serving_kernels()
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.no_grad():
+        logits, _ = transformer.forward_train(pcfg, params, batch)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    with torch.no_grad():
+        ref_logits, _ = transformer.forward_train(tcfg, params, batch)
+    rel = (max_err(logits, ref_logits) / ref_logits.float().abs().max().item())
+    log(f"  (f) forward_train under pallas, gradients off: launches {launches}; logits vs the xla "
+        f"path's: max |diff| / max |logit| = {rel:.3e} (bound {LOGIT_RTOL})")
+    if launches["flash_attention"] != tcfg.n_layers:
+        raise SystemExit(f"(f) flash_attention launched {launches['flash_attention']} times, not "
+                         f"{tcfg.n_layers}")
+    if rel > LOGIT_RTOL:
+        raise SystemExit("(f) the kernel path's logits are too far from the plain path's")
+    try:
+        st.make_grad_step(pcfg)(params, batch)
+    except NotImplementedError as err:
+        log(f"  (f) with gradients on the step raises: {err}")
+    else:
+        raise SystemExit("(f) a gradient step through the forward-only flash kernel did not raise")
+    del params, logits, ref_logits
+    q, k, v = flash_inputs(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, tcfg.n_heads, tcfg.n_kv_heads,
+                           tcfg.head_dim)
+    err = check_close(f"flash_attention at the training shape {tuple(q.shape)}",
+                      flash_attention(q, k, v), attention_ref(q, k, v))
+    log(f"  phase 6 done in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches["flash_attention"], "err": err}
+
+
 def check_mlp_chain(x, w_up, w_down, y, margin: float = 1.1) -> None:
     """The two-product chain against float64 (no intermediate rounding):
     the kernel's chain must be as close to it as the plain chain, within
@@ -1139,7 +1533,8 @@ def host_cost(cfg) -> None:
     log("  host time per call (enqueue only, us): " + ", ".join(f"{n} {c:.1f}" for n, c in costs.items()))
 
 
-def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict, sweep: list) -> list:
+def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict, sweep: list,
+                train: dict) -> list:
     from repro_torch.core.refspec import PrefetchSpec
     from repro_torch.kernels.rglru_scan import linear_recurrence, linear_recurrence_ref
     from repro_torch.kernels.streamed_matmul import matmul_ref, streamed_matmul
@@ -1153,6 +1548,9 @@ def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict, sweep: l
                   launches["flash_attention"], errs["flash_attention"], flush),
         flash_row(hyb, BATCH, HYB_PROMPT, hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim, hcfg.window,
                   hlaunches["flash_attention"], errs["flash_attention_256"], flush),
+        # phase 6 (f)'s training forward, gradients off
+        flash_row(f"{smol} train", TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                  0, train["launches"], train["err"], flush),
         # one decode step: per-slot lengths; the hybrid's full 2048-slot rings
         decode_row(smol, PROMPT + GEN, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                    [PROMPT + GEN, 300, 77, 1], launches["decode_attention"], errs["decode_attention"],
@@ -1263,7 +1661,8 @@ def main() -> int:
     phase_check(hcfg, hres, HYB_PROMPT, "3b")
     del hres
     launches["streamed_matmul"], sweep = phase_paper(cfg)
-    rows = phase_times(cfg, hcfg, errs, launches, hlaunches, sweep)
+    train = phase_train(cfg)
+    rows = phase_times(cfg, hcfg, errs, launches, hlaunches, sweep, train)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -14,6 +14,13 @@ The streamed-weight path carries its weights as a plan home
 leaf.  A ``disk_host`` home needs no conversion: both packages write the same
 spill chunks under the same ``wp/<group key>`` keys, so either package's plan
 reads the other's (``store.get(plan.spill_key(g))``).
+
+The AdamW state goes the same way: :func:`opt_state_from_numpy` builds the
+port's device state (tensors) or host state (numpy, the streamed
+optimizer's home) from the JAX package's, leaf for leaf, and
+:func:`tree_to_numpy` turns any port tree back into numpy (bf16 as
+``uint16`` under :class:`BF16HostArray`), the form the checkpoint tests hold
+against the JAX package's.
 """
 from __future__ import annotations
 
@@ -23,7 +30,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.arrays import BF16HostArray
+from repro_torch.core import tree as tr
+from repro_torch.core.arrays import BF16HostArray, host_array
+from repro_torch.core.spillstore import is_disk_leaf
 from repro_torch.device import DeviceLike, generator, resolve_device
 from repro_torch.models.layers import ParamTree
 from repro_torch.models.transformer import init_model
@@ -86,3 +95,33 @@ def home_from_numpy(home: Mapping) -> dict:
         return {k: conv(v) if isinstance(v, Mapping) else _host_leaf(v) for k, v in tree.items()}
 
     return {"groups": conv(home["groups"])}
+
+
+def opt_state_from_numpy(tree: Mapping, device: DeviceLike = None, *, host: bool = False) -> dict:
+    """The port's AdamW state from the JAX package's (``adamw_init`` /
+    ``host_opt_state``: ``{"leaves": {... {"master", "m", "v"}}, "step"}``
+    with numpy leaves).  ``host=False``: tensors on ``device`` (the card
+    unless ``"cpu"``), as the device-resident train step holds them;
+    ``host=True``: numpy copies, as the streamed updater's home (spill-store
+    views stay views: the chunks are shared)."""
+    if host:
+        def conv(t):
+            if isinstance(t, Mapping):
+                return {k: conv(v) for k, v in t.items()}
+            return t if is_disk_leaf(t) else _host_leaf(t)
+
+        return {"leaves": conv(tree["leaves"]), "step": np.array(tree["step"], np.int32)}
+    dev = resolve_device(device)
+    return {"leaves": tr.tree_map(lambda a: tensor_from_numpy(a).to(dev), dict(tree["leaves"])),
+            "step": tensor_from_numpy(np.asarray(tree["step"], np.int32)).to(dev)}
+
+
+def tree_to_numpy(tree):
+    """A port tree (tensors on any device, or numpy) as numpy copies: the
+    inverse of :func:`opt_state_from_numpy` and :func:`params_from_numpy`."""
+    def conv(x):
+        if isinstance(x, torch.Tensor):
+            return host_array(x.detach().cpu().clone())
+        return _host_leaf(np.asarray(x)) if not isinstance(x, BF16HostArray) else x.copy()
+
+    return tr.tree_map(conv, tree.as_dict() if isinstance(tree, ParamTree) else tree)

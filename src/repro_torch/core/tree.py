@@ -8,7 +8,7 @@ so it must be the JAX package's for the two to agree byte for byte.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 __all__ = ["flatten", "unflatten", "leaves", "tree_map", "structure"]
 
@@ -26,18 +26,19 @@ def _children(node: Any):
     return None, None
 
 
-def _walk(node: Any, out: list) -> Any:
-    kind, kids = _children(node)
+def _walk(node: Any, out: list, is_leaf: Optional[Callable[[Any], bool]]) -> Any:
+    kind, kids = (None, None) if is_leaf is not None and is_leaf(node) else _children(node)
     if kind is None:
         out.append(node)
         return "*"
-    return (kind, tuple(_walk(k, out) for k in kids))
+    return (kind, tuple(_walk(k, out, is_leaf) for k in kids))
 
 
-def flatten(tree: Any) -> tuple[list, Any]:
-    """``(leaves, treedef)``; ``unflatten(treedef, leaves)`` rebuilds it."""
+def flatten(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None) -> tuple[list, Any]:
+    """``(leaves, treedef)``; ``unflatten(treedef, leaves)`` rebuilds it.
+    ``is_leaf`` stops the walk at the nodes it accepts (as ``jax.tree``'s)."""
     out: list = []
-    return out, _walk(tree, out)
+    return out, _walk(tree, out, is_leaf)
 
 
 def _build(d: Any, it) -> Any:

@@ -14,8 +14,9 @@ Cache layout (the JAX package's):
   shared across the batch, so a ring decodes with one scalar position.
 
 ``cfg.attn_impl == "pallas"`` (the JAX name of the kernel path) routes
-prefill through the flash-attention kernel (with the window) and decode
-through the decode-attention kernel.  Over a ring the valid slots are
+prefill (and a training forward without gradients) through the
+flash-attention kernel (with the window) and decode through the
+decode-attention kernel.  Over a ring the valid slots are
 always the prefix ``[0, min(pos + 1, W))`` and softmax does not depend on
 the order of the keys, so decode takes ``lengths = min(pos + 1, W)``.
 ``attn_impl="chunked"`` is not ported yet.
@@ -140,6 +141,32 @@ def _out_proj(p: Params, out: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # modes
 # ---------------------------------------------------------------------------
+
+def attention_train(
+    cfg: ModelConfig, p: Params, x: torch.Tensor, angles: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """Full-sequence causal attention (training / scoring).  As in the JAX
+    package, only ``swa`` configs band it (the hybrid's training attention is
+    full causal).  Under ``attn_impl="pallas"`` with no window it runs the
+    flash kernel, which is forward-only (the reference's cannot be
+    differentiated either): with gradients on it raises."""
+    _check_impl(cfg)
+    q, k, v = _project_qkv(cfg, p, x)
+    if angles is not None:
+        q = rope.apply_rope(q, angles)
+        k = rope.apply_rope(k, angles)
+    window = cfg.window if cfg.attn_type == "swa" else 0
+    if cfg.attn_impl == "pallas" and window == 0:
+        if torch.is_grad_enabled() and q.requires_grad:
+            raise NotImplementedError(
+                "attn_impl='pallas' runs the forward-only flash kernel; train with "
+                "attn_impl='xla' (the JAX package cannot differentiate its flash kernel either)"
+            )
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    else:
+        out = _gqa_attend(cfg, q, k, v, causal_mask(x.shape[1], window, device=x.device))
+    return _out_proj(p, out, x.dtype)
+
 
 def attention_prefill(
     cfg: ModelConfig,

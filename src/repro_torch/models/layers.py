@@ -24,7 +24,8 @@ class ParamTree(nn.Module):
 
     Indexable like the JAX package's param dicts (``p["attn"]["wq"]``,
     ``"mlp" in p``), so the apply functions take either this or a plain
-    dict.  Parameters are frozen: the port serves, it does not train yet.
+    dict.  Parameters are frozen: training differentiates the tensors of
+    :meth:`as_dict` (``train/steps.py``).
     """
 
     def __init__(self, tree: Mapping) -> None:

@@ -1,5 +1,5 @@
 """Model assembly: the uniform decoder stack and the recurrentgemma hybrid,
-for serving.
+for training and serving.
 
 Pre-norm residual blocks.  Parameters live in a
 :class:`~repro_torch.models.layers.ParamTree` whose names follow the JAX
@@ -17,20 +17,29 @@ The JAX package's ``scan`` over layers or periods becomes a Python loop over
 :func:`layer_slots`, in layer order; the caches follow the same tree.
 
 Modes:
-  ``prefill``      — full-sequence forward + populated caches.
-  ``decode_step``  — one token against the caches (scalar or per-slot pos;
-                     ring and recurrent caches take a scalar).
+  ``forward_train`` — full-sequence; returns logits (+ the MoE aux loss, 0
+                      here); ``lm_loss`` adds the seq-chunked CE.
+  ``prefill``       — full-sequence forward + populated caches.
+  ``decode_step``   — one token against the caches (scalar or per-slot pos;
+                      ring and recurrent caches take a scalar).
+
+All three run one layer body (:func:`_layer`); they differ only in the
+token mixer (attention over the prompt, a cache, or the whole sequence; the
+recurrence with or without a carried state).
 
 xLSTM stacks, MoE, audio codebooks, the vision prefix, M-RoPE and
 sinusoidal positions are not ported yet (ROADMAP.md, queue 1 item 7).
 """
 from __future__ import annotations
 
-from typing import Iterator, Optional, Union
+import functools
+from typing import Callable, Iterator, Optional, Union
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import tree as tr
 from repro_torch.models import attention, layers, rglru, rope
 from repro_torch.models.layers import ParamTree, Params
 
@@ -164,11 +173,7 @@ def _at(tree, path: tuple, j: Optional[int]):
     land in the stacked tensors."""
     for key in path:
         tree = tree[key]
-    if j is None:
-        return tree
-    if isinstance(tree, ParamTree):
-        return tree.index(j)
-    return {k: v[j] for k, v in tree.items()}
+    return tree if j is None else _index(tree, j)
 
 
 # ---------------------------------------------------------------------------
@@ -225,31 +230,179 @@ def _store(cache: dict, state: dict) -> None:
         cache[k].copy_(v)
 
 
+def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+           mix: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """The layer body every pass runs: the pre-norm token mixer ``mix``
+    (attention or the recurrence, on the normed input) plus residual, then
+    the pre-norm MLP plus residual."""
+    return _mlp(cfg, p, x + mix(layers.norm_apply(p["ln1"], x, cfg.norm_type)))
+
+
+def _layer_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+                 angles: Optional[torch.Tensor]) -> torch.Tensor:
+    """One layer of the training forward (the JAX package's ``_block_train``
+    / ``_hetero_block_train``): no cache; the recurrence starts from zero
+    and runs the plain scan, as the JAX package's ``use_kernel=False``."""
+    if kind == "rec":
+        return _layer(cfg, p, x, lambda h: rglru.rglru_block_train(cfg, p["rec"], h)[0])
+    return _layer(cfg, p, x, lambda h: attention.attention_train(cfg, p["attn"], h, angles))
+
+
 def _layer_prefill(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch.Tensor,
                    angles: Optional[torch.Tensor]) -> torch.Tensor:
     """One layer's prefill: the body that :func:`prefill` and
     :func:`block_group_prefill` share.  Fills ``cache`` in place."""
-    h = layers.norm_apply(p["ln1"], x, cfg.norm_type)
-    if kind == "rec":
-        h, state = rglru.rglru_block_train(cfg, p["rec"], h, cache,
-                                           use_kernel=cfg.attn_impl == "pallas")
-        _store(cache, state)
-    else:
-        h, _ = attention.attention_prefill(cfg, p["attn"], h, angles, cache)
-    return _mlp(cfg, p, x + h)
+    def mix(h):
+        if kind == "rec":
+            h, state = rglru.rglru_block_train(cfg, p["rec"], h, cache,
+                                               use_kernel=cfg.attn_impl == "pallas")
+            _store(cache, state)
+            return h
+        return attention.attention_prefill(cfg, p["attn"], h, angles, cache)[0]
+
+    return _layer(cfg, p, x, mix)
 
 
 def _layer_decode(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch.Tensor,
                   angles: Optional[torch.Tensor], pos) -> torch.Tensor:
     """One layer's decode step: the body that :func:`decode_step` and
     :func:`block_group_decode` share.  Updates ``cache`` in place."""
-    h = layers.norm_apply(p["ln1"], x, cfg.norm_type)
-    if kind == "rec":
-        h, state = rglru.rglru_block_step(cfg, p["rec"], h, cache)
-        _store(cache, state)
-    else:
-        h, _ = attention.attention_decode(cfg, p["attn"], h, angles, cache, pos)
-    return _mlp(cfg, p, x + h)
+    def mix(h):
+        if kind == "rec":
+            h, state = rglru.rglru_block_step(cfg, p["rec"], h, cache)
+            _store(cache, state)
+            return h
+        return attention.attention_decode(cfg, p["attn"], h, angles, cache, pos)[0]
+
+    return _layer(cfg, p, x, mix)
+
+
+# ---------------------------------------------------------------------------
+# training forward and loss
+# ---------------------------------------------------------------------------
+
+#: what ``remat="dots"`` keeps from the forward (the JAX package's
+#: ``dots_with_no_batch_dims_saveable``: the matmul outputs); everything else
+#: is recomputed in the backward
+_DOTS = frozenset({
+    torch.ops.aten.mm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default,
+})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``fn`` under the config's rematerialization: ``"none"`` keeps every
+    activation, ``"full"`` recomputes the layer in the backward
+    (``torch.utils.checkpoint``), ``"dots"`` recomputes all but the matmuls
+    (a selective checkpoint)."""
+    if cfg.remat == "none":
+        return fn
+    kw: dict = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    return lambda *args: ckpt.checkpoint(fn, *args, **kw)
+
+
+def _unbind(tree) -> list:
+    """The entries of a stacked (layer-axis) parameter subtree, as views:
+    one ``unbind`` per leaf, whose backward stacks the layers' gradients in
+    one op (per-layer indexing would add a full-size zero gradient per
+    layer)."""
+    flat, treedef = tr.flatten(tree)
+    cols = [torch.unbind(x) for x in flat]
+    return [tr.unflatten(treedef, [c[j] for c in cols]) for j in range(len(cols[0]))]
+
+
+def _plain(params) -> dict:
+    return params.as_dict() if isinstance(params, ParamTree) else params
+
+
+def forward_hidden(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Trunk only: pre-head hidden states (B, S, D) and the MoE aux loss (a
+    0-d f32 zero: the MoE layers are not ported).  Each layer runs under
+    :func:`_remat`."""
+    check_supported(cfg)
+    params = _plain(params)
+    x = _embed(cfg, params, batch)
+    angles = _angles(cfg, x.shape[1], device=x.device)
+    stacked: dict = {}
+    for kind, path, j in layer_slots(cfg):
+        if j is None:
+            p = _at(params["blocks"], path, None)
+        else:
+            if path not in stacked:
+                stacked[path] = _unbind(_at(params["blocks"], path, None))
+            p = stacked[path][j]
+        x = _remat(cfg, functools.partial(_layer_train, cfg, kind))(p, x, angles)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_train(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V), moe_aux_loss)."""
+    x, aux = forward_hidden(cfg, params, batch)
+    return _head(cfg, _plain(params), x), aux
+
+
+IGNORE_INDEX = -100
+
+
+def cross_entropy_sum(logits: torch.Tensor, targets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sum-form CE over non-ignored targets (for chunked accumulation):
+    (f32 sum of the NLL, int32 count of valid targets).  The gold logit is a
+    gather, the value of the JAX package's iota-compare masked sum."""
+    lf = logits.to(torch.float32)
+    valid = targets != IGNORE_INDEX
+    tgt = torch.where(valid, targets, 0).to(torch.int64)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, tgt[..., None])[..., 0]
+    return torch.sum((lse - gold) * valid), torch.sum(valid).to(torch.int32)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over non-ignored targets.  Returns (loss, n_valid)."""
+    total, n = cross_entropy_sum(logits, targets)
+    n = torch.clamp(n, min=1)
+    return total / n, n
+
+
+def lm_loss(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+    """``(loss, {"ce", "aux", "n_tokens"})`` of next-token prediction.
+
+    With ``cfg.loss_chunk`` dividing the sequence (and shorter than it) the
+    CE runs chunk by chunk along the sequence, each chunk's head and CE
+    under a checkpoint, so the (B, S, V) logits never exist whole: the JAX
+    package's seq-chunked loss, its chunks summed in the same order."""
+    targets = batch["targets"]
+    s = targets.shape[-1]
+    c = cfg.loss_chunk
+    if not c or s <= c or s % c != 0:
+        logits, aux = forward_train(cfg, params, batch)
+        ce, n = cross_entropy(logits, targets)
+        return ce + aux, {"ce": ce, "aux": aux, "n_tokens": n}
+
+    params = _plain(params)
+    x, aux = forward_hidden(cfg, params, batch)
+
+    def chunk(xc, tc):
+        return cross_entropy_sum(_head(cfg, params, xc), tc)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.int32, device=x.device)
+    for i in range(s // c):
+        nll, nv = ckpt.checkpoint(chunk, x[:, i * c:(i + 1) * c], targets[..., i * c:(i + 1) * c],
+                                  use_reentrant=False, preserve_rng_state=False)
+        tot = tot + nll
+        n = n + nv
+    n = torch.clamp(n, min=1)
+    ce = tot / n
+    return ce + aux, {"ce": ce, "aux": aux, "n_tokens": n}
 
 
 def prefill(cfg: ModelConfig, params: ParamTree, batch: dict, caches: dict,

@@ -1,30 +1,319 @@
-"""Step builders for serving: prefill and decode, plus parameter and cache
+"""Step builders: train, prefill and decode, plus parameter, state and cache
 setup.
 
-Counterparts of the JAX package's ``make_prefill_step`` /
-``make_decode_step`` / ``make_paged_decode_step`` and its streamed-weight
-serving steps (``repro/train/steps.py``).  PyTorch runs eagerly, so a
-"step" is a plain closure; there is nothing to trace or compile.  The
-training steps, the streamed train step and the group-wise parameter init
-follow with training (ROADMAP.md, queue 1 item 6).
+Counterparts of the JAX package's ``repro/train/steps.py``.  PyTorch runs
+eagerly, so a "step" is a plain closure; there is nothing to trace or
+compile.
+
+The streamed-optimizer path (``make_streamed_opt_updater`` /
+``make_streamed_train_step``) is the paper's flagship pattern applied to the
+largest state group of training: the AdamW moments and f32 master live at
+the host kind (numpy) between steps, or past a host budget as spill-store
+chunks at the disk tier, and stream through the
+:class:`~repro_torch.core.engine.TransferEngine` group by group during the
+update: one coalesced H2D request a group, the ``rw`` writeback pipelined
+off the compute path, the prefetch distance adaptive under
+``PrefetchSpec(distance="auto")``.  Every leaf runs the same eager update as
+the device-resident step, so the two give the same bits.
+
+The streamed-weight *training* step and the group-wise parameter init
+follow (ROADMAP.md, queue 1 item 6).
 """
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import tree as tr
+from repro_torch.core.arrays import host_array
 from repro_torch.core.engine import TransferEngine
 from repro_torch.core.hoststream import HostStreamExecutor, StreamStats
 from repro_torch.core.kvpager import assemble_view, paged_cache_supported  # noqa: F401 (re-exported)
 from repro_torch.core.refspec import AUTO, PrefetchSpec
 from repro_torch.core.residency import ResidencyCache
 from repro_torch.core.weightstream import WeightStreamPlan
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.device import generator as make_generator
 from repro_torch.models import transformer
 from repro_torch.models.layers import ParamTree
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    adamw_globals,
+    adamw_init,
+    adamw_leaf_update,
+    adamw_update,
+    is_state_leaf,
+)
+
+Pytree = Any
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def _value_and_grad(cfg: ModelConfig, params: Pytree, batch: dict):
+    """``(loss, aux, grads)`` of ``transformer.lm_loss`` at ``params`` (the
+    JAX package's ``jax.value_and_grad(lm_loss, argnums=1, has_aux=True)``):
+    the leaves are detached and differentiated as fresh leaves, so the
+    caller's tensors never carry autograd state."""
+    flat, treedef = tr.flatten(params.as_dict() if isinstance(params, ParamTree) else params)
+    leaves = [p.detach().requires_grad_(True) for p in flat]
+    with torch.enable_grad():
+        loss, aux = transformer.lm_loss(cfg, tr.unflatten(treedef, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    aux = {k: v.detach() for k, v in aux.items()}
+    return loss.detach(), aux, tr.unflatten(treedef, list(grads))
+
+
+def make_grad_step(cfg: ModelConfig) -> Callable[[Pytree, dict], tuple[torch.Tensor, dict, Pytree]]:
+    """``(params, batch) -> (loss, aux, grads)`` — the forward/backward half
+    of the train step, split out so the optimizer half can run through the
+    host-streaming engine."""
+
+    def grad_step(params, batch):
+        return _value_and_grad(cfg, params, batch)
+
+    return grad_step
+
+
+def make_train_step(
+    cfg: ModelConfig, opt_cfg: AdamWConfig
+) -> Callable[[Pytree, dict, dict], tuple[Pytree, dict, dict]]:
+    """``(params, opt_state, batch) -> (params, opt_state, metrics)``."""
+    grad_step = make_grad_step(cfg)
+
+    def train_step(params, opt_state, batch):
+        loss, aux, grads = grad_step(params, batch)
+        new_params, new_opt, om = adamw_update(
+            opt_cfg, grads, opt_state, compute_dtype=cfg.compute_dtype
+        )
+        return new_params, new_opt, {"loss": loss, **aux, **om}
+
+    return train_step
+
+
+def init_train_state(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None, *,
+                     host_opt: bool = False) -> tuple[dict, dict]:
+    """(compute-dtype params, AdamW state with the f32 master) for a fresh
+    run, drawn from ``seed`` on ``device`` (the card unless ``"cpu"``;
+    ``"meta"`` gives shapes only).  Plain nested dicts of tensors; with
+    ``host_opt`` the state is :func:`host_opt_state`'s numpy home of the
+    same f32 parameters."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    gen = make_generator(seed, dev if dev.type != "meta" else None)
+    params_f32 = transformer.init_model(cfg, gen, dev).as_dict()
+    opt_state = host_opt_state(params_f32) if host_opt else adamw_init(params_f32)
+    params = tr.tree_map(lambda p: p.to(cfg.compute_dtype), params_f32)
+    return params, opt_state
+
+
+def abstract_train_state(cfg: ModelConfig) -> tuple[dict, dict]:
+    """(params, opt_state) on the meta device: shapes and dtypes, no
+    allocation."""
+    return init_train_state(cfg, 0, "meta")
+
+
+# ---------------------------------------------------------------------------
+# streamed optimizer update (host-resident AdamW state, paper 'rw' streaming)
+# ---------------------------------------------------------------------------
+
+
+def _to_host(x):
+    """A numpy copy of a concrete tensor (a meta tensor, a restore template,
+    passes through)."""
+    if isinstance(x, torch.Tensor):
+        return x if x.is_meta else host_array(x.detach().cpu().clone())
+    return x
+
+
+def host_opt_state(params: Pytree) -> dict:
+    """Fresh AdamW state resident at the host kind (numpy leaves): the home
+    representation the streamed updater maintains, so the moments never
+    hold device memory between steps.  Built from the f32 parameters, its
+    master is the device-resident state's."""
+    dev = adamw_init(params)
+    return {"leaves": tr.tree_map(_to_host, dev["leaves"]), "step": _to_host(dev["step"])}
+
+
+def _group_bounds(n: int, n_groups: int) -> np.ndarray:
+    """Contiguous leaf-group boundaries — shared by the streamed updater and
+    the spill partitioner so both see the same groups."""
+    return np.linspace(0, n, min(n_groups, n) + 1).astype(int)
+
+
+def _opt_group_key(i: int) -> str:
+    """The spill key of optimizer group ``i`` (the JAX package's, so either
+    package reads the other's chunks)."""
+    return f"opt_g{i:04d}"
+
+
+def spill_opt_state(
+    host_state: dict,
+    store,
+    *,
+    n_groups: int = 4,
+    host_budget_bytes: Optional[int] = None,
+) -> dict:
+    """Move trailing moment groups to the ``DiskHost`` tier under a host-RAM
+    budget.
+
+    Groups (the same contiguous leaf groups the streamed updater transfers)
+    are kept in host RAM front to back while they fit ``host_budget_bytes``;
+    the rest are written to ``store`` (one chunk per group — one disk
+    request per group when streamed) and replaced by memory-mapped views.
+    ``host_budget_bytes=None`` or 0 spills everything.  A state whose leaves
+    are not all numpy (a meta template) passes through untouched."""
+    flat_s, treedef = tr.flatten(host_state["leaves"], is_leaf=is_state_leaf)
+    if not all(isinstance(v, np.ndarray) for s in flat_s for v in tr.leaves(s)):
+        return host_state
+    bounds = _group_bounds(len(flat_s), n_groups)
+    budget = host_budget_bytes or 0
+    used = 0
+    out: list = []
+    for i in range(len(bounds) - 1):
+        chunk = tuple(flat_s[bounds[i] : bounds[i + 1]])
+        nbytes = sum(v.nbytes for s in chunk for v in tr.leaves(s))
+        if used + nbytes <= budget:
+            used += nbytes
+            out.extend(chunk)
+        else:
+            store.put(_opt_group_key(i), chunk)
+            out.extend(store.get(_opt_group_key(i)))
+    return {"leaves": tr.unflatten(treedef, out), "step": host_state["step"]}
+
+
+def make_streamed_opt_updater(
+    opt_cfg: AdamWConfig,
+    *,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    n_groups: int = 4,
+    prefetch: Optional[PrefetchSpec] = None,
+    mode: str = "prefetch",
+    engine: Optional[TransferEngine] = None,
+    spill_store=None,
+    device: DeviceLike = None,
+) -> Callable[..., tuple[Pytree, dict, dict]]:
+    """Build ``update(grads, host_state, stats=None) -> (new_params,
+    new_host_state, metrics)`` with host-resident optimizer state.
+
+    Parameter leaves are partitioned into ``n_groups`` contiguous groups.
+    Per group, the state leaves stream H2D through the engine (coalesced:
+    one request per group) while the previous group's update computes; the
+    gradients are already on the device and pass through by reference.  The
+    new moments stream back D2H (``rw`` writeback, keys ``opt/<i>``) and
+    come home as numpy; the new master-derived params stay on the device.
+    The math is :func:`repro_torch.optim.adamw.adamw_update`'s (the same
+    leaf function and globals), so the result is its bits.
+
+    Groups whose ``host_state`` leaves live at the ``DiskHost`` tier
+    (memory-mapped spill-store chunks, :func:`spill_opt_state`) stream in
+    through the engine's two-stage disk -> host -> device pipeline, and
+    their updated moments are written back to ``spill_store`` after the
+    drain.  The engine stages onto ``device`` (the card unless ``"cpu"``)
+    unless one is passed.
+    """
+    prefetch = prefetch or PrefetchSpec(buffer_size=n_groups, distance=1)
+    executor_box: list = []  # built at the first update
+    new_params_box: list = []
+
+    def apply(glob, group):
+        out = [adamw_leaf_update(opt_cfg, glob, g, s) for g, s in zip(group["g"], group["s"])]
+        new_params_box.append(tuple(p.to(compute_dtype) for p, _ in out))
+        return glob, tuple(s for _, s in out)
+
+    def executor() -> HostStreamExecutor:
+        if not executor_box:
+            executor_box.append(HostStreamExecutor(apply, writeback=True, engine=engine,
+                                                   device=None if engine else device))
+        return executor_box[0]
+
+    def update(grads, host_state, stats: Optional[StreamStats] = None):
+        from repro_torch.core.spillstore import is_disk_leaf
+
+        ex = executor()
+        new_params_box.clear()
+        flat_g, treedef = tr.flatten(grads)
+        step = torch.tensor(int(host_state["step"]) + 1, dtype=torch.int32,
+                            device=flat_g[0].device)
+        glob = adamw_globals(opt_cfg, grads, step)
+        flat_s = tr.flatten(host_state["leaves"], is_leaf=is_state_leaf)[0]
+        bounds = _group_bounds(len(flat_g), n_groups)
+        groups = [
+            {"g": tuple(flat_g[bounds[i] : bounds[i + 1]]),
+             "s": tuple(flat_s[bounds[i] : bounds[i + 1]])}
+            for i in range(len(bounds) - 1)
+        ]
+        _, state_outs = ex.run(
+            glob, groups, mode=mode, prefetch=prefetch, stats=stats,
+            group_keys=[f"opt/{i}" for i in range(len(groups))],
+        )
+        state_outs = [tr.tree_map(host_array, out) for out in state_outs]
+        # disk-homed groups go back to their home tier: write the updated
+        # moments to the spill store and keep only the memmap views
+        for i, grp in enumerate(groups):
+            if any(is_disk_leaf(v) for s in grp["s"] for v in tr.leaves(s)):
+                if spill_store is None:
+                    raise RuntimeError(
+                        "optimizer state group streamed from the DiskHost tier but no "
+                        "spill_store was given to write it back"
+                    )
+                spill_store.put(_opt_group_key(i), state_outs[i])
+                state_outs[i] = spill_store.get(_opt_group_key(i))
+        new_params = tr.unflatten(treedef, [p for chunk in new_params_box for p in chunk])
+        new_state = {
+            "leaves": tr.unflatten(treedef, [s for chunk in state_outs for s in chunk]),
+            "step": np.asarray(int(step), np.int32),
+        }
+        new_params_box.clear()
+        return new_params, new_state, {"grad_norm": glob["grad_norm"], "lr": glob["lr"]}
+
+    update.close = lambda: executor_box and executor_box[0].close()  # type: ignore[attr-defined]
+    return update
+
+
+def make_streamed_train_step(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig,
+    *,
+    n_groups: int = 4,
+    prefetch: Optional[PrefetchSpec] = None,
+    engine: Optional[TransferEngine] = None,
+    stats: Optional[StreamStats] = None,
+    spill_store=None,
+    device: DeviceLike = None,
+) -> Callable[[dict, dict], tuple[dict, dict]]:
+    """``(state, batch) -> (state, metrics)`` with a host-resident optimizer.
+
+    ``state = {"params": device tree, "opt": host_opt_state(...)}``.  The
+    forward/backward half runs on the device; the AdamW half streams the
+    host-kind moments through the transfer engine
+    (:func:`make_streamed_opt_updater`).  With ``spill_store``, moment
+    groups spilled to the ``DiskHost`` tier (:func:`spill_opt_state`) stream
+    disk -> host -> device and write back to disk."""
+    grad_fn = make_grad_step(cfg)
+    updater = make_streamed_opt_updater(
+        opt_cfg, compute_dtype=cfg.compute_dtype, n_groups=n_groups, prefetch=prefetch,
+        engine=engine, spill_store=spill_store, device=device,
+    )
+
+    def step_fn(state, batch):
+        loss, aux, grads = grad_fn(state["params"], batch)
+        new_params, new_opt, om = updater(grads, state["opt"], stats=stats)
+        return {"params": new_params, "opt": new_opt}, {"loss": loss, **aux, **om}
+
+    step_fn.close = updater.close  # type: ignore[attr-defined]
+    return step_fn
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 
 def make_prefill_step(
