@@ -1,8 +1,11 @@
 """Shared benchmark utilities: the paper's ML workload, timing, reporting."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
+import subprocess
 import time
 from pathlib import Path
 from typing import Any, Callable
@@ -39,6 +42,43 @@ def timed(fn: Callable[[], Any], *, repeats: int = 3, warmup: int = 1, stats: An
         ts.append(time.perf_counter() - t0)
     return {"median_s": float(np.median(ts)), "min_s": min(ts), "max_s": max(ts),
             "repeats": repeats}
+
+
+def smi_index(device: torch.device) -> str:
+    """``nvidia-smi``'s index of a CUDA device: the entry of
+    ``CUDA_VISIBLE_DEVICES`` that torch's index names, where that is set."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")
+    return visible[idx].strip() if idx < len(visible) and visible[idx].strip().isdigit() else str(idx)
+
+
+def card_label(device: torch.device) -> str:
+    """Where a table was measured: the card's name and power limit as
+    ``nvidia-smi`` gives them (raises when it is missing), or ``cpu``."""
+    if device.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         "-i", smi_index(device)],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def one_cpu_thread(device: torch.device):
+    """On the CPU, torch's intra-op pool at one thread for the block (restored
+    after), as XLA runs a small product: a modeled-link study's groups are
+    64 x 64, and beside other busy processes a pool's threads wait on each
+    other longer than the link the study models."""
+    if device.type != "cpu":
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def save_rows(name: str, rows: list[dict]) -> Path:

@@ -6,8 +6,10 @@ The JAX package's ``benchmarks/recovery.py`` on the port's engine, spill
 store and driver.  Six gates, the first on the deterministic modeled link:
 
   * **clean-path overhead**: enabling the transient-retry budget
-    (``max_attempts=3``) on a fault-free streamed run adds <= 1% to the
-    median compute-thread transfer wait vs the fail-fast engine;
+    (``max_attempts=3``) on a fault-free streamed run adds <= 1% (+ 2 ms)
+    to the compute-thread transfer wait vs the fail-fast engine, each side's
+    minimum over ``REPEATS`` interleaved runs (the row keeps the medians
+    beside);
   * **transient H2D fault** and **transient disk-staging fault**: one
     injected fault each; the run completes **bitwise-equal** to the
     unfaulted values with retry counters equal to the injected count;
@@ -43,7 +45,10 @@ from repro_torch.device import DeviceLike, resolve_device
 SMOKE = bool(int(os.environ.get("REPRO_BENCH_SMOKE", "0")))
 
 N_GROUPS = 12 if SMOKE else 24
-REPEATS = 3 if SMOKE else 5
+#: interleaved fail-fast / retry-enabled runs of the clean-overhead gate: a
+#: run costs ~10 ms, and on a loaded host a minimum needs a few dozen runs
+#: before each side has one that nothing preempted
+REPEATS = 20 if SMOKE else 30
 GROUP_SHAPE = (64, 64)
 
 HOST_LINK = LinkModel(request_s=0.1e-3, bandwidth_Bps=500e6, latency_s=0.0)
@@ -57,7 +62,10 @@ CRC_RECOVER_GATE_S = 5.0
 RESTART_GATE_S = 5.0
 
 
-def _host_groups(n=N_GROUPS):
+def _host_groups(n=None):
+    """``n`` groups, ``N_GROUPS`` as the module holds it at the call (a
+    caller may shrink the study)."""
+    n = N_GROUPS if n is None else n
     rng = np.random.default_rng(0)
     return [{"w": rng.standard_normal(GROUP_SHAPE).astype(np.float32)} for _ in range(n)]
 
@@ -88,6 +96,9 @@ def _bitwise(outs, groups) -> bool:
 
 
 def bench_clean_overhead(device):
+    """Fail-fast and retry-enabled runs interleaved, ``REPEATS`` of each; the
+    gate reads each side's minimum run total, the least-interference
+    estimate (a preempted thread only ever adds wait)."""
     groups = _host_groups()
     waits = {1: [], 3: []}
     for _ in range(REPEATS):
@@ -95,12 +106,13 @@ def bench_clean_overhead(device):
             st, _ = _run_stream(groups, EngineConfig(link=HOST_LINK, max_attempts=attempts), device)
             assert st.retries == 0 and st.give_ups == 0
             waits[attempts].append(st.transfer_wait_s)
-    base = statistics.median(waits[1])
-    retry = statistics.median(waits[3])
+    base, retry = min(waits[1]), min(waits[3])
     ok = retry <= base * CLEAN_OVERHEAD_RATIO + CLEAN_OVERHEAD_ABS_S
     return {"case": "clean_overhead", "wait_fail_fast_s": base, "wait_retry_enabled_s": retry,
-            "ratio": retry / base if base else 1.0, "gate_ratio": CLEAN_OVERHEAD_RATIO,
-            "retries": 0, "pass": bool(ok)}
+            "wait_fail_fast_median_s": statistics.median(waits[1]),
+            "wait_retry_enabled_median_s": statistics.median(waits[3]),
+            "repeats": REPEATS, "ratio": retry / base if base else 1.0,
+            "gate_ratio": CLEAN_OVERHEAD_RATIO, "retries": 0, "pass": bool(ok)}
 
 
 # ---------------------------------------------------------------------------

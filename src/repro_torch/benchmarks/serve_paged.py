@@ -23,7 +23,8 @@ plus an all-device paged reference run.  Gates:
   * host/disk-homed decode retains less device memory than the full cache.
 
 Writes ``results/torch/BENCH_serve.json``.  Runs on the card unless
-``--device cpu``.
+``--device cpu``, and there on one intra-op thread
+(``common.one_cpu_thread``).
 """
 from __future__ import annotations
 
@@ -105,13 +106,14 @@ def run(device, tag: str = "BENCH_serve") -> list[dict]:
         ("paged", "disk_host", PAGE_LEN, AUTO),
     ]
     rows, gens = [], {}
-    for name, kind, page_len, dist in cases:
-        with TransferEngine(EngineConfig(link=HOST_LINK, disk_link=DISK_LINK),
-                            device=device) as engine:
-            res = sv.serve(cfg, kv_kind=kind, kv_page_len=page_len,
-                           distance=dist if dist != "-" else AUTO, engine=engine, **kw)
-        gens[f"{name}:{kind}:{dist}"] = res["generated"]
-        rows.append(_row(name, kind, dist, res))
+    with C.one_cpu_thread(device):
+        for name, kind, page_len, dist in cases:
+            with TransferEngine(EngineConfig(link=HOST_LINK, disk_link=DISK_LINK),
+                                device=device) as engine:
+                res = sv.serve(cfg, kv_kind=kind, kv_page_len=page_len,
+                               distance=dist if dist != "-" else AUTO, engine=engine, **kw)
+            gens[f"{name}:{kind}:{dist}"] = res["generated"]
+            rows.append(_row(name, kind, dist, res))
 
     C.print_table(
         f"paged KV-cache serving (modeled Epiphany link, {device})",

@@ -335,11 +335,13 @@ def test_recovery_benchmark_gates_pass_on_cpu(monkeypatch, tmp_path):
 
     monkeypatch.setattr(C, "RESULTS_DIR", tmp_path)
     monkeypatch.setattr(recovery, "N_GROUPS", 8)
-    monkeypatch.setattr(recovery, "REPEATS", 2)
     assert recovery.main("cpu") == 0
     rows = {r["case"]: r for r in __import__("json").loads(
         (tmp_path / "BENCH_recovery.json").read_text())}
     assert len(rows) == 6 and rows["driver_restart"]["restarts"] == 1
+    # the clean-overhead gate reads each side's minimum over the module's
+    # own repeats, never a two-sample median
+    assert rows["clean_overhead"]["repeats"] == recovery.REPEATS >= 20
 
 
 def _imports(path: Path) -> set:
@@ -355,6 +357,7 @@ def _imports(path: Path) -> set:
 def test_port_sources_and_chip_smoke_import_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 60
-    bad = {str(f.relative_to(ROOT)): sorted(_imports(f) & {"jax", "jaxlib", "repro", "ml_dtypes"})
+    bad = {str(f.relative_to(ROOT)): sorted(_imports(f) & {"jax", "jaxlib", "repro", "ml_dtypes",
+                                                             "benchmarks"})
            for f in files}
     assert {f: b for f, b in bad.items() if b} == {}
