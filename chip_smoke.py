@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths, the paper's offload path,
-training and the paper's tables on one NVIDIA card.
+training (with the weights on the card and streamed from the host or
+disk) and the paper's tables on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -125,6 +126,23 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    the training shape.  (a)-(e) launch no hand-written kernel, as in the
    JAX package, whose gradient path runs none.  Phase 6 runs after phase 4,
    and phase 5 times its flash shape beside the serving ones.
+6w. train the same model on phase 6's batches through the streamed-weight
+   train step (``make_weight_streamed_train_step``), the weights, gradients
+   and AdamW moments homed off the card under ``device_budget_mb=160``, one
+   layer a group (34 groups), from the group-wise init (no whole model on
+   the card), the schedule analyzed first: (a) the device home, 2 steps,
+   its step-0 loss within 2e-2 of phase 6 (a)'s; (b) pinned host, 2 steps
+   each at distance 0, 1 and ``auto``; (c) disk (``wp/`` and ``wopt/``
+   chunks, fsync'd), 1 step.  Every home's losses, parameters and moments
+   bitwise (a)'s; each step's H2D, D2H and disk requests and bytes, of the
+   weight passes and of the optimizer pass, the plan's; the peak streamed
+   bytes the plan's window at 0 and 1 (94,373,760 and 114,038,400), within
+   the budget's window at ``auto``, under the analyzed peak and the budget,
+   plus the cached bytes within the budget and the cache; the head's
+   ``ln_f`` the one residency hit a step after the first; each run's step
+   walls, wait, drain, bytes each way and ``max_memory_allocated`` (beside
+   phase 6 (a)'s) logged with the card's name and power limit.  No
+   hand-written kernel runs here, as in phase 6.
 7. the paper's tables and the engine studies at full size, through the
    port's runner (``repro_torch.benchmarks.run.run_suites``), after phase 5:
    ``HwSpec`` H100's ``hbm_bytes`` within 10% of the card's total memory;
@@ -206,6 +224,10 @@ TRAIN_GROUPS, TRAIN_STATE_BYTES = 4, 4_341_853_440  # 12 bytes a parameter
 # phase 6 keeps within ~110 s (the CPU tests hold several disk steps)
 TRAIN_HOST_MB, TRAIN_DISK_STEPS = 2000, 1
 TRAIN_FAIL_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 4, 3, 2
+# phase 6w: phase 6's model and batches through the streamed-weight train step
+# under 160 MB, one layer a group (34 groups); the steps of each run (the disk
+# run's fsync'd writeback of ~5.8 GB costs ~10-20 s a step, so it takes one)
+W_TRAIN_BUDGET_MB, W_TRAIN_GROUPS, W_TRAIN_STEPS, W_TRAIN_DISK_STEPS = 160, 34, 2, 1
 # the JAX package's rglru_scan test shapes (tests/test_rglru_kernel.py)
 LRU_SHAPES = [(2, 128, 256), (1, 64, 128), (3, 100, 130), (2, 8, 512), (1, 256, 64)]
 LRU_TILINGS = [(8, 128), (64, 128), (128, 256)]
@@ -1087,12 +1109,12 @@ def train_cfg(cfg, **kw):
     return dataclasses.replace(cfg, attn_impl="xla", remat="full", loss_chunk=512, **kw)
 
 
-def train_batch(cfg, step: int) -> dict:
+def train_batch(cfg, step: int, device="cuda") -> dict:
     """The launcher's batch for ``step``, on the card."""
     from repro_torch.data import SyntheticConfig, synthetic_batch
 
     sc = SyntheticConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
-    return {k: v.cuda() for k, v in synthetic_batch(cfg, sc, step).items()}
+    return {k: v.to(device) for k, v in synthetic_batch(cfg, sc, step).items()}
 
 
 def train_run(cfg, ckpt_dir: Path, *, steps: int = TRAIN_STEPS, run: bool = False,
@@ -1415,7 +1437,270 @@ def phase_train(cfg) -> dict:
     err = check_close(f"flash_attention at the training shape {tuple(q.shape)}",
                       flash_attention(q, k, v), attention_ref(q, k, v))
     log(f"  phase 6 done in {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches["flash_attention"], "err": err}
+    return {"launches": launches["flash_attention"], "err": err,
+            "losses": [loss for _, loss in a["losses"]], "peak": peak}
+
+
+#: the stream counters phase 6w reads around each step
+STREAM_FIELDS = ("h2d_requests", "bytes_h2d", "d2h_requests", "bytes_d2h", "disk_requests",
+                 "unique_group_fetches", "cache_hits", "transfer_wait_s", "writeback_drain_s")
+
+
+def host_bits(tree) -> list:
+    """Every leaf of ``tree`` (tensors anywhere, numpy, spill views) as a
+    flat CPU byte tensor, in leaf order."""
+    from repro_torch.core import tree as tr
+    from repro_torch.core.arrays import host_tensor
+
+    return [host_tensor(x).detach().to("cpu", copy=True).reshape(-1).view(torch.uint8)
+            for x in tr.leaves(tree)]
+
+
+def state_bits(state) -> dict:
+    return {part: {k: host_bits(t) for k, t in state[part]["groups"].items()}
+            for part in ("params", "opt")}
+
+
+def same_state(state, ref: dict) -> bool:
+    """``state``'s parameters and moments bit for bit ``ref``'s (state_bits)."""
+    from repro_torch.core import tree as tr
+    from repro_torch.core.arrays import host_tensor
+
+    for part in ("params", "opt"):
+        for key, leaves in ref[part].items():
+            got = tr.leaves(state[part]["groups"][key])
+            if len(got) != len(leaves):
+                return False
+            for x, want in zip(got, leaves):
+                t = host_tensor(x).detach()
+                if not torch.equal(t.to("cpu").reshape(-1).view(torch.uint8), want):
+                    return False
+    return True
+
+
+def phase_train_streamed(cfg, ref: dict, smi: str, device="cuda",
+                         budget_mb: float = W_TRAIN_BUDGET_MB, groups: int = W_TRAIN_GROUPS,
+                         spill: Path = ROOT / "build" / "spill-6w") -> None:
+    """Phase 6w: phase 6's model and batches through the streamed-weight train
+    step, the weights, gradients and moments homed on the card, at pinned
+    host and on disk under ``budget_mb``, one layer a group."""
+    import gc
+    import shutil
+
+    from repro_torch.core import schedcheck as sc
+    from repro_torch.core import tree as tr
+    from repro_torch.core.refspec import PrefetchSpec
+    from repro_torch.core.spillstore import SpillStore
+    from repro_torch.core.weightstream import WeightStreamPlan
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps as st
+
+    t_phase = time.perf_counter()
+    tcfg = train_cfg(cfg)
+    plan = WeightStreamPlan(tcfg, st.abstract_params(tcfg), layers_per_group=1,
+                            device_budget_mb=budget_mb)
+    n, budget = plan.n_groups, plan.device_budget_bytes
+    cap = plan.residency_capacity_bytes()
+    max_d = plan.max_distance_for_budget(cached_bytes=cap)
+    report = sc.analyze_train_schedule(plan, distance=max_d, cache_capacity=cap, spill=True)
+    log(f"phase 6w streamed-weight train {tcfg.name} on {smi}: {n} groups (one layer each), "
+        f"budget {budget} B, residency cache {cap} B, max distance {max_d}; batch {TRAIN_BATCH}, "
+        f"seq {TRAIN_SEQ}\n{report}")
+    if n != groups or not report.ok or report.peak_bytes > budget:
+        raise SystemExit(f"6w: {n} groups (expected {groups}), schedule ok {report.ok}, "
+                         f"analyzed peak {report.peak_bytes} B against the budget {budget} B")
+    # the closed-form traffic below holds while the cache can hold the head's
+    # home (ln_f) and no other group
+    if [g.key for g in plan.groups if plan.group_bytes(g, fetch=False) <= cap] != [
+            plan.groups[-1].key]:
+        raise SystemExit(f"6w: a {cap} B cache holds other groups than the head's home")
+    bwd = list(reversed(plan.groups[1:-1])) + [plan.groups[0]]
+    seqs = ([plan.group_bytes(g) for g in plan.groups], [plan.group_bytes(g) for g in bwd])
+
+    def window(d: int) -> int:
+        """Peak streamed bytes at distance ``d``: the executor holds groups
+        i..i+d in flight."""
+        return max(sum(q[i:i + d + 1]) for q in seqs for i in range(len(q)))
+
+    total, head_home = plan.total_param_bytes, plan.head_home_bytes
+    pass_bytes = sum(seqs[0]) + sum(seqs[1])
+
+    def expected(kind: str, k: int) -> dict:
+        """Step ``k``'s counters at ``kind``: the weight passes, then the
+        optimizer pass ({grads, moments} in; {params, moments} out)."""
+        if kind == "device":  # every group passes through by reference
+            w = dict(h2d_requests=0, bytes_h2d=0, disk_requests=0, unique_group_fetches=0,
+                     cache_hits=2 * n - 1)
+        else:
+            hit = 1 if k else 0  # the head's ln_f, cached from step 0's forward
+            w = dict(h2d_requests=2 * n - 1, bytes_h2d=pass_bytes - hit * head_home,
+                     disk_requests=(2 * n - hit) if kind == "disk_host" else 0,
+                     unique_group_fetches=2 * n - 1, cache_hits=0)
+        # one D2H request a leaf: the backward's gradients, then the
+        # optimizer's parameters and their master, m and v
+        w.update(d2h_requests=sum(leaves[g.key] for g in bwd), bytes_d2h=total - head_home)
+        # on the card the head's gradients and moments are both resident
+        o = dict(h2d_requests=n - (kind == "device"), d2h_requests=4 * sum(leaves.values()),
+                 bytes_d2h=7 * total,
+                 bytes_h2d=(total - head_home) + (6 * total if kind != "device" else 0),
+                 disk_requests=n if kind == "disk_host" else 0)
+        return {"param": w, "opt": o}
+
+    leaves = {k: len(tr.leaves(t)) for k, t in
+              plan.init_home(st.abstract_params(tcfg))["groups"].items()}
+
+    t0 = time.perf_counter()
+    state0 = st.init_weight_streamed_state(tcfg, plan, SEED, device)
+    log(f"  group-wise init of the state at the host: {time.perf_counter() - t0:.1f} s")
+
+    def profiled(step, state, k: int) -> None:
+        """One more step under the profiler: the device's kernel and copy
+        time against the wall (copies on the engine's stream overlap the
+        compute, so the two may sum past the wall)."""
+        from repro_torch.launch.profile_serve import _breakdown
+
+        batch = train_batch(tcfg, k, device)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        r = _breakdown(prof, wall, 1, 10_000)
+        by: dict = {}
+        for kname, c in r["launches_by_kernel"].items():
+            by.setdefault("copies" if kname.startswith("Memcpy") else "kernels", [0.0, 0])[1] += c
+        for k_ in r["top_kernels"]:
+            cls = "copies" if k_["name"].startswith("Memcpy") else "kernels"
+            by.setdefault(cls, [0.0, 0])[0] += k_["ms_per_unit"]
+        log(f"    profiled step {k}: wall {wall * 1e3:.1f} ms; device kernels "
+            f"{by.get('kernels', [0, 0])[0]:.1f} ms ({by.get('kernels', [0, 0])[1]:.0f} launches), "
+            f"copies {by.get('copies', [0, 0])[0]:.1f} ms ({by.get('copies', [0, 0])[1]:.0f}); "
+            f"1 - kernel ms / wall = {1 - by.get('kernels', [0, 0])[0] / (wall * 1e3):.4f}; top: "
+            + "; ".join(f"{k_['ms_per_unit']:.1f} ms x{k_['calls_per_unit']:.0f} {k_['name'][:50]}"
+                        for k_ in r["top_kernels"][:6]))
+
+    def run(name: str, kind: str, distance, steps: int, store=None, keep=(),
+            profile: bool = False) -> dict:
+        gc.collect()  # the last run's state must not count in this one's peak
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = st.make_weight_streamed_train_step(
+            tcfg, AdamWConfig(**TRAIN_OPT), plan=plan, param_kind=kind, spill_store=store,
+            prefetch=PrefetchSpec(buffer_size=n + 2, distance=distance), device=device)
+        t0 = time.perf_counter()
+        s = (st.device_weight_streamed_state(plan, state0, device) if kind == "device" else
+             st.spill_weight_streamed_state(plan, state0, store) if kind == "disk_host" else
+             state0)
+        out = dict(name=name, home_s=time.perf_counter() - t0, losses=[], walls=[], steps=[],
+                   kept={})
+        stats = {"param": step.param_stats, "opt": step.opt_stats}
+        try:
+            for k in range(steps):
+                batch = train_batch(tcfg, k, device)
+                before = {w: {f: getattr(s_, f) for f in STREAM_FIELDS} for w, s_ in stats.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s, m = step(s, batch)
+                out["losses"].append(float(m["loss"]))
+                torch.cuda.synchronize()
+                out["walls"].append(time.perf_counter() - t0)
+                out["steps"].append({w: {f: getattr(s_, f) - before[w][f] for f in STREAM_FIELDS}
+                                     for w, s_ in stats.items()})
+                if k + 1 in keep:
+                    out["kept"][k + 1] = state_bits(s)
+            out["state"] = s
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            out["param_stats"], out["residency"] = step.param_stats, step.residency
+            out["hits"] = step.residency.hits if step.residency is not None else 0
+            if profile:  # after the counters are read: its traffic is not checked
+                profiled(step, s, steps)
+        finally:
+            step.close()
+        return out
+
+    def check(r: dict, kind: str, distance, want_state: dict) -> None:
+        name = r["name"]
+        steps = len(r["losses"])
+        if r["losses"] != a["losses"][:steps]:
+            raise SystemExit(f"6w {name}: losses {r['losses']} differ from (a)'s {a['losses']}")
+        if not same_state(r["state"], want_state):
+            raise SystemExit(f"6w {name}: parameters or moments differ from (a)'s after {steps} "
+                             "step(s)")
+        for k, got in enumerate(r["steps"]):
+            want = expected(kind, k)
+            for w in ("param", "opt"):
+                for f, v in want[w].items():
+                    if got[w][f] != v:
+                        raise SystemExit(f"6w {name} step {k}: {w} {f} {got[w][f]}, expected {v}")
+        ps = r["param_stats"]
+        peak = ps.peak_inflight_bytes
+        rc = {"hits": r["hits"], "peak_resident_bytes": (
+            r["residency"].peak_resident_bytes if r["residency"] is not None else 0)}
+        if kind == "device":
+            want_peak = 0
+        elif distance == "auto":
+            want_peak = None
+            if not window(1) <= peak <= window(max_d) or max(ps.distance_trace) > max_d:
+                raise SystemExit(f"6w {name}: peak streamed {peak} B outside "
+                                 f"[{window(1)}, {window(max_d)}] or a distance above {max_d}")
+        else:
+            want_peak = window(distance)
+        if want_peak is not None and peak != want_peak:
+            raise SystemExit(f"6w {name}: peak streamed {peak} B, the plan's {want_peak} B")
+        held = peak + rc["peak_resident_bytes"]
+        if not (peak <= report.peak_bytes <= budget and held <= budget + cap):
+            raise SystemExit(f"6w {name}: streamed {peak} B + cached {rc['peak_resident_bytes']} B "
+                             f"against the budget {budget} B and the cache {cap} B")
+        if kind != "device" and rc["hits"] != steps - 1:
+            raise SystemExit(f"6w {name}: {rc['hits']} residency hits, expected {steps - 1}")
+        per = r["steps"]
+        log(f"  {name}: losses {r['losses']} bitwise (a)'s, parameters and moments too; step walls "
+            f"{[round(w * 1e3, 1) for w in r['walls']]} ms; wait "
+            f"{[round((x['param']['transfer_wait_s'] + x['opt']['transfer_wait_s']) * 1e3, 1) for x in per]}"
+            f" ms, drain "
+            f"{[round((x['param']['writeback_drain_s'] + x['opt']['writeback_drain_s']) * 1e3, 1) for x in per]}"
+            f" ms a step; H2D {per[-1]['param']['bytes_h2d']:,} + {per[-1]['opt']['bytes_h2d']:,} B "
+            f"({per[-1]['param']['h2d_requests']} + {per[-1]['opt']['h2d_requests']} requests), D2H "
+            f"{per[-1]['param']['bytes_d2h']:,} + {per[-1]['opt']['bytes_d2h']:,} B, disk "
+            f"{per[-1]['param']['disk_requests']} + {per[-1]['opt']['disk_requests']} requests a "
+            f"step (weights + optimizer); peak streamed {peak} B (plan: "
+            f"{'bounded' if want_peak is None else want_peak}), cached "
+            f"{rc['peak_resident_bytes']} B, {rc['hits']} residency hits; max_memory_allocated "
+            f"{r['max_memory_allocated']} B against phase 6 (a)'s {ref['peak']} B; home placed in "
+            f"{r['home_s']:.1f} s ({smi})")
+
+    # (a) the device home: the bitwise baseline
+    a = run("(a) device", "device", "auto", W_TRAIN_STEPS, keep={1, W_TRAIN_STEPS})
+    if not math.isclose(a["losses"][0], ref["losses"][0], rel_tol=RTOL, abs_tol=ATOL):
+        raise SystemExit(f"6w (a): step-0 loss {a['losses'][0]} not within 2e-2 of phase 6 (a)'s "
+                         f"{ref['losses'][0]}")
+    log(f"  (a) step-0 loss {a['losses'][0]} against phase 6 (a)'s monolithic "
+        f"{ref['losses'][0]} (|diff| {abs(a['losses'][0] - ref['losses'][0]):.3e}); step 1 "
+        f"{a['losses'][1]} against {ref['losses'][1]}")
+    check(a, "device", "auto", a["kept"][W_TRAIN_STEPS])
+    del a["state"]
+
+    # (b) pinned host at distance 0, 1 and auto (last: the pinned buffers the
+    # drains allocate are then warm)
+    for dist in (0, 1, "auto"):
+        r = run(f"(b) pinned_host d={dist}", "pinned_host", dist, W_TRAIN_STEPS,
+                profile=dist == "auto")
+        check(r, "pinned_host", dist, a["kept"][W_TRAIN_STEPS])
+        del r
+
+    # (c) disk, one step: the fsync'd writeback of every group
+    shutil.rmtree(spill, ignore_errors=True)
+    store = SpillStore(spill)
+    try:
+        r = run("(c) disk_host", "disk_host", "auto", W_TRAIN_DISK_STEPS, store=store)
+        check(r, "disk_host", "auto", a["kept"][W_TRAIN_DISK_STEPS])
+        del r
+    finally:
+        store.close(delete=True)
+        shutil.rmtree(spill, ignore_errors=True)
+    log(f"  phase 6w done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def check_mlp_chain(x, w_up, w_down, y, margin: float = 1.1) -> None:
@@ -1768,13 +2053,14 @@ def main() -> int:
                                   ("rglru_scan", "flash_attention", "decode_attention"))
     phase_check(hcfg, hres, HYB_PROMPT, "3b")
     del hres
-    launches["streamed_matmul"], sweep = phase_paper(cfg)
-    train = phase_train(cfg)
-    rows = phase_times(cfg, hcfg, errs, launches, hlaunches, sweep, train)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    launches["streamed_matmul"], sweep = phase_paper(cfg)
+    train = phase_train(cfg)
+    phase_train_streamed(cfg, train, smi)
+    rows = phase_times(cfg, hcfg, errs, launches, hlaunches, sweep, train)
     phase_tables(smi)
     log(f"done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -97,6 +97,16 @@ def home_from_numpy(home: Mapping) -> dict:
     return {"groups": conv(home["groups"])}
 
 
+def weight_streamed_state_from_numpy(state: Mapping) -> dict:
+    """The port's weight-streamed train state from the JAX package's
+    (``init_weight_streamed_state``: ``{"params": {"groups"}, "opt":
+    {"groups", "step"}}`` of numpy leaves): host numpy copies with the same
+    group keys, trees and bytes."""
+    return {"params": home_from_numpy(state["params"]),
+            "opt": {"groups": home_from_numpy(state["opt"])["groups"],
+                    "step": np.array(state["opt"]["step"], np.int32)}}
+
+
 def opt_state_from_numpy(tree: Mapping, device: DeviceLike = None, *, host: bool = False) -> dict:
     """The port's AdamW state from the JAX package's (``adamw_init`` /
     ``host_opt_state``: ``{"leaves": {... {"master", "m", "v"}}, "step"}``

@@ -572,6 +572,14 @@ class WeightStreamPlan:
             return {k: fetched[k] for k in self.head_home_keys}
         return fetched
 
+    def split_head_grads(self, dp_head: Pytree) -> tuple[Pytree, Optional[Pytree]]:
+        """Split the head *fetch* group's gradients into (the head home's
+        part, the embed table's part or ``None``): a tied head's table
+        gradient is added to the embed stage's."""
+        home = {k: dp_head[k] for k in self.head_home_keys}
+        embed = dp_head.get("embed") if self.head_reads_embed else None
+        return home, embed
+
     # ------------------------------------------------------------ shardings
     def group_shardings(self, p_shardings: Optional[Pytree]):
         """Per-fetch-group shardings: ``None`` on one device."""

@@ -367,11 +367,10 @@ class ServeSession:
             sc.verify_schedule(self.schedule_report)
         self._param_store = None
         if self._wplan is not None:
-            # the home is built and spilled before the engine thread exists;
-            # group-wise init (no whole model on the card) comes with
-            # training (ROADMAP.md, queue 1 item 6)
+            # the home is built (group by group: the whole model is never on
+            # the card) and spilled before the engine thread exists
             if params is None:
-                params = st.init_params(cfg, seed, self.device)
+                params = st.init_weight_streamed_params(cfg, self._wplan, seed, self.device)
             self.params, self._param_store = _weight_home(
                 self._wplan, params, param_kind,
                 str(Path(spill_dir) / "params")
@@ -639,11 +638,12 @@ class ServeSession:
 
 def serve_loop(
     cfg,
-    params: ParamTree,
+    params: Optional[ParamTree],
     prompts: np.ndarray,
     gen: int,
     *,
     device: torch.device,
+    seed: int = 0,
     warmup: bool = True,
     kv_kind: str = "device",
     engine: Optional[TransferEngine] = None,
@@ -663,7 +663,8 @@ def serve_loop(
     ``kv_kind="pinned_host"`` the whole cache round-trips through host
     memory synchronously before every step (the JAX package's pre-pager
     schedule; the caller's ``engine`` only adds its emulated link's time).
-    Tokens stay on the device until the loop ends.
+    Tokens stay on the device until the loop ends.  ``params=None`` draws
+    random weights from ``seed``.
 
     ``param_kind="pinned_host"`` or ``"disk_host"`` (the JAX package's
     streamed branch of ``_serve_unpaged``) homes ``params`` (a
@@ -702,6 +703,8 @@ def serve_loop(
                 EngineConfig(max_distance=wplan.max_distance_for_budget()), device=device)
         sc.verify_schedule(sc.analyze_serve_schedule(
             wplan, distance=engine.config.max_distance, cache_capacity=cache_cap))
+        if params is None:  # group by group: the whole model is never on the card
+            params = st.init_weight_streamed_params(cfg, wplan, seed, device)
         params, param_store = _weight_home(
             wplan, params, param_kind,
             str(Path(spill_dir) / "params") if spill_dir is not None else None)
@@ -713,6 +716,8 @@ def serve_loop(
         def make_prefill(b):
             return st.make_weight_streamed_prefill_step(cfg, wplan, b, max_len, **kw)
     else:
+        if params is None:
+            params = st.init_params(cfg, seed, device)
         decode_fn = st.make_decode_step(cfg)
         make_prefill = None
     prompts_t = torch.tensor(np.asarray(prompts), dtype=torch.long, device=device)
@@ -873,9 +878,7 @@ def serve(
     if kv_page_len <= 0:
         if n_requests != batch:
             raise ValueError("the unpaged path serves exactly one request per slot")
-        if params is None:
-            params = st.init_params(cfg, seed, device)
-        return serve_loop(cfg, params, prompts, gen, device=device, warmup=warmup,
+        return serve_loop(cfg, params, prompts, gen, device=device, seed=seed, warmup=warmup,
                           kv_kind=kv_kind, engine=engine, spill_dir=spill_dir, **weights)
 
     if shared_prefix_len:

@@ -138,15 +138,67 @@ def _layer_tree(cfg: ModelConfig, make) -> dict:
 def init_model(cfg: ModelConfig, generator: torch.Generator, device=None) -> ParamTree:
     """f32 parameters drawn from ``generator`` on ``device`` (the numbers
     differ from the JAX package's for the same seed; the distributions do
-    not).  ``device="meta"`` gives shapes only."""
+    not).  ``device="meta"`` gives shapes only.
+
+    The draw order is fixed: the embedding, the untied head, then every
+    layer in layer order (:func:`layer_slots`).  The group-wise init below
+    walks the same order, so it gives these bits."""
+    params = init_model_shell(cfg, generator, device)
+    params["blocks"] = _layer_tree(cfg, lambda kind: _init_block(cfg, kind, generator, device))
+    return ParamTree(params)
+
+
+# One ``torch.Generator`` feeds every draw, so unlike the JAX package's
+# per-layer keys a slice cannot be drawn out of order: the group-wise init
+# (streamed parameters, ``train/steps.py``) draws the shell first, then each
+# layer group in layer order, and homes each group before drawing the next.
+
+def init_model_shell(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
+    """The non-``blocks`` leaves of :func:`init_model` (the embedding, the
+    untied head, ``ln_f``), drawn first, as it draws them.  Leaves
+    ``generator`` where layer 0's draws begin."""
     check_supported(cfg)
     kw = dict(generator=generator, device=device)
     params: dict = {"embed": layers.init_embed(cfg.vocab_size, cfg.d_model, **kw)}
     if not cfg.tie_embeddings:
         params["head"] = layers.init_head(cfg.d_model, cfg.vocab_size, **kw)
     params["ln_f"] = layers.init_norm(cfg.d_model, cfg.norm_type, device)
-    params["blocks"] = _layer_tree(cfg, lambda kind: _init_block(cfg, kind, generator, device))
-    return ParamTree(params)
+    return params
+
+
+def init_model_slice(cfg: ModelConfig, generator: torch.Generator, device, lo: int,
+                     hi: int) -> dict:
+    """Layers ``[lo:hi)`` of :func:`init_model`'s ``blocks``, bitwise, from a
+    ``generator`` that has drawn the shell and layers ``[0:lo)``: the stacked
+    slice of a uniform stack, else the named blocks (``tail_k`` of a
+    period-scanned stack, ``layer_###`` unrolled)."""
+    check_supported(cfg)
+    if cfg.uniform_blocks and cfg.use_scan:
+        return _stack([_init_block(cfg, "attn", generator, device) for _ in range(lo, hi)])
+    if cfg.period_scan:
+        tail0 = (cfg.n_layers // cfg.scan_period) * cfg.scan_period
+        if lo < tail0:
+            raise ValueError("period-scanned ranges init via init_model_period_slice")
+        return {f"tail_{i - tail0}": _init_block(cfg, cfg.block_kind(i), generator, device)
+                for i in range(lo, hi)}
+    return {f"layer_{i:03d}": _init_block(cfg, cfg.block_kind(i), generator, device)
+            for i in range(lo, hi)}
+
+
+def init_model_period_slice(cfg: ModelConfig, generator: torch.Generator, device, ulo: int,
+                            uhi: int) -> dict:
+    """Period units ``[ulo:uhi)`` of a period-scanned model's
+    ``blocks["periods"]``, bitwise, from a ``generator`` that has drawn the
+    shell and layers ``[0:ulo * P)``."""
+    if not cfg.period_scan:
+        raise ValueError("init_model_period_slice requires a period-scanned arch")
+    check_supported(cfg)
+    p = cfg.scan_period
+    pos: dict = {k: [] for k in range(p)}
+    for _ in range(ulo, uhi):
+        for k in range(p):
+            pos[k].append(_init_block(cfg, cfg.block_kind(k), generator, device))
+    return {f"pos_{k}": _stack(v) for k, v in pos.items()}
 
 
 def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, cl: int, dtype, device) -> dict:
@@ -320,6 +372,13 @@ def _unbind(tree) -> list:
     return [tr.unflatten(treedef, [c[j] for c in cols]) for j in range(len(cols[0]))]
 
 
+def _train_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+                 angles: Optional[torch.Tensor]) -> torch.Tensor:
+    """One layer of the training forward under the config's remat: the
+    program :func:`forward_hidden` and the group stages share."""
+    return _remat(cfg, functools.partial(_layer_train, cfg, kind))(p, x, angles)
+
+
 def _plain(params) -> dict:
     return params.as_dict() if isinstance(params, ParamTree) else params
 
@@ -340,7 +399,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch
             if path not in stacked:
                 stacked[path] = _unbind(_at(params["blocks"], path, None))
             p = stacked[path][j]
-        x = _remat(cfg, functools.partial(_layer_train, cfg, kind))(p, x, angles)
+        x = _train_layer(cfg, kind, p, x, angles)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -373,36 +432,11 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> tuple[torch.Te
 
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
-    """``(loss, {"ce", "aux", "n_tokens"})`` of next-token prediction.
-
-    With ``cfg.loss_chunk`` dividing the sequence (and shorter than it) the
-    CE runs chunk by chunk along the sequence, each chunk's head and CE
-    under a checkpoint, so the (B, S, V) logits never exist whole: the JAX
-    package's seq-chunked loss, its chunks summed in the same order."""
-    targets = batch["targets"]
-    s = targets.shape[-1]
-    c = cfg.loss_chunk
-    if not c or s <= c or s % c != 0:
-        logits, aux = forward_train(cfg, params, batch)
-        ce, n = cross_entropy(logits, targets)
-        return ce + aux, {"ce": ce, "aux": aux, "n_tokens": n}
-
+    """``(loss, {"ce", "aux", "n_tokens"})`` of next-token prediction: the
+    trunk, then :func:`head_stage_loss` on the whole tree."""
     params = _plain(params)
     x, aux = forward_hidden(cfg, params, batch)
-
-    def chunk(xc, tc):
-        return cross_entropy_sum(_head(cfg, params, xc), tc)
-
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    n = torch.zeros((), dtype=torch.int32, device=x.device)
-    for i in range(s // c):
-        nll, nv = ckpt.checkpoint(chunk, x[:, i * c:(i + 1) * c], targets[..., i * c:(i + 1) * c],
-                                  use_reentrant=False, preserve_rng_state=False)
-        tot = tot + nll
-        n = n + nv
-    n = torch.clamp(n, min=1)
-    ce = tot / n
-    return ce + aux, {"ce": ce, "aux": aux, "n_tokens": n}
+    return head_stage_loss(cfg, params, x, aux, batch)
 
 
 def prefill(cfg: ModelConfig, params: ParamTree, batch: dict, caches: dict,
@@ -449,10 +483,12 @@ def _last(x: torch.Tensor, last_pos: Optional[int]) -> torch.Tensor:
 # transfer group at a time, so host- or disk-homed weights can arrive
 # mid-stack: the embed group starts the residual stream, each stacked
 # layer-group slice continues it through the same layer body
-# (``_layer_prefill`` / ``_layer_decode``) on views ``[j]`` with the
-# resident stack's strides, and the head group finishes it.  The caches are
-# updated in place, so a group prefills and decodes into ``narrow``ed views of
-# the dense cache: the same function as the monolithic pass, with no copy.
+# (``_layer_train`` / ``_layer_prefill`` / ``_layer_decode``) on views ``[j]``
+# with the resident stack's strides, and the head group finishes it (the
+# training head computes the loss: ``head_stage_loss``, which ``lm_loss``
+# also runs).  The caches are updated in place, so a group prefills and
+# decodes into ``narrow``ed views of the dense cache: the same function as the
+# monolithic pass, with no copy.
 # ---------------------------------------------------------------------------
 
 
@@ -515,6 +551,75 @@ def head_stage_logits(cfg: ModelConfig, group: Params, x: torch.Tensor) -> torch
     and the head weights (a tied head: the embed table, which the plan's
     head fetch group carries)."""
     return _head(cfg, group, x)
+
+
+def head_stage_loss(cfg: ModelConfig, group: Params, x: torch.Tensor, aux: torch.Tensor,
+                    batch: dict) -> tuple[torch.Tensor, dict]:
+    """``(loss, {"ce", "aux", "n_tokens"})`` from the trunk's hidden states:
+    ``ln_f``, the head (``group`` holds ``ln_f`` and the head weights, or the
+    embed table of a tied head) and the CE, with ``aux`` carried in from the
+    layer stages.
+
+    With ``cfg.loss_chunk`` dividing the sequence (and shorter than it) the
+    CE runs chunk by chunk along the sequence, each chunk's head and CE
+    under a checkpoint, so the (B, S, V) logits never exist whole: the JAX
+    package's seq-chunked loss, its chunks summed in the same order."""
+    targets = batch["targets"]
+    s = targets.shape[-1]
+    c = cfg.loss_chunk
+    if not c or s <= c or s % c != 0:
+        ce, n = cross_entropy(_head(cfg, group, x), targets)
+        return ce + aux, {"ce": ce, "aux": aux, "n_tokens": n}
+
+    def chunk(xc, tc):
+        return cross_entropy_sum(_head(cfg, group, xc), tc)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.int32, device=x.device)
+    for i in range(s // c):
+        nll, nv = ckpt.checkpoint(chunk, x[:, i * c:(i + 1) * c], targets[..., i * c:(i + 1) * c],
+                                  use_reentrant=False, preserve_rng_state=False)
+        tot = tot + nll
+        n = n + nv
+    n = torch.clamp(n, min=1)
+    ce = tot / n
+    return ce + aux, {"ce": ce, "aux": aux, "n_tokens": n}
+
+
+def block_group_train(cfg: ModelConfig, blocks_slice: Params, x: torch.Tensor, aux: torch.Tensor,
+                      angles: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training forward over one stacked layer-group slice ``(Lg, ...)`` of a
+    uniform stack: :func:`forward_hidden`'s layer program entered mid-stack.
+    ``aux`` is the MoE aux-loss carry (unchanged: no MoE layers here).
+    Returns ``(x, aux)``."""
+    for p in _unbind(blocks_slice):
+        x = _train_layer(cfg, "attn", p, x, angles)
+    return x, aux
+
+
+def hetero_group_train(cfg: ModelConfig, kinds, group: Params, x: torch.Tensor,
+                       aux: torch.Tensor, angles: Optional[torch.Tensor]
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training forward over one named-block group (the unrolled layout, a
+    period-scanned stack's tail): ``kinds`` is the ``(name, block kind)``
+    sequence in layer order.  Returns ``(x, aux)``."""
+    for name, kind in kinds:
+        x = _train_layer(cfg, kind, group[name], x, angles)
+    return x, aux
+
+
+def period_group_train(cfg: ModelConfig, periods_slice: Params, x: torch.Tensor,
+                       aux: torch.Tensor, angles: Optional[torch.Tensor]
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training forward over a slice of stacked period units
+    (``{"pos_k": (U, ...)}``), each unit's positions in order.  Returns
+    ``(x, aux)``."""
+    period = cfg.scan_period
+    cols = [_unbind(periods_slice[f"pos_{k}"]) for k in range(period)]
+    for j in range(len(cols[0])):
+        for k in range(period):
+            x = _train_layer(cfg, cfg.block_kind(k), cols[k][j], x, angles)
+    return x, aux
 
 
 def init_cache_group(cfg: ModelConfig, n_layers: int, batch: int, seq_len: int,

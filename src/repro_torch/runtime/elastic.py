@@ -7,19 +7,25 @@ streaming.  The port runs on one card, so its mesh is always
 ``(data=1, model=1)``: :func:`mesh_fingerprint` gives that identity under
 the JAX package's keys, and :func:`check_restart_mesh` refuses to resume a
 run fingerprinted on another device count.  The 2 <-> 1-device re-mesh
-needs multi-device support (ROADMAP.md, queue 1 item 5), and the grouped
-checkpoint reshard needs the streamed-weight train step (the next slice of
-queue 1 item 6); both raise.
+needs multi-device support (ROADMAP.md, queue 1 item 5) and raises.  The grouped
+checkpoint reshard runs as in the JAX package: when the weight grouping of a
+streamed-weight run changes (another budget or group size), its grouped
+checkpoint is repartitioned in place by streaming, one output leaf in memory
+at a time, and the spill chunks of the old grouping are pruned.
 """
 from __future__ import annotations
 
+import logging
 import re
 from typing import Optional
 
-#: where the parts this module refuses are queued (the launcher names them too)
+#: where the parts this module refuses are queued
 MULTI_DEVICE = "multi-device re-meshing (ROADMAP.md, queue 1 item 5: multi-device and tooling)"
-WEIGHT_STREAMED = ("the streamed-weight train step (ROADMAP.md, queue 1 item 6: its "
-                   "streamed-weight part, the next slice)")
+
+log = logging.getLogger("repro_torch.elastic")
+
+#: the checkpoint manager's leaf-name separator
+_SEP = "__"
 
 _GROUP_KEY_RE = re.compile(
     r"g(\d{3,})_(embed|head|"
@@ -102,17 +108,162 @@ def parse_group_key(key: str) -> Optional[dict]:
             "expert": int(expert) if expert is not None else -1}
 
 
-def reshard_grouped_checkpoint(*args, **kwargs):
-    """Re-partition a grouped (weight-streamed) checkpoint: not ported."""
-    raise NotImplementedError(f"reshard_grouped_checkpoint needs {WEIGHT_STREAMED} and "
-                              f"{MULTI_DEVICE}")
+def reshard_grouped_checkpoint(ckpt, plan, *, step: Optional[int] = None,
+                               extra_meta: Optional[dict] = None) -> bool:
+    """Repartition a grouped (weight-streamed) checkpoint into ``plan``'s
+    grouping, in place, at the same step.
+
+    The old partition is read from the stored leaf names
+    (``{params|opt}__groups__<gkey>__<subpath>``).  For each new layer group
+    ``[lo, hi)`` every overlapping old group's stacked leaves are mapped
+    read-only, sliced along axis 0 and concatenated, one output leaf in
+    memory at a time; named blocks move whole to the group that homes them;
+    embed, head and non-group leaves (``opt__step``) pass through under
+    their new keys.  Values are only repartitioned, never transformed, so a
+    resumed run's losses stay bitwise.
+
+    Returns True when it resharded; False when there is nothing to do (no
+    checkpoint, not grouped, or the same partition)."""
+    import numpy as np
+
+    if step is None:
+        step = ckpt.latest_step()
+    if step is None:
+        return False
+    meta = ckpt.load_meta(step)
+    dtypes = {leaf["name"]: leaf["dtype"] for leaf in meta["leaves"]}
+
+    # the old partition, from the leaf names
+    old_groups: dict = {}
+    subs: dict = {}
+    passthrough: list = []
+    for leaf in meta["leaves"]:
+        name = leaf["name"]
+        parts = name.split(_SEP)
+        g = (parse_group_key(parts[2])
+             if len(parts) >= 4 and parts[0] in ("params", "opt") and parts[1] == "groups"
+             else None)
+        if g is None:
+            passthrough.append(name)
+            continue
+        old_groups[parts[2]] = g
+        subs.setdefault((parts[0], parts[2]), []).append(_SEP.join(parts[3:]))
+    if not old_groups:
+        return False  # not a grouped checkpoint
+    if set(old_groups) == {g.key for g in plan.groups}:
+        return False  # the same partition
+
+    mid_old = frozenset(g["kind"] for g in old_groups.values() if g["kind"] not in ("embed", "head"))
+    mid_new = frozenset(g.kind for g in plan.groups if g.kind not in ("embed", "head"))
+    if mid_old != mid_new:
+        raise ValueError(
+            f"checkpoint step {step} was written with a {sorted(mid_old)} group program but the "
+            f"plan builds {sorted(mid_new)} — kind-family changes (e.g. toggling "
+            "--expert-stream) cannot be streamed between partitions; resume with the original "
+            "flags, or export the params and re-import under the new program")
+    if "expert" in mid_old:
+        raise ValueError(
+            f"checkpoint step {step} and the plan both use expert-split groups but their group "
+            "keys differ — the MoE shape changed; re-grouping cannot change the model")
+    # stacked middle kinds reslice along axis 0 ("period" in period units);
+    # named "block" groups move whole block subtrees
+    stacked_kind = ("layers" if "layers" in mid_old
+                    else "period" if "period" in mid_old else None)
+    old_stacked = sorted((g for g in old_groups.values() if g["kind"] == stacked_kind),
+                         key=lambda g: g["lo"])
+    scale = plan.scan_period if stacked_kind == "period" else 1
+    old_blocks = {k: g for k, g in old_groups.items() if g["kind"] == "block"}
+    old_embed = next((k for k, g in old_groups.items() if g["kind"] == "embed"), None)
+    old_head = next((k for k, g in old_groups.items() if g["kind"] == "head"), None)
+    span = max((g["hi"] for g in old_groups.values() if g["kind"] not in ("embed", "head")),
+               default=0)
+    if span != plan.n_layers:
+        raise ValueError(f"checkpoint step {step} covers {span} layers but the plan has "
+                         f"{plan.n_layers} — re-grouping cannot change the model")
+    new_embed, new_head = plan.groups[0].key, plan.groups[-1].key
+
+    def load(name: str):
+        return ckpt.load_leaf(step, name, dtype=dtypes.get(name), mmap=True)
+
+    def leaves():
+        # a params-only checkpoint (a serving export) has no ("opt", key) subs
+        for top in ("params", "opt"):
+            for old_key, new_key in ((old_embed, new_embed), (old_head, new_head)):
+                for sub in subs.get((top, old_key), []):
+                    yield (_SEP.join((top, "groups", new_key, sub)),
+                           load(_SEP.join((top, "groups", old_key, sub))))
+            if old_stacked:
+                layer_subs = subs.get((top, old_stacked[0]["key"]), [])
+                for ng in plan.groups:
+                    if ng.kind != stacked_kind:
+                        continue
+                    for sub in layer_subs:
+                        parts = []
+                        for og in old_stacked:
+                            lo, hi = max(ng.lo, og["lo"]), min(ng.hi, og["hi"])
+                            if lo >= hi:
+                                continue
+                            arr = load(_SEP.join((top, "groups", og["key"], sub)))
+                            parts.append(arr[(lo - og["lo"]) // scale:(hi - og["lo"]) // scale])
+                        out = (np.ascontiguousarray(parts[0]) if len(parts) == 1
+                               else np.concatenate([np.asarray(p) for p in parts], axis=0))
+                        if getattr(parts[0], "spill_dtype", None):
+                            out = out.view(type(parts[0]))  # keep bf16 named
+                        yield _SEP.join((top, "groups", ng.key, sub)), out
+            if old_blocks:
+                # each sub is "<block name>__<rest>": whole named blocks move
+                # to the new group that homes that name
+                sub_home = {}
+                for old_key in old_blocks:
+                    for sub in subs.get((top, old_key), []):
+                        sub_home[sub] = old_key
+                for ng in plan.groups:
+                    if ng.kind != "block":
+                        continue
+                    names = set(plan.block_names(ng))
+                    for sub, old_key in sub_home.items():
+                        if sub.split(_SEP)[0] in names:
+                            yield (_SEP.join((top, "groups", ng.key, sub)),
+                                   load(_SEP.join((top, "groups", old_key, sub))))
+        for name in passthrough:
+            yield name, load(name)
+
+    log.info("re-sharding checkpoint step %d: %d old groups -> %d new groups "
+             "(layers_per_group=%d), one group leaf at a time",
+             step, len(old_groups), plan.n_groups, plan.layers_per_group)
+    ckpt.save_streamed(step, leaves(), extra_meta=extra_meta,
+                       treedef=meta.get("treedef", "resharded"))
+    return True
 
 
-def ensure_plan_matches_checkpoint(*args, **kwargs):
-    """Reshard a grouped checkpoint to the live plan on resume: not ported."""
-    raise NotImplementedError(f"ensure_plan_matches_checkpoint needs {WEIGHT_STREAMED}")
+def ensure_plan_matches_checkpoint(checkpoint_dir, plan, *,
+                                   run_meta: Optional[dict] = None) -> bool:
+    """The launcher's resume check: when the latest checkpoint's weight
+    grouping differs from ``plan``'s (another budget or group size),
+    repartition it in place before the driver restores.  Returns True when
+    it resharded."""
+    from pathlib import Path
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    if not Path(checkpoint_dir).exists():
+        return False
+    ckpt = CheckpointManager(checkpoint_dir, keep=0)  # keep=0: never prunes
+    step = ckpt.latest_step()
+    if step is None:
+        return False
+    return reshard_grouped_checkpoint(ckpt, plan, step=step, extra_meta=run_meta)
 
 
-def prune_stale_spill(*args, **kwargs):
-    """Drop the spill chunks of an old weight grouping: not ported."""
-    raise NotImplementedError(f"prune_stale_spill needs {WEIGHT_STREAMED}")
+def prune_stale_spill(store, plan) -> int:
+    """Drop the spill chunks of a previous grouping (``wp/`` and ``wopt/``
+    keys not in ``plan``) from a durable store, so regroupings leave no dead
+    chunk files.  Returns the number removed."""
+    valid = {plan.spill_key(g) for g in plan.groups} | {f"wopt/{g.key}" for g in plan.groups}
+    stale = [k for k in list(store.keys())
+             if (k.startswith("wp/") or k.startswith("wopt/")) and k not in valid]
+    for k in stale:
+        store.delete(k)
+    if stale:
+        log.info("pruned %d stale spill chunk(s) left by a previous grouping", len(stale))
+    return len(stale)

@@ -16,8 +16,11 @@ off the compute path, the prefetch distance adaptive under
 ``PrefetchSpec(distance="auto")``.  Every leaf runs the same eager update as
 the device-resident step, so the two give the same bits.
 
-The streamed-weight *training* step and the group-wise parameter init
-follow (ROADMAP.md, queue 1 item 6).
+The streamed-weight train step (``make_weight_streamed_train_step``) homes
+the weights themselves off the card too, with their gradients and moments:
+the forward, the reverse-order backward and the update each stream the
+plan's groups, and the state is initialized group by group
+(``init_weight_streamed_state``), so the whole model is never on the card.
 """
 from __future__ import annotations
 
@@ -29,13 +32,14 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as tr
-from repro_torch.core.arrays import host_array
-from repro_torch.core.engine import TransferEngine
+from repro_torch.core.arrays import host_array, host_tensor
+from repro_torch.core.engine import EngineConfig, TransferEngine
 from repro_torch.core.hoststream import HostStreamExecutor, StreamStats
 from repro_torch.core.kvpager import assemble_view, paged_cache_supported  # noqa: F401 (re-exported)
 from repro_torch.core.refspec import AUTO, PrefetchSpec
 from repro_torch.core.residency import ResidencyCache
-from repro_torch.core.weightstream import WeightStreamPlan
+from repro_torch.core.schedcheck import analyze_train_schedule, verify_schedule
+from repro_torch.core.weightstream import PARAM_KINDS, WeightStreamPlan
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.device import generator as make_generator
 from repro_torch.models import transformer
@@ -43,6 +47,7 @@ from repro_torch.models.layers import ParamTree
 from repro_torch.optim.adamw import (
     AdamWConfig,
     adamw_globals,
+    adamw_globals_from_norm,
     adamw_init,
     adamw_leaf_update,
     adamw_update,
@@ -562,3 +567,417 @@ def make_weight_streamed_decode_step(
     paged_decode.residency = residency  # type: ignore[attr-defined]
     paged_decode.expert_stats = None  # type: ignore[attr-defined]
     return paged_decode
+
+
+# ---------------------------------------------------------------------------
+# streamed weights: training with the weights, gradients and moments homed
+# off the card
+# ---------------------------------------------------------------------------
+
+
+def _groupwise_f32(cfg: ModelConfig, plan: WeightStreamPlan, seed: int, device: DeviceLike):
+    """``(group, f32 tree)`` for each of ``plan``'s groups in order, drawn as
+    :func:`init_train_state` draws them from ``seed`` on ``device``: the
+    shell first (the untied head goes to the host at once and comes back
+    with its group, last), then each middle group's layers in layer order.
+    A layer group is drawn only when the caller asks for it, so with each
+    group homed before the next at most one is on the device."""
+    dev = resolve_device(device)
+    gen = make_generator(seed, dev)
+    shell = transformer.init_model_shell(cfg, gen, dev)
+    head = {k: tr.tree_map(lambda t: t.cpu(), shell.pop(k)) for k in plan.head_home_keys}
+    drawn = 0  # layers drawn so far: the generator's position
+    for g in plan.groups:
+        if g.kind == "embed":
+            yield g, {k: shell.pop(k) for k in plan.embed_keys}
+        elif g.kind == "head":
+            yield g, head
+        else:
+            if g.lo != drawn:
+                raise ValueError(f"group {g.key} starts at layer {g.lo}, the draws at {drawn}")
+            if g.kind == "period":
+                p = cfg.scan_period
+                tree = transformer.init_model_period_slice(cfg, gen, dev, g.lo // p, g.hi // p)
+            else:
+                tree = transformer.init_model_slice(cfg, gen, dev, g.lo, g.hi)
+            drawn = g.hi
+            yield g, tree
+
+
+def init_weight_streamed_params(cfg: ModelConfig, plan: WeightStreamPlan, seed: int = 0,
+                                device: DeviceLike = None) -> dict:
+    """The parameter home (compute-dtype host numpy, bf16 as
+    :class:`~repro_torch.core.arrays.BF16HostArray`) initialized group by
+    group on ``device``: bitwise ``plan.init_home`` of
+    :func:`init_params`'s parameters, with at most one group on the device
+    at a time, so a model larger than the card initializes under the
+    budget."""
+    groups = {}
+    for g, f32 in _groupwise_f32(cfg, plan, seed, device):
+        groups[g.key] = tr.tree_map(lambda p: _to_host(p.to(cfg.compute_dtype)), f32)
+    return {"groups": groups}
+
+
+def init_weight_streamed_state(cfg: ModelConfig, plan: WeightStreamPlan, seed: int = 0,
+                               device: DeviceLike = None) -> dict:
+    """``{"params": home, "opt": {"groups": ..., "step": 0}}`` with host
+    numpy leaves (the ``pinned_host`` home; :func:`spill_weight_streamed_state`
+    and :func:`device_weight_streamed_state` re-home it), initialized group
+    by group as :func:`init_weight_streamed_params`.  The AdamW masters are
+    the f32 init values, as :func:`init_train_state`'s."""
+    p_groups, o_groups = {}, {}
+    for g, f32 in _groupwise_f32(cfg, plan, seed, device):
+        p_groups[g.key] = tr.tree_map(lambda p: _to_host(p.to(cfg.compute_dtype)), f32)
+        o_groups[g.key] = host_opt_state(f32)["leaves"]
+    return {"params": {"groups": p_groups},
+            "opt": {"groups": o_groups, "step": np.zeros((), np.int32)}}
+
+
+def abstract_weight_streamed_state(cfg: ModelConfig, plan: WeightStreamPlan) -> dict:
+    """:func:`init_weight_streamed_state`'s structure on the meta device:
+    the driver's restore template."""
+    home = plan.init_home(abstract_params(cfg))
+
+    def leaf(p):
+        f32 = torch.empty(p.shape, dtype=torch.float32, device="meta")
+        return {"master": f32, "m": f32, "v": f32}
+
+    opt = {k: tr.tree_map(leaf, t) for k, t in home["groups"].items()}
+    return {"params": home,
+            "opt": {"groups": opt, "step": torch.empty((), dtype=torch.int32, device="meta")}}
+
+
+def spill_weight_streamed_state(plan: WeightStreamPlan, state: dict, store) -> dict:
+    """Re-home a weight-streamed train state at the ``DiskHost`` tier: one
+    spill chunk per parameter group (``wp/<key>``) and one per moment group
+    (``wopt/<key>``), the JAX package's keys.  Shape-only templates and
+    groups already on disk pass through (the launcher calls this after a
+    restore, which hands back plain host arrays)."""
+    from repro_torch.core.spillstore import is_disk_leaf
+
+    home = plan.spill_home(state["params"], store)
+    opt_groups = {}
+    for g in plan.groups:
+        tree = state["opt"]["groups"][g.key]
+        leaves = tr.leaves(tree)
+        if any(isinstance(x, torch.Tensor) and x.is_meta for x in leaves):
+            return {"params": home, "opt": state["opt"]}
+        if not all(is_disk_leaf(x) for x in leaves):
+            store.put(f"wopt/{g.key}", tree)
+            tree = store.get(f"wopt/{g.key}")
+        opt_groups[g.key] = tree
+    return {"params": home, "opt": {"groups": opt_groups, "step": state["opt"]["step"]}}
+
+
+def device_weight_streamed_state(plan: WeightStreamPlan, state: dict,
+                                 device: DeviceLike = None) -> dict:
+    """The state with every parameter and moment group on ``device``: the
+    ``param_kind="device"`` baseline, whose groups pass through the engine
+    by reference."""
+    dev = resolve_device(device)
+    return {
+        "params": plan.device_home(state["params"], device=dev),
+        "opt": {"groups": tr.tree_map(lambda x: host_tensor(x).to(dev, copy=True),
+                                      state["opt"]["groups"]),
+                "step": state["opt"]["step"]},
+    }
+
+
+def _leaf_sqsums(tree: Pytree) -> tuple:
+    """Per-leaf f32 squared sums, in the tree's leaf order: the partial terms
+    of the global gradient norm, taken group by group so the whole gradient
+    tree never exists on the device."""
+    return tuple(torch.sum(torch.square(g.to(torch.float32))) for g in tr.leaves(tree))
+
+
+def _vjp(fn: Callable, group: Pytree, xs: tuple = (), ct: Optional[torch.Tensor] = None):
+    """Run ``fn(group, *xs)`` on fresh leaves under autograd and pull back its
+    output (its first element when it returns a tuple: a scalar loss, or a
+    tensor whose cotangent is ``ct``).  Returns ``(output, d group, d xs)``."""
+    flat, treedef = tr.flatten(group)
+    leaves = [t.detach().requires_grad_(True) for t in flat]
+    ins = [x.detach().requires_grad_(True) for x in xs]
+    with torch.enable_grad():
+        out = fn(tr.unflatten(treedef, leaves), *ins)
+        grads = torch.autograd.grad(out[0] if isinstance(out, tuple) else out, leaves + ins,
+                                    grad_outputs=ct, materialize_grads=True)
+    return out, tr.unflatten(treedef, list(grads[:len(leaves)])), grads[len(leaves):]
+
+
+def make_weight_streamed_train_step(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig,
+    *,
+    plan: WeightStreamPlan,
+    prefetch: Optional[PrefetchSpec] = None,
+    engine: Optional[TransferEngine] = None,
+    stats: Optional[StreamStats] = None,
+    opt_stats: Optional[StreamStats] = None,
+    spill_store=None,
+    param_kind: str = "pinned_host",
+    residency: Optional[ResidencyCache] = None,
+    device: DeviceLike = None,
+) -> Callable[[dict, dict], tuple[dict, dict]]:
+    """``(state, batch) -> (state, metrics)`` with the weights homed off the
+    card (the JAX package's ``make_weight_streamed_train_step``).
+
+    ``state`` is :func:`init_weight_streamed_state`'s: grouped parameter
+    homes and grouped moments.  A step runs three streamed passes over the
+    plan's groups through ``engine`` (default: one on ``device``, its
+    window capped by the budget):
+
+    forward
+        fetch order ``embed, L0..Ln, head``; each group's stage runs while
+        the next groups stream in.  The head stage computes the loss and the
+        head and trunk gradients, so the head group is fetched once.
+    backward
+        reverse order ``Ln..L0, embed``: each group is fetched again and its
+        forward recomputed from the saved boundary activation under
+        ``torch.autograd.grad`` (checkpointing at group granularity), so the
+        backward holds no more weights than the forward.  The gradients
+        drain D2H through the engine's writeback, each copy waiting on an
+        event recorded after its group's backward; the per-leaf squared sums
+        stay on the device for the global norm, summed in one fixed order
+        (head, then backward order).
+    optimizer
+        head first, then backward order: each group streams ``{grads,
+        moments}`` H2D and its updated ``{params, moments}`` drain D2H on one
+        writeback to the home kind.
+
+    ``param_kind`` names the home: ``pinned_host`` (host numpy),
+    ``disk_host`` (``wp/<key>`` and ``wopt/<key>`` chunks of
+    ``spill_store``) or ``device`` (the bitwise baseline: groups pass
+    through the engine by reference, updated groups are placed back on the
+    card).  Every kind runs the same eager programs on the same values, so
+    every home gives the device home's bits.
+
+    ``stats`` counts the two fetch passes (its ``peak_inflight_bytes`` is
+    what the budget bounds); ``opt_stats`` the optimizer pass.
+    ``residency`` (default: sized to the budget's slack,
+    :meth:`WeightStreamPlan.residency_capacity_bytes`; unused at the device
+    kind) keeps landed groups on the card, pins the last forward groups
+    across the turnaround so the backward's first fetches hit, refreshes
+    every cached group with its updated value in the optimizer pass, and is
+    cleared when a step fails.  The step has ``close``, ``param_stats``,
+    ``opt_stats``, ``engine`` and ``residency``.
+    """
+    if param_kind not in PARAM_KINDS:
+        raise ValueError(f"unknown param_kind {param_kind!r}; expected one of {PARAM_KINDS}")
+    if param_kind == "disk_host" and spill_store is None:
+        raise ValueError("param_kind='disk_host' requires a spill_store")
+    if not plan.support.supported:
+        raise ValueError(plan.support.reason)
+    prefetch = prefetch or PrefetchSpec(buffer_size=plan.n_groups + 2, distance=AUTO)
+    mode = "on_demand" if prefetch.on_demand else "prefetch"
+    pf = None if mode == "on_demand" else prefetch
+    if residency is None and param_kind != "device":
+        residency = ResidencyCache(plan.residency_capacity_bytes())
+    # device homes already pass through at zero requests: caching them would
+    # only alias the home groups
+    cache = residency if param_kind != "device" else None
+    cache_reserved = ((cache.capacity_bytes or 0)
+                      if cache is not None and plan.device_budget_bytes is not None else 0)
+    window_cap = plan.max_distance_for_budget(cached_bytes=cache_reserved)
+    own_engine = engine is None
+    if engine is None:
+        engine = TransferEngine(EngineConfig(max_distance=window_cap), device=device)
+    elif plan.device_budget_bytes is not None and engine.config.max_distance > window_cap:
+        raise ValueError(
+            f"engine max_distance={engine.config.max_distance} exceeds the device budget's "
+            f"window cap {window_cap} (prefetch window + residency cache share the budget); "
+            "configure the engine from the plan")
+    # the static check first: a schedule that overruns the budget, re-fetches
+    # through a pending writeback or over-pins fails here, not mid-run
+    verify_schedule(analyze_train_schedule(
+        plan, distance=engine.config.max_distance, cached=cache is not None,
+        cache_capacity=cache.capacity_bytes if cache is not None else None,
+        spill=param_kind == "disk_host"))
+    stats = stats if stats is not None else StreamStats()
+    opt_stats = opt_stats if opt_stats is not None else StreamStats()
+    f32 = torch.float32
+
+    head_idx = plan.n_groups - 1
+    #: middle group index -> its stage (1:1 without expert streaming)
+    stage: dict = {}
+    for u in plan.units:
+        g = plan.groups[u.gidx[0]]
+        if u.kind == "layers":
+            stage[g.index] = lambda p, x, a, ang: transformer.block_group_train(cfg, p, x, a, ang)
+        elif u.kind == "period":
+            stage[g.index] = lambda p, x, a, ang: transformer.period_group_train(cfg, p, x, a, ang)
+        else:
+            kinds = tuple((name, cfg.block_kind(layer))
+                          for name, layer in zip(plan.block_names(g), range(g.lo, g.hi)))
+            stage[g.index] = (lambda p, x, a, ang, kinds=kinds:
+                              transformer.hetero_group_train(cfg, kinds, p, x, a, ang))
+    #: backward program: the middle groups reversed, then embed
+    bwd_order = [plan.groups[i] for i in range(head_idx - 1, 0, -1)] + [plan.groups[0]]
+    #: optimizer program: head first (its gradients were born on the card)
+    o_order = [plan.groups[-1]] + bwd_order
+
+    # the turnaround pins: the backward wants first what the forward fetched
+    # last, so as many of those as the cache holds stay through the turn
+    pin_keys: frozenset = frozenset()
+    if cache is not None:
+        picked, total = [], 0
+        for g in bwd_order:
+            nb = plan.group_bytes(g, fetch=False)
+            if cache.capacity_bytes is not None and total + nb > cache.capacity_bytes:
+                break
+            picked.append(g.key)
+            total += nb
+        pin_keys = frozenset(picked)
+
+    def store(g, fetched, *, pinned: bool = False) -> None:
+        """Offer a landed group to the cache (its home part: the tied head's
+        borrowed table belongs to the embed group's entry)."""
+        if cache is not None:
+            cache.put(g.key, plan.cache_home_tree(g, fetched), plan.group_bytes(g, fetch=False),
+                      pinned=pinned)
+
+    box: dict = {}
+
+    def apply_f(i, carry, group):
+        g = plan.groups[i]
+        store(g, group, pinned=g.key in pin_keys)
+        batch = box["batch"]
+        if i == 0:
+            x = transformer.embed_stage(cfg, group, batch)
+            box.update(x=x, angles=transformer.stage_angles(cfg, batch, x.shape[1]),
+                       aux=torch.zeros((), dtype=f32, device=x.device), acts={})
+            return None
+        if i == head_idx:
+            (loss, metrics), dp, (dx,) = _vjp(
+                lambda p, x: transformer.head_stage_loss(cfg, p, x, box["aux"], batch), group,
+                (box["x"],))
+            dp_home, dp_embed = plan.split_head_grads(dp)
+            box.update(loss=loss.detach(), metrics={k: v.detach() for k, v in metrics.items()},
+                       dp_head=dp_home, dp_head_embed=dp_embed, ct=dx,
+                       sq=[_leaf_sqsums(dp_home)])
+            return None
+        box["acts"][i] = box["x"]  # the group's boundary activation
+        box["x"], box["aux"] = stage[i](group, box["x"], box["aux"], box["angles"])
+        return None
+
+    def apply_b(i, carry, group):
+        g = bwd_order[i]
+        store(g, group)
+        batch = box["batch"]
+        if g.kind == "embed":
+            _, dp, _ = _vjp(lambda p: transformer.embed_stage(cfg, p, batch), group, ct=box["ct"])
+            if box["dp_head_embed"] is not None:
+                # a tied head: the table's gradient is the gather path's plus
+                # the head path's, added in this order on every home
+                dp["embed"] = tr.tree_map(lambda a, b: a + b.to(a.dtype), dp["embed"],
+                                          box["dp_head_embed"])
+            box["sq"].append(_leaf_sqsums(dp))
+            return None, dp
+        fn = stage[g.index]
+        _, dp, (dx,) = _vjp(lambda p, x: fn(p, x, box["aux0"], box["angles"]), group,
+                            (box["acts"].pop(g.index),), box["ct"])
+        box["ct"] = dx
+        box["sq"].append(_leaf_sqsums(dp))
+        return None, dp
+
+    def apply_o(i, carry, group):
+        flat_g, treedef = tr.flatten(group["g"])
+        flat_s = tr.flatten(group["s"], is_leaf=is_state_leaf)[0]
+        out = [adamw_leaf_update(opt_cfg, box["glob"], gr, s) for gr, s in zip(flat_g, flat_s)]
+        new_p = tr.unflatten(treedef, [p.to(cfg.compute_dtype) for p, _ in out])
+        new_s = tr.unflatten(treedef, [s for _, s in out])
+        if cache is not None:
+            # the update made every cached copy of this group stale; new_p is
+            # the exact value the drain re-homes, so refreshing with it keeps
+            # the cache bitwise a re-fetch of the new home
+            g = o_order[i]
+            cache.refresh(g.key, plan.cache_home_tree(g, new_p), plan.group_bytes(g, fetch=False))
+        return None, {"p": new_p, "s": new_s}
+
+    dev = engine.device
+    ex_f = HostStreamExecutor(apply_f, indexed=True, engine=engine)
+    ex_b = HostStreamExecutor(apply_b, indexed=True, writeback=True, engine=engine)
+    ex_o = HostStreamExecutor(apply_o, indexed=True, writeback=True, engine=engine)
+
+    def rehome(g, out):
+        p_new = tr.tree_map(host_array, out["p"])
+        s_new = tr.tree_map(host_array, out["s"])
+        if param_kind == "disk_host":
+            spill_store.put(plan.spill_key(g), p_new)
+            spill_store.put(f"wopt/{g.key}", s_new)
+            return spill_store.get(plan.spill_key(g)), spill_store.get(f"wopt/{g.key}")
+        if param_kind == "device":
+            return (tr.tree_map(lambda x: host_tensor(x).to(dev), p_new),
+                    tr.tree_map(lambda x: host_tensor(x).to(dev), s_new))
+        return p_new, s_new  # pinned_host: the drained host arrays are the home
+
+    @torch.no_grad()
+    def step_body(state, batch):
+        home, opt = state["params"], state["opt"]
+        box.clear()
+        box["batch"] = batch
+        # phase F: with a cache the fetches are thunks resolved at submit
+        # time, so each sees the cache as it is when its transfer goes out
+        fwd = (plan.fetch_thunks_forward(home, cache) if cache is not None
+               else plan.fetch_groups_forward(home))
+        ex_f.run(None, fwd, mode=mode, prefetch=pf, stats=stats,
+                 group_keys=[g.key for g in plan.groups])
+        # phase B: reverse order; the gradients drain D2H
+        box["aux0"] = torch.zeros((), dtype=f32, device=box["ct"].device)
+        if cache is not None:
+            bwd = [(lambda g=g: plan.fetch_group(home, g, cache)) for g in bwd_order]
+        else:
+            bwd = [fwd[g.index] for g in bwd_order]
+        _, grad_outs = ex_b.run(None, bwd, mode=mode, prefetch=pf, stats=stats,
+                                group_keys=[g.key for g in bwd_order])
+        step_no = int(np.asarray(opt["step"])) + 1
+        sq = [s for chunk in box["sq"] for s in chunk]
+        box["glob"] = adamw_globals_from_norm(opt_cfg, torch.sqrt(torch.sum(torch.stack(sq))),
+                                              step_no)
+        # phase O: {grads, moments} in, {params, moments} out on one drain
+        grads = {plan.groups[-1].key: box.pop("dp_head")}
+        grads.update((g.key, tr.tree_map(host_array, out)) for g, out in zip(bwd_order, grad_outs))
+        o_groups = [{"g": grads.pop(g.key), "s": opt["groups"][g.key]} for g in o_order]
+        _, o_outs = ex_o.run(None, o_groups, mode=mode, prefetch=pf, stats=opt_stats,
+                             group_keys=[g.key for g in o_order])
+        del o_groups
+        new_home, new_opt = {}, {}
+        for g, out in zip(o_order, o_outs):
+            new_home[g.key], new_opt[g.key] = rehome(g, out)
+        glob = box["glob"]
+        metrics = {"loss": box["loss"], **box["metrics"], "grad_norm": glob["grad_norm"],
+                   "lr": glob["lr"]}
+        # the step's device scratch (activations, cotangents) must not outlive
+        # it into the checkpoint and data gap
+        box.clear()
+        return ({"params": {"groups": {g.key: new_home[g.key] for g in plan.groups}},
+                 "opt": {"groups": {g.key: new_opt[g.key] for g in plan.groups},
+                         "step": np.asarray(step_no, np.int32)}},
+                metrics)
+
+    def step_fn(state, batch):
+        if cache is None:
+            return step_body(state, batch)
+        try:
+            return step_body(state, batch)
+        except BaseException:
+            # a step that died mid-update leaves some cached groups refreshed
+            # and some stale: only an empty cache is safe
+            cache.clear()
+            raise
+        finally:
+            cache.unpin_all()
+
+    def close():
+        for ex in (ex_f, ex_b, ex_o):
+            ex.close()
+        if own_engine:
+            engine.close()
+        if cache is not None:
+            cache.clear()  # release the resident device copies
+
+    step_fn.close = close  # type: ignore[attr-defined]
+    step_fn.param_stats = stats  # type: ignore[attr-defined]
+    step_fn.opt_stats = opt_stats  # type: ignore[attr-defined]
+    step_fn.engine = engine  # type: ignore[attr-defined]
+    step_fn.residency = cache  # type: ignore[attr-defined]
+    return step_fn

@@ -317,11 +317,212 @@ def test_parse_group_key_matches_jax(key):
     assert el.parse_group_key(key) == jax_el.parse_group_key(key)
 
 
-@pytest.mark.parametrize("fn", ["reshard_grouped_checkpoint", "ensure_plan_matches_checkpoint",
-                                "prune_stale_spill"])
-def test_grouped_reshard_is_queued(fn):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        getattr(el, fn)(None)
+# ---------------------------------------------------------------------------
+# grouped (weight-streamed) checkpoints: saved under the JAX package's names,
+# resharded into the JAX package's files
+# ---------------------------------------------------------------------------
+
+#: (arch, config overrides, layers a group before, after)
+RESHARDS = {
+    "uniform-split": ("smollm-360m", {"n_layers": 4}, 2, 1),
+    "uniform-merge": ("smollm-360m", {"n_layers": 4}, 1, 3),
+    "period": ("recurrentgemma-2b", {"n_layers": 6}, 1, 2),
+    "unrolled": ("recurrentgemma-2b", {}, 2, 1),
+}
+
+
+def _ws_plans(arch, over, lpg):
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.core.weightstream import WeightStreamPlan as JaxPlan
+    from repro.train import steps as jax_steps
+    from repro_torch.core.weightstream import WeightStreamPlan
+
+    pc = dataclasses.replace(get_smoke_config(arch), **over)
+    jc = dataclasses.replace(jax_smoke(arch), **over)
+    return (pc, WeightStreamPlan(pc, st.abstract_params(pc), layers_per_group=lpg),
+            JaxPlan(jc, jax_steps.abstract_params(jc), layers_per_group=lpg))
+
+
+def _grouped_checkpoint(root, arch, over, lpg, step=3):
+    """A port checkpoint of a weight-streamed state after one streamed step
+    (moments non-zero), grouped ``lpg`` layers a group."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    cfg, plan, _ = _ws_plans(arch, over, lpg)
+    fn = st.make_weight_streamed_train_step(cfg, AdamWConfig(peak_lr=1e-3, warmup_steps=1,
+                                                              total_steps=4),
+                                            plan=plan, param_kind="pinned_host", device="cpu")
+    state = st.init_weight_streamed_state(cfg, plan, 0, "cpu")
+    try:
+        state, _ = fn(state, synthetic_batch(cfg, SyntheticConfig(cfg.vocab_size, 16, 2, 0), 0))
+    finally:
+        fn.close()
+    CheckpointManager(root, keep=0).save(step, state, blocking=True, extra_meta={"k": 1})
+    return state
+
+
+def _files(d: Path) -> dict:
+    return {f.name: f.read_bytes() for f in sorted(d.iterdir()) if f.suffix == ".npy"}
+
+
+@pytest.mark.parametrize("case", sorted(RESHARDS))
+def test_reshard_gives_the_jax_files_byte_for_byte(tmp_path, case):
+    """The same grouped checkpoint, copied twice and resharded to a new
+    grouping by each package: the same leaf files, byte for byte, and the
+    same leaf list."""
+    import shutil
+
+    from repro.checkpoint.manager import CheckpointManager as JaxCkpt
+    from repro_torch.checkpoint import CheckpointManager
+
+    arch, over, before, after = RESHARDS[case]
+    _grouped_checkpoint(tmp_path / "orig", arch, over, before)
+    shutil.copytree(tmp_path / "orig", tmp_path / "ours")
+    shutil.copytree(tmp_path / "orig", tmp_path / "theirs")
+    _, plan, jplan = _ws_plans(arch, over, after)
+    assert el.reshard_grouped_checkpoint(CheckpointManager(tmp_path / "ours", keep=0), plan)
+    assert jax_el.reshard_grouped_checkpoint(JaxCkpt(tmp_path / "theirs", keep=0), jplan)
+    ours, theirs = (tmp_path / d / "step_00000003" for d in ("ours", "theirs"))
+    a, b = _files(ours), _files(theirs)
+    assert sorted(a) == sorted(b) and len(a) > 10
+    assert all(a[k] == b[k] for k in a)
+    la, lb = (__import__("json").loads((d / "meta.json").read_text())["leaves"]
+              for d in (ours, theirs))
+    assert la == lb
+    assert {g.key for g in plan.groups} == {n.split("__")[2] for n in a if "__groups__" in n}
+    # nothing left to do on the new grouping
+    assert not el.reshard_grouped_checkpoint(CheckpointManager(tmp_path / "ours", keep=0), plan)
+
+
+def test_resharded_checkpoint_restores_the_state_regrouped(tmp_path):
+    """The restore template of the new grouping reads the resharded files:
+    assembled, the parameters and moments are the saved ones."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim.adamw import is_state_leaf
+
+    arch, over, before, after = RESHARDS["uniform-split"]
+    saved = _grouped_checkpoint(tmp_path, arch, over, before)
+    cfg, plan_a, _ = _ws_plans(arch, over, before)
+    _, plan_b, _ = _ws_plans(arch, over, after)
+    assert el.ensure_plan_matches_checkpoint(tmp_path, plan_b, run_meta={"k": 2})
+    assert not el.ensure_plan_matches_checkpoint(tmp_path, plan_b)
+    assert not el.ensure_plan_matches_checkpoint(tmp_path / "none", plan_b)
+    ckpt = CheckpointManager(tmp_path, keep=0)
+    assert ckpt.load_meta(3)["extra"] == {"k": 2}
+    step, got = ckpt.restore(st.abstract_weight_streamed_state(cfg, plan_b))
+    assert step == 3 and int(got["opt"]["step"]) == 1
+
+    def fields(plan, groups, field):
+        out = {}
+        for k, tree in groups.items():
+            flat, td = tr.flatten(tree, is_leaf=is_state_leaf)
+            out[k] = tr.unflatten(td, [x[field] if field else x for x in flat])
+        return tr.leaves(plan.assemble({"groups": out}))
+
+    for field in (None, "master", "m", "v"):
+        part = "params" if field is None else "opt"
+        for x, y in zip(fields(plan_a, saved[part]["groups"], field),
+                        fields(plan_b, got[part]["groups"], field), strict=True):
+            assert np.asarray(x).tobytes() == np.asarray(y).tobytes()
+
+
+def test_grouped_state_saves_under_the_jax_leaf_names(tmp_path):
+    """A weight-streamed state saves as the JAX package's does:
+    ``{params|opt}__groups__<gkey>__<subpath>``, the same files."""
+    import jax
+
+    from repro.checkpoint.manager import CheckpointManager as JaxCkpt
+    from repro.train import steps as jax_steps
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import weight_streamed_state_from_numpy
+
+    _, plan, jplan = _ws_plans("smollm-360m", {"n_layers": 4}, 2)
+    jstate = jax_steps.init_weight_streamed_state(jax.random.PRNGKey(0), jplan.cfg, jplan)
+    JaxCkpt(tmp_path / "theirs").save(0, jstate, blocking=True)
+    CheckpointManager(tmp_path / "ours").save(
+        0, weight_streamed_state_from_numpy(jax.tree.map(np.asarray, jstate)), blocking=True)
+    a, b = (_files(tmp_path / d / "step_00000000") for d in ("ours", "theirs"))
+    assert sorted(a) == sorted(b)
+    assert all(a[k] == b[k] for k in a)
+    assert "opt__groups__g001_layers_000_002__attn__wq__master.npy" in a
+
+
+def test_prune_stale_spill_matches_jax(tmp_path):
+    from repro.core.spillstore import SpillStore as JaxStore
+    from repro_torch.core.spillstore import SpillStore
+
+    _, plan_a, _ = _ws_plans("smollm-360m", {"n_layers": 4}, 2)
+    _, plan_b, jplan_b = _ws_plans("smollm-360m", {"n_layers": 4}, 1)
+    kept = {}
+    for name, cls, pb in (("ours", SpillStore, plan_b), ("theirs", JaxStore, jplan_b)):
+        store = cls(tmp_path / name)
+        for g in plan_a.groups:
+            store.put(plan_a.spill_key(g), {"w": np.zeros(3, np.float32)})
+            store.put(f"wopt/{g.key}", {"w": np.zeros(3, np.float32)})
+        store.put(pb.spill_key(pb.groups[1]), {"w": np.ones(2, np.float32)})
+        store.put("opt_g0000", {"w": np.ones(2, np.float32)})
+        n = (el if name == "ours" else jax_el).prune_stale_spill(store, pb)
+        kept[name] = (n, sorted(store.keys()))
+        store.close()
+    assert kept["ours"] == kept["theirs"]
+    assert kept["ours"][0] == 6  # wp/ and wopt/ of the old layer groups and head
+
+
+# ---------------------------------------------------------------------------
+# chaos: kill a disk-homed streamed-weight run at each pipeline phase
+# ---------------------------------------------------------------------------
+
+
+def _ws_driver(root, *, steps=6, every=2, fail_at=None):
+    from repro_torch.launch.train import build_trainer
+
+    cfg = dataclasses.replace(get_smoke_config("smollm-360m"), n_layers=2)
+    return build_trainer(
+        cfg, global_batch=2, seq_len=16,
+        opt_cfg=AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=steps),
+        driver_cfg=DriverConfig(total_steps=steps, checkpoint_every=every,
+                                checkpoint_dir=str(root), log_every=0, max_restarts=3),
+        fail_at=fail_at, param_kind="disk_host", param_layers_per_group=1,
+        transfer_retries=1, device="cpu")
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("sanitize", [False, True], ids=["plain", "sanitized"])
+@pytest.mark.parametrize("phase", ["forward_fetch", "d2h_drain", "ckpt_commit"])
+def test_chaos_phase_kill_recovers_bitwise(tmp_path, monkeypatch, phase, sanitize):
+    """Kill a disk-homed streamed-weight run mid-step at one pipeline phase:
+    the restarted run's losses are bitwise the unfailed run's.  Sanitized, a
+    kill mid-drain leaves writebacks pending, and the restart must discard
+    them before re-fetching the same groups."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.hoststream import HostStreamExecutor
+
+    if sanitize:
+        monkeypatch.setenv("REPRO_SANITIZE", "1")
+    ref = _ws_driver(tmp_path / "ref")
+    ref.run()
+    ref_losses = {h["step"]: h["loss"] for h in ref.history}
+    armed = {"at": 5, "n": 0}  # the 5th call: step 4, not a checkpoint step
+    cls, name, nth = {"forward_fetch": (HostStreamExecutor, "run", None),
+                      "d2h_drain": (TransferEngine, "drain_writebacks", None),
+                      "ckpt_commit": (CheckpointManager, "save", 2)}[phase]
+    real = getattr(cls, name)
+
+    def chaos(self, *a, **kw):
+        if armed["at"] is not None:
+            armed["n"] += 1
+            if armed["n"] == (nth or armed["at"]):  # ckpt: the second periodic save
+                armed["at"] = None
+                raise RuntimeError(f"injected {phase} kill")
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(cls, name, chaos)
+    d = _ws_driver(tmp_path / "chaos")
+    d.run()
+    assert armed["at"] is None, "the chaos fault never fired"
+    assert d.restarts == 1
+    got = {h["step"]: h["loss"] for h in d.history}  # replayed steps overwrite
+    assert got == ref_losses
 
 
 # ---------------------------------------------------------------------------

@@ -389,17 +389,81 @@ def _main(monkeypatch, *argv):
     return launch.main()
 
 
-@pytest.mark.parametrize("flag", [
-    ["--param-kind", "pinned_host"], ["--param-kind", "disk_host"],
-    ["--device-budget-mb", "2"], ["--param-layers-per-group", "1"], ["--expert-stream"],
-    ["--verify-schedule"], ["--model-parallel", "2"],
-])
+@pytest.mark.parametrize("flag", [["--expert-stream"], ["--model-parallel", "2"]])
 def test_cli_refuses_what_is_not_ported(monkeypatch, capsys, flag):
     with pytest.raises(SystemExit) as e:
         _main(monkeypatch, "--arch", "smollm-360m", "--smoke", "--device", "cpu", *flag)
     assert e.value.code == 2
-    where = "queue 1 item 5" if flag[0] == "--model-parallel" else "queue 1 item 6"
+    where = "queue 1 item 5" if flag[0] == "--model-parallel" else "queue 1 item 7"
     assert where in capsys.readouterr().err
+
+
+def test_cli_verify_schedule_needs_streamed_weights(monkeypatch, capsys):
+    with pytest.raises(SystemExit) as e:
+        _main(monkeypatch, "--arch", "smollm-360m", "--smoke", "--device", "cpu",
+              "--verify-schedule")
+    assert e.value.code == 2
+    assert "streamed --param-kind" in capsys.readouterr().err
+
+
+#: streamed-weight flags the CLI trains through; each run's losses must be
+#: the device run's bits
+STREAMED_FLAGS = {
+    "pinned_host": ["--param-kind", "pinned_host"],
+    "disk_host": ["--param-kind", "disk_host"],
+    "device-budget-mb": ["--param-kind", "pinned_host", "--device-budget-mb", "0.2"],
+    "param-layers-per-group": ["--param-kind", "disk_host", "--param-layers-per-group", "1"],
+    "verify-schedule": ["--param-kind", "pinned_host", "--verify-schedule"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(STREAMED_FLAGS))
+def test_cli_trains_through_streamed_weight_flags(monkeypatch, capsys, tmp_path, name):
+    import json
+
+    base = ["--arch", "smollm-360m", "--smoke", "--device", "cpu", "--steps", "3", "--batch",
+            "2", "--seq", "16", "--checkpoint-every", "2"]
+    hist = {}
+    for run, extra in (("device", []), ("streamed", STREAMED_FLAGS[name])):
+        hist[run] = tmp_path / f"{run}.json"
+        assert _main(monkeypatch, *base, "--checkpoint-dir", str(tmp_path / run),
+                     "--history-out", str(hist[run]), *extra) == 0
+    out = capsys.readouterr().out
+    losses = {run: [h["loss"] for h in json.loads(p.read_text())] for run, p in hist.items()}
+    assert losses["streamed"] == losses["device"] and len(losses["device"]) == 3
+    assert ("OK: occupancy, hazards, pins verified" in out) == (name == "verify-schedule")
+
+
+def test_cli_streamed_weights_checkpoint_resume_and_regroup(monkeypatch, capsys, tmp_path):
+    """Disk-homed weights under a budget with the schedule printed: one
+    failure recovered from step 1's checkpoint; a second run with more steps
+    resumes from the last checkpoint, one layer a group (the checkpoint
+    resharded first), and re-homes the restored state on disk."""
+    import json
+
+    from repro_torch.checkpoint import CheckpointManager
+
+    ck, hist = tmp_path / "ck", tmp_path / "h.json"
+    args = ["--arch", "smollm-360m", "--smoke", "--device", "cpu", "--batch", "2", "--seq", "16",
+            "--checkpoint-dir", str(ck), "--checkpoint-every", "2", "--param-kind", "disk_host",
+            "--history-out", str(hist)]
+    assert _main(monkeypatch, *args, "--steps", "6", "--fail-at", "3", "--device-budget-mb",
+                 "0.3", "--verify-schedule") == 0
+    out = capsys.readouterr().out
+    assert "schedule[train] smollm-360m" in out and "1 restarts" in out
+    assert [h["step"] for h in json.loads(hist.read_text())] == [0, 1, 2, 2, 3, 4, 5]
+    failed = {h["step"]: h["loss"] for h in json.loads(hist.read_text())}
+    # the unfailed run gives the same losses
+    unfailed = tmp_path / "u.json"
+    assert _main(monkeypatch, *args[:9], "--checkpoint-dir", str(tmp_path / "u"),
+                 "--checkpoint-every", "2", "--param-kind", "disk_host", "--history-out",
+                 str(unfailed), "--steps", "6", "--device-budget-mb", "0.3") == 0
+    assert {h["step"]: h["loss"] for h in json.loads(unfailed.read_text())} == failed
+    assert _main(monkeypatch, *args, "--steps", "8", "--param-layers-per-group", "1") == 0
+    resumed = json.loads(hist.read_text())
+    assert [h["step"] for h in resumed] == [6, 7] and all(np.isfinite(h["loss"]) for h in resumed)
+    meta = CheckpointManager(ck).load_meta()
+    assert meta["step"] == 7 and meta["extra"]["weight_groups"][1]["key"] == "g001_layers_000_001"
 
 
 def test_cli_trains_checkpoints_and_resumes_through_a_failure(monkeypatch, capsys, tmp_path):
