@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths, the paper's offload path,
-training (with the weights on the card and streamed from the host or
-disk) and the paper's tables on one NVIDIA card.
+"""Drive the PyTorch port's serving paths (dense, hybrid and MoE), the
+paper's offload path, training (with the weights on the card and streamed
+from the host or disk) and the paper's tables on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -22,7 +22,9 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    split, at 130³ by cp.async and at 64 x 256 x 192; its tensor-core route
    at both of smollm-360m's MLP shapes), ``rglru_scan`` for three
    ``(chunk_t, block_w)`` tilings; flash also at head_dim 128 with 1 and 8
-   query heads per KV head and a window; the attention kernels also at the
+   query heads per KV head and a window, and at mixtral-8x7b's prefill
+   (batch 2, prompt 512, 32 heads over 8, window 4096) and decode (its
+   528-slot ring); the attention kernels also at the
    hybrid's head_dim 256 with 10 query heads over 1 KV head, on scores
    peaked enough that a missing key block or a window off by one fails
    (decode there at atol 2e-3), decode also at every edge of its key
@@ -64,6 +66,33 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    ``param_cache_mb=0``, gen 8: 0 and all groups fetched each decode step;
    (e) (a) under the hazard sanitizer, bitwise, and a 100 MB budget (under
    the distance-1 floor) refused before any thread exists;
+2m. serve full-width mixtral-8x7b (d_model 4096, 32 heads over 8, head_dim
+   128, 8 experts of d_ff 14336 top-2, window 4096, bf16; random weights
+   from seed 0) through ``serve`` with ``attn_impl="pallas"``: batch 2,
+   prompt 512, gen 16, unpaged, each run with the launch counts zeroed just
+   before and read just after and the decode routing recorded: (a) 4
+   layers on the card (6.07 B parameters), the bitwise baseline; its
+   prefill logits and first decode step within 5e-2 of the plain
+   attention path's, the routing decisions that differ counted; (b) the same
+   4 layers with ``expert_stream=True`` at pinned host under 9,000 MB (above
+   the plan's distance-1 floor of three MoE units, 8,707,620,864 bytes),
+   routed, at distance 0 and 1 (``param_cache_mb=0``) and ``auto`` (the
+   default cache, too small for an expert group); (c) all experts
+   (``route_experts=False``), auto; (d) disk, routed, gen 8, spilled under
+   ``build/spill-moe/`` (deleted after); (e) all 32 layers (93.41 GB, more
+   than the card), routed, gen 4, at pinned host, initialized group by
+   group, run after (f0) and before any spill, and refused before it starts
+   unless the host's MemAvailable holds the home with 3 GB to spare; (f)
+   the paged ``ServeSession`` at pinned-host pages with (b)'s weights and
+   routed experts, against (f0), the same session with the weights on the
+   card (mixtral's ring does not page, and at 528 positions its window
+   never binds, so the session serves the same weights with full
+   attention).  Gates: (b), (c), (d) tokens bitwise (a)'s, (f) (f0)'s; one
+   H2D request a fetched group; every expert request and byte the recorded
+   routing's distinct experts times the plan's expert group, and at
+   ``param_cache_mb=0`` every pipeline request and byte the plan's; streamed
+   plus cached bytes within the analyzer's peak and the budget; routed
+   expert bytes a layer a decode step at most half (c)'s, (e) too;
 3. check the output: shapes, token range, finite logits, and the kernel
    path's logits against the plain path's (``attn_impl="xla"``) on the same
    full-width model and prompt;
@@ -90,7 +119,8 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    same function (``scaled_dot_product_attention``, ``torch.matmul``:
    yardsticks the port never calls; no single PyTorch call computes a
    linear recurrence) with CUDA events, L2 flushed before every launch, at
-   both serving paths' shapes and ``streamed_matmul`` on both routes (the
+   the serving paths' shapes (mixtral's from phase 2m (a)) and
+   ``streamed_matmul`` on both routes (the
    MLP in bf16, the sweep's 512³ in f32), beside the least time the card
    could take (bytes at 3.35 TB/s; FLOPs at 989 TFLOP/s bf16 on the tensor
    cores, or 67 TFLOP/s f32 on the CUDA cores); it also logs the host time
@@ -165,6 +195,7 @@ device, or outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -211,6 +242,16 @@ LG_PROMPTS, LG_GENS, LG_SHARED = (128, 256, 512), (8, 16, 32), 64
 # the distance-1 floor; the disk and residency runs' shorter generation
 W_BUDGET_MB, W_PAGED_BUDGET_MB, W_FLOOR_MB = 160, 176, 100
 W_GROUPS, W_PASS_BYTES, W_SHORT_GEN = 34, 818_014_080, 8
+# phase 2m: full-width mixtral-8x7b, cut to 4 layers for the runs that have a
+# device-resident twin; the budget above the expert plan's distance-1 floor
+# (three MoE units, 8,707,620,864 bytes) with a residency cache (292 MB) that
+# holds no expert group (352,321,536 bytes); the disk run's and the whole
+# model's shorter generation; the whole model's depth and the host memory it
+# must leave free (the H100 host this was sized on: MemTotal 105,906,176 kB,
+# 80.2 GB of free disk)
+MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2, 512, 16
+MOE_BUDGET_MB, MOE_DISK_GEN, MOE_FULL_GEN = 9000, 8, 4
+MOE_FULL_LAYERS, MOE_HOST_MARGIN = 32, 3_000_000_000
 # the recurrentgemma-2b cell: a prompt longer than the 2048-token window
 HYB_PROMPT = 3072
 # phase 6: full-width smollm-360m training at the JAX package's train defaults
@@ -330,6 +371,8 @@ def phase_kernels(cfg, hcfg) -> dict:
         (1, 128, 128, 4, 2, 128, 0, 0),
         (1, 300, 300, 8, 8, 128, 100, 0),
         (2, 300, 300, 8, 1, 128, 100, 20),
+        # mixtral-8x7b's prefill: head_dim 128, 4 query heads a KV head, window 4096
+        (MOE_BATCH, MOE_PROMPT, MOE_PROMPT, 32, 8, 128, 4096, 0),
     ]
     for i, (b, s, t, nn, kk, hh, window, qo) in enumerate(flash_cases):
         q, k, v = flash_inputs(b, s, t, nn, kk, hh)
@@ -339,12 +382,16 @@ def phase_kernels(cfg, hcfg) -> dict:
                           f"window={window} q_offset={qo}", out, ref)
         if i == 0:
             errs["flash_attention"] = err
+        if i == len(flash_cases) - 1:
+            errs["flash_attention_moe"] = err
     t = PROMPT + GEN
+    tm = MOE_PROMPT + MOE_GEN  # mixtral's ring: min(window, context) slots
     decode_cases = [
         (BATCH, t, n, kh, h, [t, 300, 77, 1]),
         (2, 1024, 8, 2, 64, [1, 777]),
         (1, 300, 4, 1, 128, [300]),
         (2, 256, 10, 5, 64, [0, 129]),
+        (MOE_BATCH, tm, 32, 8, 128, [tm, tm - 3]),
     ]
     for i, (b, tt, nn, kk, hh, lens) in enumerate(decode_cases):
         q, k, v, lengths = decode_inputs(b, tt, nn, kk, hh, lens)
@@ -361,6 +408,8 @@ def phase_kernels(cfg, hcfg) -> dict:
                 f" (buffer_size, distance): {same}")
             if not same:
                 raise SystemExit("decode_attention: value depends on the PrefetchSpec")
+        if i == len(decode_cases) - 1:
+            errs["decode_attention_moe"] = err
     errs.update(check_attention_256(hcfg))
     errs.update(check_rglru_scan(hcfg))
     errs.update(check_streamed_matmul(cfg))
@@ -938,6 +987,393 @@ def phase_streamed(cfg, params, unpaged: dict, unpaged_launches: dict) -> None:
             raise SystemExit(f"2w (e): {what} accepted a {W_FLOOR_MB} MB budget")
     log(f"  (e) sanitized run bitwise, {checks} sanitizer checks")
     log(f"  phase 2w done in {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 2m: full-width mixtral-8x7b through the MoE layers and route-aware
+# expert streaming
+# ---------------------------------------------------------------------------
+
+
+class RouteLog:
+    """Counts the distinct experts each decode routing picks (the routed
+    set a streamed MoE stage fetches): wraps ``moe.decode_route`` while in
+    use.  Its ``torch.unique`` reads the routing on the host, which the
+    streamed step does at the same point anyway."""
+
+    def __init__(self):
+        self.unique: list = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._orig = orig = moe.decode_route
+
+        def decode_route(cfg, p, x):
+            top_w, top_i = orig(cfg, p, x)
+            self.unique.append(int(torch.unique(top_i).numel()))
+            return top_w, top_i
+
+        moe.decode_route = decode_route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.decode_route = self._orig
+
+
+def moe_logit_check(cfg, params, prompts: torch.Tensor, device: str) -> None:
+    """(a)'s prefill logits and first decode step, kernel path against the
+    plain path on the same 4 layers, within LOGIT_RTOL of the largest logit;
+    the routing decisions that differ between the two are counted (bf16
+    attention differences can flip a near tie in a later layer)."""
+    from repro_torch.launch.serve import step_pos
+    from repro_torch.models import moe
+    from repro_torch.train import steps as st
+
+    b, s = prompts.shape
+    out, routes = {}, {}
+    orig = moe._router
+    nxt = None
+    for impl in ("pallas", "xla"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        tops = routes[impl] = []
+
+        def router(cfg_, p, x):
+            r = orig(cfg_, p, x)
+            tops.append(r[1])
+            return r
+
+        moe._router = router
+        try:
+            logits, caches = st.make_prefill_step(c, b, s + 2)(params, {"tokens": prompts})
+            if nxt is None:
+                nxt = logits[:, -1].argmax(-1)  # both paths decode the same token
+            logits2, _ = st.make_decode_step(c)(params, caches, {"tokens": nxt[:, None]},
+                                                step_pos(c, b, s, device))
+        finally:
+            moe._router = orig
+        out[impl] = (logits.float(), logits2.float())
+        del caches
+    flips = sum(int((a != b_).sum()) for a, b_ in zip(routes["pallas"], routes["xla"]))
+    total = sum(a.numel() for a in routes["pallas"])
+    for i, step in enumerate(("prefill", "decode")):
+        a, ref = out["pallas"][i], out["xla"][i]
+        if not (torch.isfinite(a).all() and torch.isfinite(ref).all()):
+            raise SystemExit(f"2m {step} logits are not finite")
+        rel = max_err(a, ref) / ref.abs().max().item()
+        same = bool((a.argmax(-1) == ref.argmax(-1)).all())
+        log(f"  (a) {step} logits, kernel path vs plain path: max |diff| / max |logit| = "
+            f"{rel:.3e} (limit {LOGIT_RTOL}), same greedy token: {same}")
+        if rel > LOGIT_RTOL:
+            raise SystemExit(f"2m {step} logits of the kernel path disagree with the plain path")
+    log(f"  (a) routing decisions that differ between the paths: {flips} of {total}")
+
+
+def reset_peak(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_allocated(device: str) -> int:
+    return torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+
+def moe_run(cfg, params, name: str, smi: str, *, gen: int, expect=None, device: str = "cuda",
+            **kw) -> dict:
+    """One serve of ``cfg`` through the entry point, unpaged, the launch
+    counts zeroed just before and read just after, the decode routing
+    recorded; logs the run's numbers beside the card's."""
+    from repro_torch.launch.serve import serve
+
+    reset_peak(device)
+    wrappers = serving_kernels()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with RouteLog() as routes:
+        res = serve(cfg, batch=MOE_BATCH, prompt_len=MOE_PROMPT, gen=gen, kv_page_len=0,
+                    seed=SEED, params=params, device=device, **kw)
+    res["launches"] = {k: w.launches for k, w in wrappers.items()}
+    res["routes"] = routes.unique
+    res["max_memory_allocated"] = peak_allocated(device)
+    walls = sorted(res["step_walls"])
+    line = (f"  {name}: prefill {res['prefill_s'] * 1e3:.3f} ms, decode step "
+            f"{res['decode_s'] * 1e3 / max(res['n_steps'], 1):.3f} ms (median host "
+            f"{walls[len(walls) // 2] * 1e3:.3f} ms) over {res['n_steps']} steps")
+    es, ps = res["expert_stats"], res["param_stats"]
+    if es is not None:
+        plan, steps = res["param_plan"], res["n_steps"]
+        rc = res["param_residency"]
+        line += (f"; transfer wait {(ps.transfer_wait_s + es.transfer_wait_s) / max(steps, 1) * 1e3:.3f}"
+                 f" ms a step ({es.transfer_wait_s / max(steps, 1) * 1e3:.3f} on experts); "
+                 f"experts {res['expert_decode_bytes'] / steps:.0f} B a decode step "
+                 f"({res['expert_decode_bytes'] / steps / cfg.n_layers:.0f} B a layer), "
+                 f"{sum(routes.unique) / max(len(routes.unique), 1):.3f} distinct experts a "
+                 f"layer; weight pipeline (non-expert groups) {ps.bytes_h2d} B over "
+                 f"{ps.n_runs} passes; residency "
+                 f"{rc['hits']} hits ({es.cache_hits} of them experts), {plan.n_groups} groups")
+    line += (f"; max_memory_allocated {res['max_memory_allocated']} B; launches "
+             f"{res['launches']} ({time.perf_counter() - t0:.1f} s; {smi})")
+    log(line)
+    if expect is not None and not np.array_equal(res["generated"], expect):
+        raise SystemExit(f"2m {name}: tokens differ from the run they must equal bitwise")
+    return res
+
+
+def check_moe_counts(name: str, res: dict, budget_bytes: int, *, disk: bool = False,
+                     cached: bool = True) -> None:
+    """The expert and weight-pipeline traffic of one streamed run against the
+    plan and the recorded routing: one H2D request a fetched group; expert
+    bytes the distinct routed experts of every decode call times the plan's
+    expert group bytes (an expert group is larger than the cache, so never
+    resident); with ``cached=False`` (``param_cache_mb=0``) the pipeline's
+    groups and bytes the plan's closed form too; streamed plus cached bytes
+    within the budget and the analyzer's peak."""
+    ps, es, plan = res["param_stats"], res["expert_stats"], res["param_plan"]
+    rc = res["param_residency"]
+    calls = len(res["routes"]) // plan.n_layers  # decode steps, the warm-up's too
+    routed = sum(res["routes"])
+    per_step = plan.embed_bytes + plan.n_layers * plan.nonexpert_layer_bytes + plan.head_fetch_bytes
+    checks = {
+        "expert groups fetched": (es.unique_group_fetches, routed),
+        "expert H2D requests": (es.h2d_requests, routed),
+        "expert bytes": (es.bytes_h2d, routed * plan.per_expert_bytes),
+        "expert resident hits": (es.cache_hits, 0),
+        "pipeline H2D requests": (ps.h2d_requests, ps.unique_group_fetches),
+        "pipeline groups": (ps.unique_group_fetches + ps.cache_hits,
+                            plan.n_groups + calls * (plan.n_layers + 2)),
+    }
+    if not cached:
+        checks["pipeline bytes"] = (ps.bytes_h2d, sum(plan.fetch_sequence_bytes()) + calls * per_step)
+        checks["pipeline hits"] = (ps.cache_hits, 0)
+    if disk:
+        checks["expert disk requests"] = (es.disk_requests, routed)
+        checks["pipeline disk requests"] = (ps.disk_requests, ps.unique_group_fetches)
+    for what, (got, want) in checks.items():
+        if got != want:
+            raise SystemExit(f"2m {name}: {what} {got}, the plan and routing give {want}")
+    for st_ in (ps, es):
+        if st_.per_tier()["h2d"]["requests_per_fetched_device_group"] != 1.0:
+            raise SystemExit(f"2m {name}: not one H2D request a fetched group")
+    held = ps.peak_inflight_bytes + es.peak_inflight_bytes + rc["peak_resident_bytes"]
+    if not held <= res["schedule_peak"] <= budget_bytes:
+        raise SystemExit(f"2m {name}: streamed + cached {held} B, the analyzer's peak "
+                         f"{res['schedule_peak']} B, the budget {budget_bytes} B")
+
+
+def expert_bytes_per_layer_step(res: dict) -> float:
+    return res["expert_decode_bytes"] / res["n_steps"] / res["param_plan"].n_layers
+
+
+def mem_available() -> int:
+    """The host's available memory (``/proc/meminfo``'s MemAvailable), B."""
+    info = dict(line.split(":", 1) for line in Path("/proc/meminfo").read_text().splitlines())
+    return int(info["MemAvailable"].split()[0]) * 1024
+
+
+def host_pinned_cached() -> int:
+    """Pinned host bytes the CUDA caching host allocator holds (0 off the
+    card or where the allocator reports none)."""
+    if not torch.cuda.is_available():
+        return 0
+    stats = torch.cuda.memory.host_memory_stats()
+    return int(stats.get("reserved_bytes.current", stats.get("allocated_bytes.current", 0)))
+
+
+def moe_home_fits(plan, margin_bytes: int) -> tuple[bool, int]:
+    """Whether the host's available memory holds ``plan``'s home with
+    ``margin_bytes`` to spare."""
+    avail = mem_available()
+    return avail >= plan.total_param_bytes + margin_bytes, avail
+
+
+def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
+    """Phase 2m: full-width mixtral-8x7b (or ``full``) served through the MoE
+    layers with the experts streamed route-aware from pinned host and disk.
+    Returns the device-resident run's kernel launches (for phase 5)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import schedcheck as sc
+    from repro_torch.core.refspec import AUTO
+    from repro_torch.core.weightstream import WeightStreamPlan
+    from repro_torch.launch import serve as sv
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.train import steps as st
+
+    t_phase = time.perf_counter()
+    log(f"  host MemAvailable {mem_available()} B, pinned cached {host_pinned_cached()} B")
+    full = dataclasses.replace(full or get_config("mixtral-8x7b"), attn_impl="pallas")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    total, _ = full.param_count()
+    log(f"phase 2m serve {full.name}: d_model {full.d_model}, {full.n_heads}/{full.n_kv_heads} "
+        f"heads, head_dim {full.head_dim}, {full.n_experts} experts of d_ff {full.d_ff} top-"
+        f"{full.moe_top_k}, window {full.window}, {full.dtype}; {total:,} parameters at "
+        f"{full.n_layers} layers; batch {MOE_BATCH}, prompt {MOE_PROMPT}, gen {MOE_GEN}; {smi}")
+    budget = int(MOE_BUDGET_MB * 1e6)
+    plan = WeightStreamPlan(cfg, st.abstract_params(cfg), expert_stream=True,
+                            device_budget_mb=MOE_BUDGET_MB)
+    floor = plan.peak_device_bytes(1)
+    log(f"  plan: {plan.n_groups} groups ({plan.per_expert_bytes} B an expert group, "
+        f"{plan.nonexpert_layer_bytes} B a non-expert group), {plan.total_param_bytes} B; "
+        f"budget {budget} B over the distance-1 floor {floor} B, distance cap "
+        f"{plan.max_distance_for_budget()}, cache {plan.residency_capacity_bytes()} B")
+    if not floor <= budget or plan.residency_capacity_bytes() >= plan.per_expert_bytes:
+        raise SystemExit("2m: the budget must hold the distance-1 floor and leave the cache "
+                         "smaller than one expert group")
+
+    # (a) 4 layers on the card: the bitwise baseline
+    params = st.init_params(cfg, SEED, device)
+    a = moe_run(cfg, params, "(a) device-resident", smi, gen=MOE_GEN, device=device)
+    want = a["generated"]
+    if want.shape != (MOE_BATCH, MOE_GEN) or want.min() < 0 or want.max() >= cfg.vocab_size:
+        raise SystemExit(f"2m (a): generated tokens malformed: {want.shape}")
+    # (the plain versions on the CPU count no launch: a rehearsal there skips this)
+    if device == "cuda" and min(a["launches"][k] for k in ("flash_attention", "decode_attention")) <= 0:
+        raise SystemExit(f"2m (a): a kernel of the path was not launched: {a['launches']}")
+    log(f"  (a) first request {want[0, :8].tolist()}...")
+    prompts = np.random.default_rng(SEED + 1).integers(1, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                                                      dtype=np.int32)  # serve()'s
+    moe_logit_check(cfg, params, torch.from_numpy(prompts).long().to(device), device)
+
+    # (f0) the paged session's device-resident twin (see (f))
+    pcfg = dataclasses.replace(cfg, attn_type="full")
+
+    def paged(name, weights, **kw):
+        reset_peak(device)
+        t0 = time.perf_counter()
+        with ServeSession(pcfg, slots=MOE_BATCH, max_len=MOE_PROMPT + MOE_GEN,
+                          kv_kind="pinned_host", page_len=PAGE_LEN, params=weights,
+                          device=device, **kw) as session:
+            rids = [session.submit(p, MOE_GEN) for p in prompts]
+            out = session.run()
+            toks = np.stack([out[r] for r in rids])
+            log(f"  {name}: {session.n_steps} steps, max_memory_allocated "
+                f"{peak_allocated(device)} B ({time.perf_counter() - t0:.1f} s)")
+            return toks, session.expert_stats, session.param_stats, session.schedule_report
+
+    f0, _, _, _ = paged("(f0) paged, weights on the card", params)
+    log(f"  (f0) tokens equal (a)'s: {bool(np.array_equal(f0, want))}")
+    del params
+    reset_peak(device)
+    stream = dict(param_kind="pinned_host", expert_stream=True, device_budget_mb=MOE_BUDGET_MB,
+                  device=device)
+
+    # (e) the whole model: more than the card holds, at the home this machine
+    # holds; (a)'s weights leave the card first and are drawn again after
+    big = dataclasses.replace(full, n_layers=MOE_FULL_LAYERS)
+    bplan = WeightStreamPlan(big, st.abstract_params(big), expert_stream=True,
+                             device_budget_mb=MOE_BUDGET_MB)
+    # give back the pinned staging the runs above left in the caching host
+    # allocator.  (e) runs before any disk spill of this phase: the H100
+    # host counts a spill's file pages as used, not available, after the
+    # files are gone (~11 GB after (d)'s)
+    gc.collect()
+    cached = host_pinned_cached()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+    fits, avail = moe_home_fits(bplan, MOE_HOST_MARGIN)
+    card = torch.cuda.get_device_properties(0).total_memory if device == "cuda" else 0
+    log(f"  (e) {big.n_layers} layers: {bplan.total_param_bytes} B of weights, the card "
+        f"{card} B, host MemAvailable {avail} B (margin {MOE_HOST_MARGIN} B; pinned cache "
+        f"{cached} B before emptying, {host_pinned_cached()} B after)")
+    if not fits:
+        raise SystemExit(f"2m (e): this machine's host cannot hold the {bplan.total_param_bytes}"
+                         f" B home with {MOE_HOST_MARGIN} B to spare ({avail} B available)")
+    t0 = time.perf_counter()
+    bhome = st.init_weight_streamed_params(big, bplan, SEED, device)
+    log(f"  (e) group-wise init to the host: {time.perf_counter() - t0:.1f} s, host "
+        f"MemAvailable then {moe_home_fits(bplan, 0)[1]} B")
+    res = moe_run(big, bhome, f"(e) {big.n_layers} layers, routed, pinned host", smi,
+                  gen=MOE_FULL_GEN, warmup=False, **stream)
+    log(f"  (e) host MemAvailable after the run {mem_available()} B")
+    del bhome
+    res["schedule_peak"] = sc.analyze_serve_schedule(
+        bplan, distance=bplan.max_distance_for_budget(),
+        cache_capacity=bplan.residency_capacity_bytes(),
+        fan_in=full.moe_top_k * MOE_BATCH).peak_bytes
+    check_moe_counts("(e)", res, budget)
+    whole = expert_bytes_per_layer_step(res)  # held to (c)'s below
+    gen = res["generated"]
+    if gen.shape != (MOE_BATCH, MOE_FULL_GEN) or gen.min() < 0 or gen.max() >= big.vocab_size:
+        raise SystemExit(f"2m (e): generated tokens malformed: {gen.shape}")
+    log(f"  (e) tokens {gen.tolist()}")
+
+    home = plan.init_home(st.init_params(cfg, SEED, device))  # (a)'s weights, at the host
+    reset_peak(device)
+
+    # (b) routed at pinned host, distances 0, 1 (no cache) and auto (the default cache)
+    peak = sc.analyze_serve_schedule(plan, distance=plan.max_distance_for_budget(),
+                                     cache_capacity=plan.residency_capacity_bytes(),
+                                     fan_in=full.moe_top_k * MOE_BATCH).peak_bytes
+    routed = {}
+    for dist, cache in ((0, 0.0), (1, 0.0), (AUTO, None)):
+        name = f"(b) routed, pinned host, distance {dist}"
+        res = moe_run(cfg, home, name, smi, gen=MOE_GEN, expect=want, param_distance=dist,
+                      param_cache_mb=cache, **stream)
+        res["schedule_peak"] = peak
+        check_moe_counts(name, res, budget, cached=cache is None)
+        if any(res["launches"][k] != a["launches"][k] for k in ("flash_attention",
+                                                                 "decode_attention")):
+            raise SystemExit(f"2m {name}: launches {res['launches']} differ from (a)'s")
+        routed[dist] = expert_bytes_per_layer_step(res)
+    # (c) all-expert through the same path
+    c = moe_run(cfg, home, "(c) all experts, pinned host, distance auto", smi, gen=MOE_GEN,
+                expect=want, route_experts=False, **stream)
+    all_e = expert_bytes_per_layer_step(c)
+    ces = c["expert_stats"]
+    if (ces.unique_group_fetches != MOE_GEN * cfg.n_layers * cfg.n_experts  # + the warm-up step
+            or ces.per_tier()["h2d"]["requests_per_fetched_device_group"] != 1.0):
+        raise SystemExit(f"2m (c): {ces.unique_group_fetches} expert groups fetched in "
+                         f"{ces.h2d_requests} requests")
+    for dist, b in routed.items():
+        if not 2 * b <= all_e:
+            raise SystemExit(f"2m (b) distance {dist}: {b} expert B a layer a step against the "
+                             f"all-expert {all_e}")
+    if not 2 * whole <= all_e:
+        raise SystemExit(f"2m (e): {whole} expert B a layer a step against the all-expert "
+                         f"{all_e}")
+    log(f"  routed against all experts, B a layer a decode step: {routed}, (e) {whole} vs "
+        f"{all_e} ({all_e / routed[AUTO]:.2f}x)")
+
+    # (d) disk, routed, distance auto
+    spill = ROOT / "build" / "spill-moe"
+    shutil.rmtree(spill, ignore_errors=True)
+    try:
+        res = moe_run(cfg, home, "(d) routed, disk", smi, gen=MOE_DISK_GEN,
+                      expect=want[:, :MOE_DISK_GEN], spill_dir=str(spill),
+                      **{**stream, "param_kind": "disk_host"})
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    res["schedule_peak"] = peak
+    check_moe_counts("(d)", res, budget, disk=True)
+
+    # (f) the paged session at pinned-host pages, the experts routed from the
+    # pinned-host home.  A ring cache (mixtral's window) is not pageable; at
+    # 528 positions the 4096-token window never binds, so the session serves
+    # the same weights with full attention and must give (f0)'s tokens
+    # the session's budget: (b)'s, plus the KV hot window it cuts first
+    page_nbytes = sv._page_nbytes(st.abstract_caches(pcfg, 1, MOE_PROMPT + MOE_GEN), PAGE_LEN)
+    hot_mb = MOE_BATCH * (1 + 2) * page_nbytes / 1e6
+    toks, es, ps, report = paged("(f) paged, routed experts at pinned host", home,
+                                 param_kind="pinned_host", expert_stream=True,
+                                 device_budget_mb=MOE_BUDGET_MB + hot_mb)
+    if not np.array_equal(toks, f0) or not report.ok:
+        raise SystemExit(f"2m (f): tokens bitwise (f0)'s: {np.array_equal(toks, f0)}, "
+                         f"schedule {report.ok}")
+    for st_ in (ps, es):
+        if st_.per_tier()["h2d"]["requests_per_fetched_device_group"] != 1.0:
+            raise SystemExit("2m (f): not one H2D request a fetched group")
+    log(f"  (f) experts {es.unique_group_fetches} groups / {es.bytes_h2d} B, weights "
+        f"{ps.unique_group_fetches} groups / {ps.bytes_h2d} B")
+    del home
+
+    log(f"  phase 2m done in {time.perf_counter() - t_phase:.1f} s")
+    return a["launches"]
 
 
 def phase_check(cfg, res: dict, prompt: int, phase: str) -> None:
@@ -1832,8 +2268,8 @@ def host_cost(cfg) -> None:
     log("  host time per call (enqueue only, us): " + ", ".join(f"{n} {c:.1f}" for n, c in costs.items()))
 
 
-def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict, sweep: list,
-                train: dict) -> list:
+def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict, mlaunches: dict,
+                sweep: list, train: dict) -> list:
     from repro_torch.core.refspec import PrefetchSpec
     from repro_torch.kernels.rglru_scan import linear_recurrence, linear_recurrence_ref
     from repro_torch.kernels.streamed_matmul import matmul_ref, streamed_matmul
@@ -1857,6 +2293,13 @@ def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict, sweep: l
         decode_row(hyb, hcfg.window, hcfg.n_heads, hcfg.n_kv_heads, hcfg.head_dim,
                    [hcfg.window] * BATCH, hlaunches["decode_attention"], errs["decode_attention_256"],
                    flush),
+        # mixtral-8x7b (phase 2m (a)): the lock-step prefill under the 4096
+        # window, and the last decode step over its ring of prompt + gen slots
+        flash_row("mixtral-8x7b", MOE_BATCH, MOE_PROMPT, 32, 8, 128, 4096,
+                  mlaunches["flash_attention"], errs["flash_attention_moe"], flush),
+        decode_row("mixtral-8x7b", MOE_PROMPT + MOE_GEN, 32, 8, 128,
+                   [MOE_PROMPT + MOE_GEN - 1] * MOE_BATCH, mlaunches["decode_attention"],
+                   errs["decode_attention_moe"], flush),
     ]
     # the recurrence of one rec layer's prefill: read a and b, write h, f32
     shape = (BATCH, HYB_PROMPT, hcfg.lru_width)
@@ -2047,20 +2490,21 @@ def main() -> int:
     phase_paged(cfg, params, res, launches)
     phase_streamed(cfg, params, res, launches)
     del params
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    mlaunches = phase_moe(smi)
     phase_check(cfg, res, PROMPT, "3")
     del res
     hres, hlaunches = phase_serve(hcfg, HYB_PROMPT, "2b",
                                   ("rglru_scan", "flash_attention", "decode_attention"))
     phase_check(hcfg, hres, HYB_PROMPT, "3b")
     del hres
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
     launches["streamed_matmul"], sweep = phase_paper(cfg)
     train = phase_train(cfg)
     phase_train_streamed(cfg, train, smi)
-    rows = phase_times(cfg, hcfg, errs, launches, hlaunches, sweep, train)
+    rows = phase_times(cfg, hcfg, errs, launches, hlaunches, mlaunches, sweep, train)
     phase_tables(smi)
     log(f"done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -3,8 +3,7 @@ training and serving.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.weight_stream [--device cpu]
 
-The JAX package's ``benchmarks/weight_stream.py`` without its expert gates:
-the weights of a 16-layer smollm-360m smoke model (12 under
+The JAX package's ``benchmarks/weight_stream.py``: the weights of a 16-layer smollm-360m smoke model (12 under
 ``REPRO_BENCH_SMOKE=1``) are homed at ``pinned_host`` or ``disk_host`` and
 streamed two layers a group through the transfer engine.  Gates:
 
@@ -36,8 +35,14 @@ streamed two layers a group through the transfer engine.  Gates:
     side's step cost is its median step wall, as in the JAX package, the
     two sides' steps interleaved so that both see the same machine.
 
-Not here: the expert gates need the MoE layers (ROADMAP.md, queue 1 item 7).
-The script prints so.
+Expert streaming, at the smoke mixtral-8x7b with 8 experts top-2 (batch 2,
+prompt 8, gen 6, seed 7, unpaged, ``param_cache_mb=0``):
+
+  * **expert bitwise**: routed decode (every ``param_kind`` x distance) and
+    the all-expert run give the device run's tokens;
+  * **expert requests**: one H2D request per fetched expert group;
+  * **expert traffic**: the decode loop's routed expert bytes are the same
+    at every kind and distance, and at most half the all-expert run's.
 
 Writes ``results/torch/BENCH_weights.json``.  Runs on the card unless
 ``--device cpu``.
@@ -86,6 +91,8 @@ LINK_KW = dict(request_s=0.15e-3, bandwidth_Bps=5e9, latency_s=2.5e-3)
 SANITIZE_STEPS = 32
 #: the JAX benchmark's decode run
 SERVE = dict(batch=2, prompt_len=12, gen=6, kv_kind="pinned_host", kv_page_len=4, seed=7)
+#: the JAX benchmark's expert-streamed decode run
+EXPERT_SERVE = dict(batch=2, prompt_len=8, gen=6, kv_page_len=0, seed=7, warmup=False)
 
 
 def _bits(x) -> np.ndarray:
@@ -337,6 +344,60 @@ def _decode_run(cfg, params, device, kind, distance, budget_mb, param_cache_mb=N
     return res["generated"], row
 
 
+def _expert_decode_run(cfg, device, kind, distance, route=True):
+    """One unpaged streamed serve with expert-split groups; returns (tokens,
+    row) with the decode loop's expert traffic."""
+    res = sv.serve(cfg, **EXPERT_SERVE, param_kind=kind, param_distance=distance,
+                   param_cache_mb=0.0, expert_stream=True, route_experts=route, device=device)
+    es = res["expert_stats"]
+    row = {
+        "phase": "decode_experts",
+        "param_kind": kind,
+        "distance": str(distance),
+        "route_experts": route,
+        "generated": res["generated"].tolist(),
+        "expert_decode_bytes": res["expert_decode_bytes"],
+        "expert_decode_fetches": res["expert_decode_fetches"],
+        "expert_bytes_per_step": res["expert_decode_bytes"] / max(res["n_steps"], 1),
+        "requests_per_fetched_device_group": (
+            es.per_tier()["h2d"]["requests_per_fetched_device_group"]),
+    }
+    return res["generated"], row
+
+
+def expert_gates(device) -> tuple[list, dict, str]:
+    """Routed decode fetches only the top-k experts: bitwise tokens for every
+    kind x distance, one request a fetched expert group, and at least 2x
+    fewer expert bytes a decode step than the all-expert run."""
+    ecfg = dataclasses.replace(get_smoke_config("mixtral-8x7b"), n_experts=8)
+    ref = sv.serve(ecfg, **EXPERT_SERVE, device=device)["generated"]
+    rows = []
+    ok = {"expert_bitwise": True, "expert_requests": True}
+    routed_bytes = {}
+    for kind in KINDS:
+        for dist in DISTANCES:
+            toks, row = _expert_decode_run(ecfg, device, kind, dist)
+            row["bitwise_equal_to_device"] = bool(np.array_equal(toks, ref))
+            ok["expert_bitwise"] &= row["bitwise_equal_to_device"]
+            ok["expert_requests"] &= row["requests_per_fetched_device_group"] == 1.0
+            routed_bytes[(kind, str(dist))] = row["expert_decode_bytes"]
+            rows.append(row)
+    a_toks, a_row = _expert_decode_run(ecfg, device, "pinned_host", AUTO, route=False)
+    a_row["bitwise_equal_to_device"] = bool(np.array_equal(a_toks, ref))
+    ok["expert_bitwise"] &= a_row["bitwise_equal_to_device"]
+    rows.append(a_row)
+    routed = routed_bytes[("pinned_host", AUTO)]
+    ok["expert_traffic"] = 2 * routed <= a_row["expert_decode_bytes"] and all(
+        b == routed for b in routed_bytes.values())
+    ratio = a_row["expert_decode_bytes"] / max(routed, 1)
+    summary = (f"experts: routed bitwise (every kind x distance, and all-expert): "
+               f"{ok['expert_bitwise']}; 1 req/fetched expert group: {ok['expert_requests']}; "
+               f"routed {routed} B vs all-expert {a_row['expert_decode_bytes']} B in the decode "
+               f"loop ({ratio:.2f}x, gate >= 2x, equal at every kind x distance): "
+               f"{ok['expert_traffic']}")
+    return rows, ok, summary
+
+
 def main(device: DeviceLike = None) -> int:
     device = resolve_device(device)
     cfg = dataclasses.replace(get_smoke_config("smollm-360m"), n_layers=N_LAYERS)
@@ -391,6 +452,14 @@ def main(device: DeviceLike = None) -> int:
         decode_residency_ok &= bool(tail) and all(f == tail_of(row) for f in tail)
         rows.append(row)
 
+    expert_rows, expert_ok, expert_summary = expert_gates(device)
+    C.print_table(
+        f"streamed weights, expert-split decode ({device})",
+        expert_rows,
+        ["phase", "param_kind", "distance", "route_experts", "expert_decode_bytes",
+         "expert_decode_fetches", "requests_per_fetched_device_group",
+         "bitwise_equal_to_device"],
+    )
     C.print_table(
         f"streamed weights, paged decode ({device})",
         rows,
@@ -398,15 +467,15 @@ def main(device: DeviceLike = None) -> int:
          "unique_group_fetches", "cache_hits", "peak_inflight_bytes",
          "cache_peak_resident_bytes", "bitwise_equal_to_device"],
     )
-    C.save_rows("BENCH_weights", train_rows + rows)
+    C.save_rows("BENCH_weights", train_rows + rows + expert_rows)
     print(train_summary)
     print(f"decode: bitwise (tokens, every kind x distance): {bitwise_ok}; streamed + cached "
           f"<= budget {budget_bytes} B < total {plan.total_param_bytes} B: {budget_ok}; "
           f"1 req/fetched group: {requests_ok}; decode steady-state "
           f"fetches (no budget -> 0, no cache -> {plan.n_groups}/step): {decode_residency_ok}")
-    print("not run here: the expert gates (the MoE layers, ROADMAP.md queue 1 item 7)")
+    print(expert_summary)
     return 0 if (all(train_ok.values()) and bitwise_ok and budget_ok and requests_ok
-                 and decode_residency_ok) else 1
+                 and decode_residency_ok and all(expert_ok.values())) else 1
 
 
 if __name__ == "__main__":

@@ -29,7 +29,9 @@ and :class:`~repro_torch.core.residency.ResidencyCache` under
 
 The analyzers duck-type the plan (only its byte model and group and unit
 tuples are read), and the reports are the JAX package's, string for string.
-The JAX package's CI sweep over every config (``_sweep``) is not ported.
+``python -m repro_torch.core.schedcheck`` sweeps every supported smoke
+config × layout × ``expert_stream`` (with and without a budget) through
+both analyzers and exits 1 on a violation, as the JAX package's CI sweep.
 """
 
 from __future__ import annotations
@@ -824,3 +826,64 @@ class HazardSanitizer:
                     "(or released without a matching acquire)"
                 )
             self._staging_marked.discard(buf_id)
+
+
+# --------------------------------------------------------------------------
+# CI sweep: every supported config × layout × expert_stream
+
+
+def _sweep() -> int:
+    """Analyze every supported smoke config's train and serve schedules,
+    with ``expert_stream`` too for the uniform MoE configs, unbudgeted and at
+    a budget of the distance-2 peak.  Returns the count of failures."""
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.core.weightstream import WeightStreamPlan, weight_stream_support
+    from repro_torch.models.transformer import check_supported
+    from repro_torch.train.steps import abstract_params
+
+    failures = 0
+    for arch in ARCHS:
+        cfg = get_smoke_config(arch)
+        try:
+            check_supported(cfg)
+        except NotImplementedError as e:
+            print(f"schedcheck: {arch}: skipped ({e})")
+            continue
+        support = weight_stream_support(cfg)
+        if not support.supported:
+            print(f"schedcheck: {arch}: skipped ({support.reason})")
+            continue
+        variants = [False]
+        if support.layout == "uniform" and getattr(cfg, "n_experts", 0):
+            variants.append(True)
+        params = abstract_params(cfg)
+        for expert_stream in variants:
+            base = WeightStreamPlan(cfg, params, expert_stream=expert_stream)
+            budget_mb = base.peak_device_bytes(2) / 1e6
+            for dbm in (None, budget_mb):
+                plan = WeightStreamPlan(cfg, params, device_budget_mb=dbm,
+                                        expert_stream=expert_stream)
+                d = plan.max_distance_for_budget()
+                cache_cap = plan.residency_capacity_bytes()
+                rep = analyze_train_schedule(plan, distance=d, cache_capacity=cache_cap,
+                                             spill=True)
+                tag = (f"{arch} expert_stream={int(expert_stream)} "
+                       f"budget={'none' if dbm is None else f'{dbm:.2f}MB'}")
+                if not rep.ok:
+                    failures += 1
+                    print(f"schedcheck: FAIL train {tag}\n{rep}")
+                else:
+                    print(f"schedcheck: ok train {tag} layout={plan.layout} "
+                          f"d={d} peak={rep.peak_bytes / 1e6:.2f}MB")
+                if support.serve_supported:
+                    srep = analyze_serve_schedule(plan, distance=d, cache_capacity=cache_cap)
+                    if not srep.ok:
+                        failures += 1
+                        print(f"schedcheck: FAIL serve {tag}\n{srep}")
+                    else:
+                        print(f"schedcheck: ok serve {tag} peak={srep.peak_bytes / 1e6:.2f}MB")
+    return failures
+
+
+if __name__ == "__main__":
+    raise SystemExit(1 if _sweep() else 0)

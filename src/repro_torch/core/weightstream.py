@@ -10,7 +10,10 @@ fetch groups:
   ----------  -----------------------------------------------------------
   ``embed``   the token embedding (always group 0)
   ``layers``  a contiguous ``[lo:hi)`` slice of the uniform stacked
-              ``blocks`` leaves
+              ``blocks`` leaves; under ``expert_stream`` the slice excludes
+              the routed-expert tensors (router, attention and norms only)
+  ``expert``  ONE routed expert of ONE MoE layer: the ``(1, d, f)`` rows of
+              ``moe.wi`` / ``moe.wo`` / ``moe.wg`` at that expert index
   ``period``  a slice of the stacked period units of a period-scanned
               stack (``blocks["periods"]``, the hybrid)
   ``block``   named unrolled blocks (``layer_###``, the period tails)
@@ -35,13 +38,19 @@ caps the adaptive prefetch window so the streamed residency never exceeds
 ``residency_capacity_bytes`` is the slack left above the widest allowed
 window.  Every integer is the JAX package's for the same config.
 
+A **stream unit** is what one stage consumes: a ``moe`` unit spans a
+layer's non-expert group and its E expert groups; every other kind is one
+group a unit.  Route-aware decode (``expert_stream``): the decode program
+fetches only a layer's non-expert group through the pipeline, runs the
+router first, then fetches just the routed experts' groups; the expert-
+granular residency cache keeps hot experts on the card.
+
 Where the data lives never changes what is computed: the streamed steps run
 the model's own layer body on the landed groups, so streamed runs are
 bitwise the device-resident run's.
 
-Not ported here: expert streaming (``expert_stream=True``,
-:func:`merge_expert_slice`) needs the MoE layers (ROADMAP.md, queue 1 item
-7), and per-group shardings need a mesh (item 5).
+Not ported here: per-group shardings need a mesh (ROADMAP.md, queue 1
+item 5).
 """
 from __future__ import annotations
 
@@ -73,8 +82,9 @@ PARAM_KINDS = ("device", "pinned_host", "disk_host")
 #: spill-store key namespace for parameter group chunks
 _KEY_PREFIX = "wp"
 
-_EXPERTS = ("expert streaming needs the MoE layers (ROADMAP.md, queue 1 item 7: "
-            "the other model families)")
+#: expert tensor names inside a block's ``moe`` subtree (``wg`` only when gated)
+_EXPERT_NAMES = ("wi", "wo", "wg")
+
 _SHARDINGS = ("per-group shardings need a mesh (ROADMAP.md, queue 1 item 5: "
               "multi-device and tooling)")
 
@@ -196,7 +206,8 @@ class WeightGroup:
 @dataclasses.dataclass(frozen=True)
 class StreamUnit:
     """One compute stage of the stream program: the group indices a single
-    stage call consumes (1:1 with groups without expert streaming)."""
+    stage call consumes (a ``moe`` unit spans the layer's non-expert group
+    and its expert groups; other kinds are 1:1)."""
 
     kind: str  # "layers" | "moe" | "period" | "block"
     gidx: tuple  # indices into plan.groups, fetch order
@@ -205,9 +216,17 @@ class StreamUnit:
 
 
 def merge_expert_slice(ne: Pytree, experts: Sequence[Pytree]) -> Pytree:
-    """Rebuild a one-layer block slice from its non-expert and expert groups:
-    not ported (the MoE layers are ROADMAP.md queue 1 item 7)."""
-    raise NotImplementedError(f"merge_expert_slice: {_EXPERTS}")
+    """Rebuild a stacked one-layer block slice from a non-expert group and
+    its per-expert groups: each expert leaf ``(1, d, f)`` gains an expert
+    axis and the stack concatenates to ``(1, E, d, f)``, bitwise the slice
+    the un-split layer group would have carried.  Tensors in, tensors out
+    (on the device the groups landed on)."""
+    moe = dict(ne["moe"])
+    for name in experts[0]:
+        moe[name] = torch.cat([e[name][:, None] for e in experts], dim=1)
+    out = dict(ne)
+    out["moe"] = moe
+    return out
 
 
 class WeightStreamPlan:
@@ -235,8 +254,10 @@ class WeightStreamPlan:
         :meth:`max_distance_for_budget` caps the prefetch window at run
         time.  ``None`` = unbounded.
     expert_stream:
-        split MoE layers into expert groups: not ported
-        (``NotImplementedError``, ROADMAP.md queue 1 item 7).
+        split each MoE layer into a non-expert group (router, attention,
+        norms) and one group per routed expert, for route-aware decode
+        fetches and an expert-granular residency cache.  Needs an MoE
+        config with the uniform layout; forces one layer a group.
     """
 
     def __init__(
@@ -251,8 +272,6 @@ class WeightStreamPlan:
         support = weight_stream_support(cfg)
         if not support.supported:
             raise ValueError(support.reason)
-        if expert_stream:
-            raise NotImplementedError(f"expert_stream=True: {_EXPERTS}")
         abstract_params = _as_dict(abstract_params)
         if "blocks" not in abstract_params:
             raise ValueError("param tree has no 'blocks' subtree")
@@ -261,7 +280,18 @@ class WeightStreamPlan:
         self.layout = support.layout
         self.n_layers = cfg.n_layers
         self.scan_period = cfg.scan_period
-        self.expert_stream = False
+        if expert_stream:
+            if self.layout != "uniform":
+                raise ValueError(
+                    f"{cfg.name}: --expert-stream needs the uniform layout "
+                    f"(this arch streams via {self.layout} group programs)"
+                )
+            if not cfg.n_experts:
+                raise ValueError(
+                    f"{cfg.name}: --expert-stream requires an MoE config "
+                    "(n_experts == 0)"
+                )
+        self.expert_stream = bool(expert_stream)
         keys = set(abstract_params)
         self.embed_keys = tuple(k for k in ("embed", "vision") if k in keys)
         self.head_home_keys = tuple(k for k in ("ln_f", "head") if k in keys)
@@ -284,9 +314,20 @@ class WeightStreamPlan:
 
         # ---- layout-specific byte model (exact: stacked leaves divide
         # evenly along the stacking axis, named blocks are counted per tree)
+        self.expert_names: tuple = ()
+        self.per_expert_bytes = 0
+        self.nonexpert_layer_bytes = self.per_layer_bytes
         self._block_bytes: dict = {}  # named-block layouts: name -> bytes
         tail_bytes = 0
         if self.layout == "uniform":
+            if self.expert_stream:
+                moe_abs = blocks_abs["moe"]
+                self.expert_names = tuple(n for n in _EXPERT_NAMES if n in moe_abs)
+                expert_total = _tree_bytes({n: moe_abs[n] for n in self.expert_names})
+                self.per_expert_bytes = expert_total // (self.n_layers * cfg.n_experts)
+                self.nonexpert_layer_bytes = (
+                    self.per_layer_bytes - cfg.n_experts * self.per_expert_bytes
+                )
             unit_bytes = [self.per_layer_bytes] * self.n_layers
         elif self.layout == "period":
             p = self.scan_period
@@ -309,7 +350,9 @@ class WeightStreamPlan:
 
         budget = int(device_budget_mb * 1e6) if device_budget_mb is not None else None
         self.device_budget_bytes = budget
-        if layers_per_group is None:
+        if self.expert_stream:
+            layers_per_group = 1
+        elif layers_per_group is None:
             layers_per_group = self._fit_layers_per_group(budget)
         if layers_per_group < 1:
             raise ValueError("layers_per_group must be >= 1")
@@ -330,7 +373,20 @@ class WeightStreamPlan:
         groups: list[WeightGroup] = [WeightGroup(0, "g000_embed", "embed")]
         units: list[StreamUnit] = []
         names_map: dict = {}
-        if self.layout == "uniform":
+        if self.layout == "uniform" and self.expert_stream:
+            for l in range(self.n_layers):
+                i = len(groups)
+                groups.append(WeightGroup(i, f"g{i:03d}_layers_{l:03d}_{l + 1:03d}", "layers",
+                                          l, l + 1))
+                gidx = [i]
+                for e in range(self.cfg.n_experts):
+                    i = len(groups)
+                    groups.append(WeightGroup(
+                        i, f"g{i:03d}_expert_{l:03d}_{l + 1:03d}_e{e:02d}", "expert", l, l + 1,
+                        expert=e))
+                    gidx.append(i)
+                units.append(StreamUnit("moe", tuple(gidx), l, l + 1))
+        elif self.layout == "uniform":
             lo = 0
             while lo < self.n_layers:
                 hi = min(lo + self.layers_per_group, self.n_layers)
@@ -370,12 +426,17 @@ class WeightStreamPlan:
         self.groups = tuple(groups)
         self.units = tuple(units)
         self.layer_groups = tuple(g for g in groups if g.kind == "layers")
+        self.expert_groups = tuple(g for g in groups if g.kind == "expert")
         self.n_groups = len(groups)
         self._block_names_map = names_map
 
     def block_names(self, g: WeightGroup) -> tuple:
         """The named-block keys a ``block`` group homes."""
         return self._block_names_map[g.key]
+
+    def experts_for_layer(self, lo: int) -> tuple:
+        """The expert groups of the layer starting at ``lo`` (fetch order)."""
+        return tuple(g for g in self.expert_groups if g.lo == lo)
 
     # ------------------------------------------------------------ byte model
     def group_bytes(self, g: WeightGroup, *, fetch: bool = True) -> int:
@@ -384,8 +445,10 @@ class WeightStreamPlan:
         if g.kind == "head":
             # home bytes exclude the tied embed-table re-read
             return self.head_fetch_bytes if fetch else self.head_home_bytes
+        if g.kind == "expert":
+            return self.per_expert_bytes
         if g.kind == "layers":
-            return (g.hi - g.lo) * self.per_layer_bytes
+            return (g.hi - g.lo) * self.nonexpert_layer_bytes
         if g.kind == "period":
             n_units = (g.hi - g.lo) // self.scan_period
             return n_units * self._unit_bytes[0]
@@ -396,7 +459,10 @@ class WeightStreamPlan:
         return [self.group_bytes(g) for g in self.groups]
 
     def _window_sequence_bytes(self) -> list[int]:
-        """Per-stage bytes for the residency window model."""
+        """Per-stage bytes for the residency window model.  A ``moe`` unit's
+        groups are consumed together by prefill (the merged stage holds the
+        non-expert slice and every expert), so the unit counts as one window
+        element of their summed bytes; decode's routed subset uses less."""
         seq = [self.embed_bytes]
         for u in self.units:
             seq.append(sum(self.group_bytes(self.groups[i]) for i in u.gidx))
@@ -479,6 +545,12 @@ class WeightStreamPlan:
         ]
 
     # ------------------------------------------------------------- slicing
+    def _strip_experts(self, tree: Pytree) -> Pytree:
+        """A block slice minus the routed-expert tensors (router kept)."""
+        out = {k: v for k, v in tree.items() if k != "moe"}
+        out["moe"] = {k: v for k, v in tree["moe"].items() if k not in self.expert_names}
+        return out
+
     def home_group(self, params: Pytree, g: WeightGroup) -> Pytree:
         """The group's slice of a *full* parameter tree (views, no copies)."""
         params = _as_dict(params)
@@ -486,12 +558,16 @@ class WeightStreamPlan:
             return {k: params[k] for k in self.embed_keys}
         if g.kind == "head":
             return {k: params[k] for k in self.head_home_keys}
+        if g.kind == "expert":
+            moe = params["blocks"]["moe"]
+            return {n: moe[n][g.lo : g.hi, g.expert] for n in self.expert_names}
         if g.kind == "period":
             p = self.scan_period
             return tr.tree_map(lambda a: a[g.lo // p : g.hi // p], params["blocks"]["periods"])
         if g.kind == "block":
             return {n: params["blocks"][n] for n in self.block_names(g)}
-        return tr.tree_map(lambda a: a[g.lo : g.hi], params["blocks"])
+        sl = tr.tree_map(lambda a: a[g.lo : g.hi], params["blocks"])
+        return self._strip_experts(sl) if self.expert_stream else sl
 
     def init_home(self, params: Pytree) -> dict:
         """Home representation: ``{"groups": {key: group_tree}}`` with host
@@ -506,13 +582,29 @@ class WeightStreamPlan:
         }
 
     def assemble(self, home: dict) -> Pytree:
-        """Full host parameter tree from a home (sliced groups concatenated),
-        for conversion and export; the streamed paths never call this."""
+        """Full host parameter tree from a home (sliced groups concatenated,
+        expert groups restacked), for conversion and export; the streamed
+        paths never call this."""
         out: dict = {}
         for g in self.groups:
             if g.kind in ("embed", "head"):
                 out.update(dict(home["groups"][g.key].items()))
-        if self.layout == "uniform":
+        if self.layout == "uniform" and self.expert_stream:
+            layer_parts = []
+            for u in self.units:
+                ne = home["groups"][self.groups[u.gidx[0]].key]
+                experts = [home["groups"][self.groups[i].key] for i in u.gidx[1:]]
+                moe = dict(ne["moe"])
+                for name in self.expert_names:
+                    stacked = np.concatenate([np.asarray(e[name])[:, None] for e in experts],
+                                             axis=1)
+                    moe[name] = (stacked.view(BF16HostArray)
+                                 if isinstance(experts[0][name], BF16HostArray) else stacked)
+                merged = dict(ne)
+                merged["moe"] = moe
+                layer_parts.append(merged)
+            out["blocks"] = tr.tree_map(_cat, *layer_parts)
+        elif self.layout == "uniform":
             parts = [home["groups"][g.key] for g in self.layer_groups]
             out["blocks"] = tr.tree_map(_cat, *parts)
         elif self.layout == "period":

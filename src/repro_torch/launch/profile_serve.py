@@ -13,8 +13,12 @@ time.
       [--arch smollm-360m|recurrentgemma-2b] [--prompt-len 512] \\
       [--attn-impl pallas|xla] [--kv-page-len 32 --kv-kind pinned_host] \\
       [--param-kind pinned_host --device-budget-mb 160] [--out profile_serve.json]
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mixtral-8x7b \\
+      --n-layers 4 --batch 2 --param-kind pinned_host --expert-stream \\
+      --device-budget-mb 9000 [--all-experts]
 
-Batch 4, random bf16 weights from seed 0; 8 decode steps are profiled.
+Batch 4 (``--batch``), random bf16 weights from seed 0; 8 decode steps are
+profiled.  ``--n-layers`` cuts the depth.
 chip_smoke.py's cells take prompt 512 for smollm-360m and 3072 for
 recurrentgemma-2b (longer than its 2048 window).  Prefill times are per
 request: the batch's over 4.
@@ -33,6 +37,12 @@ under ``--device-budget-mb``; the prefill streams too and is not profiled).
 Beside the step's wall, device busy, idle share and launches it gives the
 weight stream's compute-blocked transfer wait, H2D bytes and requests, disk
 requests and groups fetched a step, and the residency cache's counters.
+The streamed weights are initialized group by group, so a model larger than
+the card profiles too.  ``--expert-stream`` (a MoE arch) decodes
+router-first and fetches only the routed experts (all of them with
+``--all-experts``); the breakdown then adds the expert groups' bytes,
+fetches, resident hits and transfer wait a step, and the distinct experts
+fetched a MoE layer.
 
 Needs a CUDA card; it measures the device and has no CPU mode.
 """
@@ -57,7 +67,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import serve as sv
 from repro_torch.train import steps as st
 
-BATCH, STEPS, SEED = 4, 8, 0
+STEPS, SEED = 8, 0
 TOP = 8  # kernels listed per phase
 REPEATS = 5  # unprofiled wall-time repeats
 
@@ -112,7 +122,7 @@ def profile_paged(cfg, params, prompts, args, report: dict) -> None:
     page = args.kv_page_len
     warm = 2
     gen = warm + REPEATS * STEPS + STEPS + 1  # no request retires while measured
-    session = sv.ServeSession(cfg, slots=BATCH, max_len=args.prompt_len + gen, kv_kind=args.kv_kind,
+    session = sv.ServeSession(cfg, slots=prompts.shape[0], max_len=args.prompt_len + gen, kv_kind=args.kv_kind,
                               page_len=page, params=params)
     try:
         for row in prompts.cpu().numpy():
@@ -169,17 +179,22 @@ def profile_paged(cfg, params, prompts, args, report: dict) -> None:
 
 def profile_streamed(cfg, params, prompts, args, report: dict) -> None:
     """Profile the unpaged decode step with streamed weights (see the
-    module docstring)."""
+    module docstring).  ``params`` is unused: the home is drawn group by
+    group."""
     dev = prompts.device
-    plan = WeightStreamPlan(cfg, st.abstract_params(cfg), device_budget_mb=args.device_budget_mb)
-    home, store = sv._weight_home(plan, params, args.param_kind, None)
-    del params
+    batch = prompts.shape[0]
+    plan = WeightStreamPlan(cfg, st.abstract_params(cfg), device_budget_mb=args.device_budget_mb,
+                            expert_stream=args.expert_stream)
+    home, store = sv._weight_home(plan, st.init_weight_streamed_params(cfg, plan, SEED, dev),
+                                  args.param_kind, None)
     engine = TransferEngine(EngineConfig(max_distance=plan.max_distance_for_budget()), device=dev)
     stats = StreamStats()
     residency = ResidencyCache(plan.residency_capacity_bytes())
     kw = dict(engine=engine, stats=stats, residency=residency)
     max_len = args.prompt_len + STEPS + 2
-    decode = st.make_weight_streamed_decode_step(cfg, plan, paged=False, **kw)
+    decode = st.make_weight_streamed_decode_step(cfg, plan, paged=False,
+                                                 route_experts=not args.all_experts, **kw)
+    es = decode.expert_stats or StreamStats()
     try:
         first, caches = sv.prefill_all(
             cfg, home, prompts, max_len,
@@ -189,23 +204,25 @@ def profile_streamed(cfg, params, prompts, args, report: dict) -> None:
         def decode_steps():
             tok = tokens
             for i in range(STEPS):
-                pos = sv.step_pos(cfg, BATCH, args.prompt_len + i, dev)
+                pos = sv.step_pos(cfg, batch, args.prompt_len + i, dev)
                 logits, _ = decode(home, caches, {"tokens": tok}, pos)
                 tok = logits[:, -1].argmax(-1)[:, None]
             torch.cuda.synchronize()
 
         decode_steps()  # warm-up
         reps = []
-        counts0 = (stats.bytes_h2d, stats.h2d_requests, stats.disk_requests,
-                   stats.unique_group_fetches, stats.transfer_wait_s)
+        def counts():
+            return (stats.bytes_h2d, stats.h2d_requests, stats.disk_requests,
+                    stats.unique_group_fetches, stats.transfer_wait_s, es.bytes_h2d,
+                    es.unique_group_fetches, es.cache_hits, es.transfer_wait_s)
+
+        counts0 = counts()
         for _ in range(REPEATS):
             t0 = time.perf_counter()
             decode_steps()
             reps.append((time.perf_counter() - t0) / STEPS)
         n = REPEATS * STEPS
-        per_step = [(now - was) / n for now, was in zip(
-            (stats.bytes_h2d, stats.h2d_requests, stats.disk_requests,
-             stats.unique_group_fetches, stats.transfer_wait_s), counts0)]
+        per_step = [(now - was) / n for now, was in zip(counts(), counts0)]
         reps.sort()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             decode_steps()
@@ -215,13 +232,21 @@ def profile_streamed(cfg, params, prompts, args, report: dict) -> None:
         residency.clear()
         if store is not None:
             store.close()
+    experts = ("" if not plan.expert_stream else
+                "; all experts" if args.all_experts else "; routed experts")
     name = (f"streamed decode (one batched step; weights at {args.param_kind}, budget "
-            f"{args.device_budget_mb} MB, {plan.n_groups} groups)")
+            f"{args.device_budget_mb} MB, {plan.n_groups} groups{experts})")
     report[name] = r = _breakdown(prof, reps[0] * STEPS, STEPS, TOP)
     r["wall_ms_per_unit_repeats"] = [w * 1e3 for w in reps]
     (r["h2d_bytes_per_step"], r["h2d_requests_per_step"], r["disk_requests_per_step"],
-     r["groups_fetched_per_step"], wait) = per_step
+     r["groups_fetched_per_step"], wait, e_bytes, e_fetches, e_hits, e_wait) = per_step
     r["transfer_wait_ms_per_step"] = wait * 1e3
+    if plan.expert_stream:
+        r["expert_bytes_per_step"] = e_bytes
+        r["expert_groups_fetched_per_step"] = e_fetches
+        r["expert_resident_hits_per_step"] = e_hits
+        r["expert_transfer_wait_ms_per_step"] = e_wait * 1e3
+        r["experts_fetched_per_layer"] = (e_fetches + e_hits) / cfg.n_layers
     r["n_groups"] = plan.n_groups
     r["residency"] = counters
     idle = r["device_idle_share"]
@@ -233,6 +258,12 @@ def profile_streamed(cfg, params, prompts, args, report: dict) -> None:
           f"H2D {r['h2d_bytes_per_step']:.0f} B in {r['h2d_requests_per_step']:.2f} requests, "
           f"{r['disk_requests_per_step']:.2f} disk requests, {r['groups_fetched_per_step']:.2f} "
           f"groups fetched a step; residency {r['residency']}")
+    if plan.expert_stream:
+        print(f"    experts a step: {r['expert_bytes_per_step']:.0f} B H2D in "
+              f"{r['expert_groups_fetched_per_step']:.2f} fetched groups, "
+              f"{r['expert_resident_hits_per_step']:.2f} resident hits, "
+              f"{r['experts_fetched_per_layer']:.2f} experts a MoE layer, transfer wait "
+              f"{r['expert_transfer_wait_ms_per_step']:.3f} ms")
     for k in r["top_kernels"]:
         print(f"    {k['ms_per_unit']:.4f} ms  {k['share_of_busy']:.3f}  x{k['calls_per_unit']:.0f}  {k['name']}")
 
@@ -241,6 +272,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="smollm-360m", choices=ARCHS)
     ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--n-layers", type=int, default=None, help="cut the depth to this many layers")
     ap.add_argument("--attn-impl", default="pallas", choices=("xla", "pallas"),
                     help="pallas: the CUDA attention kernels; xla: the plain path")
     ap.add_argument("--kv-page-len", type=int, default=0,
@@ -251,24 +284,36 @@ def main() -> int:
                     help="home of the weights: a host kind profiles the streamed decode step")
     ap.add_argument("--device-budget-mb", type=float, default=None,
                     help="device budget of the streamed weights (with --param-kind)")
+    ap.add_argument("--expert-stream", action="store_true",
+                    help="MoE: per-expert fetch groups, routed decode (with --param-kind)")
+    ap.add_argument("--all-experts", action="store_true",
+                    help="with --expert-stream: fetch all experts a MoE layer (the baseline)")
     ap.add_argument("--out", default=None, help="also write the breakdown here as JSON")
     args = ap.parse_args()
     if args.kv_kind != "device" and args.kv_page_len <= 0:
         ap.error("--kv-kind needs --kv-page-len > 0")
     if args.param_kind != "device" and args.kv_page_len > 0:
         ap.error("--param-kind profiles the unpaged streamed step; leave --kv-page-len at 0")
+    if args.expert_stream and args.param_kind == "device":
+        ap.error("--expert-stream streams routed experts from a weight home; it requires "
+                 "--param-kind pinned_host or disk_host")
 
     dev = resolve_device("cuda")
     cfg = dataclasses.replace(get_config(args.arch), attn_impl=args.attn_impl)
+    if args.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     prompt = args.prompt_len
-    params = st.init_params(cfg, SEED, dev)
+    batch = args.batch
+    # streamed weights are drawn group by group inside profile_streamed
+    params = st.init_params(cfg, SEED, dev) if args.param_kind == "device" else None
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    prompts = torch.randint(1, cfg.vocab_size, (BATCH, prompt), generator=g, device=dev)
+    prompts = torch.randint(1, cfg.vocab_size, (batch, prompt), generator=g, device=dev)
     report = {"card": torch.cuda.get_device_name(0), "arch": args.arch,
-              "attn_impl": args.attn_impl, "batch": BATCH, "prompt_len": prompt,
-              "kv_page_len": args.kv_page_len, "kv_kind": args.kv_kind}
+              "attn_impl": args.attn_impl, "batch": batch, "prompt_len": prompt,
+              "n_layers": cfg.n_layers, "kv_page_len": args.kv_page_len, "kv_kind": args.kv_kind}
     if args.kv_page_len > 0 or args.param_kind != "device":
-        report.update(param_kind=args.param_kind, device_budget_mb=args.device_budget_mb)
+        report.update(param_kind=args.param_kind, device_budget_mb=args.device_budget_mb,
+                      expert_stream=args.expert_stream, all_experts=args.all_experts)
         (profile_paged if args.kv_page_len > 0 else profile_streamed)(cfg, params, prompts, args,
                                                                        report)
         _write(args.out, report)
@@ -284,7 +329,7 @@ def main() -> int:
 
     def decode_steps(caches, tokens):
         for i in range(STEPS):
-            pos = sv.step_pos(cfg, BATCH, prompt + i, dev)
+            pos = sv.step_pos(cfg, batch, prompt + i, dev)
             logits, caches = decode(params, caches, {"tokens": tokens}, pos)
             tokens = logits[:, -1].argmax(-1)[:, None]
         return tokens
@@ -293,7 +338,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     schedule = "lock-step" if sv.lock_step(cfg) else "one request at a time"
-    phases = ((f"prefill (per request; batch of {BATCH}, {schedule})", prefill_once, BATCH),
+    phases = ((f"prefill (per request; batch of {batch}, {schedule})", prefill_once, batch),
               ("decode (one batched step)", lambda: decode_steps(caches, tokens), STEPS))
     # wall times first, without the profiler: once it has run, its tracing
     # adds host time to every later launch

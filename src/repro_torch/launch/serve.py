@@ -34,8 +34,11 @@ verified before anything is allocated
 (:func:`~repro_torch.core.schedcheck.analyze_serve_schedule`).
 
 Under ``attn_impl="pallas"`` prefill runs the CUDA ``flash_attention``
-kernel and decode the CUDA ``decode_attention`` kernel.  Expert streaming
-and model parallelism are later slices (ROADMAP.md).
+kernel and decode the CUDA ``decode_attention`` kernel.  ``--expert-stream``
+(a MoE config with streamed weights) splits every MoE layer into a
+non-expert group and one group per expert and decodes router-first,
+fetching only the routed experts.  Model parallelism is a later slice
+(ROADMAP.md).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --batch 4 --prompt-len 512 --gen 32 --kv-kind pinned_host
@@ -47,6 +50,9 @@ and model parallelism are later slices (ROADMAP.md).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --batch 4 --prompt-len 512 --gen 32 --kv-page-len 0 --param-kind pinned_host \\
       --device-budget-mb 160
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --batch 2 \\
+      --prompt-len 512 --gen 16 --kv-page-len 0 --param-kind pinned_host --expert-stream \\
+      --device-budget-mb 9000
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
 from __future__ import annotations
@@ -81,9 +87,6 @@ from repro_torch.train import steps as st
 
 KV_KINDS = ("device", "pinned_host", "disk_host")
 
-_EXPERTS = "expert streaming (ROADMAP.md, queue 1 item 7: the other model families)"
-
-
 def _round_up(n: int, m: int) -> int:
     return (n + m - 1) // m * m
 
@@ -93,19 +96,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _check_weights_on_device(expert_stream: bool) -> None:
-    """Refuse routed-expert streaming, which needs the MoE layers."""
-    if expert_stream:
-        raise NotImplementedError(f"expert_stream=True needs {_EXPERTS}")
+def _check_expert_stream(expert_stream: bool, param_kind: str) -> None:
+    """Refuse expert streaming of device-resident weights, as the JAX
+    package does."""
+    if expert_stream and param_kind == "device":
+        raise ValueError(
+            "--expert-stream streams routed experts from a weight home; "
+            "it requires --param-kind pinned_host or disk_host"
+        )
 
 
-def _schedule_note(plan, *, distance, cache_capacity, budget_mb, kv) -> str:
+def _schedule_note(plan, *, distance, cache_capacity, budget_mb, kv, route_experts) -> str:
     """The analyzer's occupancy report, appended to a budget error so that a
     refused combination names the program points that overrun."""
     try:
         report = sc.analyze_serve_schedule(
             plan, distance=distance, cache_capacity=cache_capacity,
-            budget_bytes=int(budget_mb * 1e6) if budget_mb is not None else None, kv=kv)
+            budget_bytes=int(budget_mb * 1e6) if budget_mb is not None else None, kv=kv,
+            route_experts=route_experts)
         return "\n" + str(report)
     except Exception:
         return ""
@@ -240,7 +248,9 @@ class ServeSession:
     rest.  Everything is planned and the schedule verified
     (``schedule_report``) before any engine thread or spill directory
     exists, so a refused combination leaks nothing.  ``expert_stream``
-    raises ``NotImplementedError`` (ROADMAP.md, queue 1 item 7).
+    (with a streamed ``param_kind``) decodes router-first and fetches only
+    the routed experts (all of them with ``route_experts=False``), counted
+    in ``expert_stats``.
     """
 
     def __init__(
@@ -262,6 +272,7 @@ class ServeSession:
         param_distance=AUTO,
         param_cache_mb: Optional[float] = None,
         expert_stream: bool = False,
+        route_experts: bool = True,
         prefix_sharing: bool = True,
         params: Optional[ParamTree] = None,
         device: DeviceLike = None,
@@ -275,7 +286,7 @@ class ServeSession:
         self._kind = mk.as_kind(kv_kind)
         # validate — and do every fallible init — before the engine thread
         # and the spill dirs exist: a failed constructor must not leak them
-        _check_weights_on_device(expert_stream)
+        _check_expert_stream(expert_stream, param_kind)
         pager_cfg = KVPagerConfig(page_len=page_len, hot_pages=hot_pages, kind=self._kind,
                                   distance=distance)
         self.max_len = _round_up(max_len, page_len)
@@ -292,7 +303,8 @@ class ServeSession:
         #: the weight plan (None for device-resident weights)
         self._wplan: Optional[WeightStreamPlan] = None
         engine_cfg = None
-        #: routed-expert accounting: no expert streaming without the MoE layers
+        #: expert-group fetch accounting (route-aware MoE streaming), apart
+        #: from ``param_stats`` so routed and all-expert traffic compare
         self.expert_stats: Optional[StreamStats] = None
         #: weight-residency cache: fetched weight groups stay on the card
         #: across steps (serve weights never change: only LRU eviction)
@@ -313,16 +325,19 @@ class ServeSession:
                 budget = budget - hot_mb
                 if budget <= 0:
                     probe = WeightStreamPlan(cfg, st.abstract_params(cfg),
-                                             layers_per_group=param_layers_per_group)
+                                             layers_per_group=param_layers_per_group,
+                                             expert_stream=expert_stream)
                     raise ValueError(
                         f"device_budget_mb={device_budget_mb} is consumed by "
                         f"the KV hot window ({hot_mb:.1f} MB); raise the budget "
                         "or shrink hot_pages/page_len"
                         + _schedule_note(probe, distance=1, cache_capacity=0,
-                                         budget_mb=device_budget_mb, kv=kv_desc))
+                                         budget_mb=device_budget_mb, kv=kv_desc,
+                                         route_experts=route_experts))
             self._wplan = WeightStreamPlan(cfg, st.abstract_params(cfg),
                                            layers_per_group=param_layers_per_group,
-                                           device_budget_mb=budget)
+                                           device_budget_mb=budget,
+                                           expert_stream=expert_stream)
             # the cache's capacity: by default the budget slack above the
             # widest prefetch window (unbounded without a budget); an
             # explicit param_cache_mb reserves that many bytes instead,
@@ -343,7 +358,8 @@ class ServeSession:
                         "shrink hot_pages/page_len/param_layers_per_group, or "
                         "lower param_cache_mb"
                         + _schedule_note(self._wplan, distance=1, cache_capacity=cache_cap,
-                                         budget_mb=device_budget_mb, kv=kv_desc))
+                                         budget_mb=device_budget_mb, kv=kv_desc,
+                                         route_experts=route_experts))
             cache_reserved = (cache_cap or 0) if budget is not None else 0
             window_cap = self._wplan.max_distance_for_budget(cached_bytes=cache_reserved)
             self.param_residency = ResidencyCache(cache_cap)
@@ -363,7 +379,7 @@ class ServeSession:
                 distance=engine.config.max_distance if engine is not None else window_cap,
                 cache_capacity=cache_cap,
                 budget_bytes=int(device_budget_mb * 1e6) if device_budget_mb is not None else None,
-                kv=kv_desc)
+                kv=kv_desc, route_experts=route_experts)
             sc.verify_schedule(self.schedule_report)
         self._param_store = None
         if self._wplan is not None:
@@ -398,8 +414,9 @@ class ServeSession:
                           residency=self.param_residency)
                 self._prefill = st.make_weight_streamed_prefill_step(
                     cfg, self._wplan, 1, self.max_len, **kw)
-                self._step = st.make_weight_streamed_decode_step(cfg, self._wplan, paged=True,
-                                                                 **kw)
+                self._step = st.make_weight_streamed_decode_step(
+                    cfg, self._wplan, paged=True, route_experts=route_experts, **kw)
+                self.expert_stats = self._step.expert_stats
             else:
                 self._prefill = st.make_prefill_step(cfg, 1, self.max_len)
                 self._step = st.make_paged_decode_step(cfg)
@@ -653,6 +670,7 @@ def serve_loop(
     param_distance=AUTO,
     param_cache_mb: Optional[float] = None,
     expert_stream: bool = False,
+    route_experts: bool = True,
     spill_dir: Optional[str] = None,
 ) -> dict:
     """Serve one greedy request per row of ``prompts`` ((B, S) int32) for
@@ -673,12 +691,16 @@ def serve_loop(
     streams the weights group by group through ``engine`` (default: one
     capped at the budget's window) for every prefill and decode step.  The
     schedule is verified first.  ``param_stats`` holds the weight stream's
-    counters and ``param_residency`` its cache's.
+    counters and ``param_residency`` its cache's.  ``expert_stream`` decodes
+    router-first and fetches only the routed experts (all E with
+    ``route_experts=False``); ``expert_stats`` counts their traffic, and
+    ``expert_decode_bytes`` / ``expert_decode_fetches`` its part in the
+    timed decode loop (the warm-up step's fetches excluded).
     """
     kind = mk.as_kind(kv_kind)
     if kind == mk.DISK_HOST:
         raise ValueError("the unpaged path has no disk home; use --kv-page-len > 0")
-    _check_weights_on_device(expert_stream)
+    _check_expert_stream(expert_stream, param_kind)
     device_resident = kind == mk.DEVICE
     stats = StreamStats()
     param_stats = StreamStats()
@@ -695,14 +717,16 @@ def serve_loop(
         _streamable(cfg, param_kind)
         wplan = WeightStreamPlan(cfg, st.abstract_params(cfg),
                                  layers_per_group=param_layers_per_group,
-                                 device_budget_mb=device_budget_mb)
+                                 device_budget_mb=device_budget_mb, expert_stream=expert_stream)
         cache_cap = (wplan.residency_capacity_bytes() if param_cache_mb is None
                      else int(param_cache_mb * 1e6))
         if engine is None:  # its threads start at the first transfer
             engine = own_engine = TransferEngine(
                 EngineConfig(max_distance=wplan.max_distance_for_budget()), device=device)
         sc.verify_schedule(sc.analyze_serve_schedule(
-            wplan, distance=engine.config.max_distance, cache_capacity=cache_cap))
+            wplan, distance=engine.config.max_distance, cache_capacity=cache_cap,
+            route_experts=route_experts,
+            fan_in=max(1, cfg.moe_top_k or 2) * batch if route_experts else None))
         if params is None:  # group by group: the whole model is never on the card
             params = st.init_weight_streamed_params(cfg, wplan, seed, device)
         params, param_store = _weight_home(
@@ -711,7 +735,8 @@ def serve_loop(
         residency = ResidencyCache(cache_cap)
         param_pf = _param_prefetch(wplan, param_distance)
         kw = dict(engine=engine, stats=param_stats, prefetch=param_pf, residency=residency)
-        decode_fn = st.make_weight_streamed_decode_step(cfg, wplan, paged=False, **kw)
+        decode_fn = st.make_weight_streamed_decode_step(cfg, wplan, paged=False,
+                                                        route_experts=route_experts, **kw)
 
         def make_prefill(b):
             return st.make_weight_streamed_prefill_step(cfg, wplan, b, max_len, **kw)
@@ -781,8 +806,15 @@ def _decode_loop(cfg, params, prompts_t: torch.Tensor, gen: int, *, device, warm
     out_tokens = [tokens]
     step_waits = []
     step_fetches = []  # weight groups fetched over the link a decode step
+    # the decode loop's own expert traffic (the warm-up step's excluded): what
+    # the routed-against-all-expert comparison divides by gen - 1 steps
+    expert_stats = getattr(decode_fn, "expert_stats", None)
+    eb0 = expert_stats.bytes_h2d if expert_stats is not None else 0
+    ef0 = expert_stats.unique_group_fetches if expert_stats is not None else 0
+    step_walls = []  # host time a step (no synchronise of its own)
     t0 = time.perf_counter()
     for i in range(gen - 1):
+        ts = time.perf_counter()
         w0 = stats.transfer_wait_s
         fetch0 = param_stats.unique_group_fetches
         if not device_resident:
@@ -795,6 +827,7 @@ def _decode_loop(cfg, params, prompts_t: torch.Tensor, gen: int, *, device, warm
         out_tokens.append(tokens)
         step_waits.append(stats.transfer_wait_s - w0)
         step_fetches.append(param_stats.unique_group_fetches - fetch0)
+        step_walls.append(time.perf_counter() - ts)
     _sync(device)
     t_decode = time.perf_counter() - t0
 
@@ -806,16 +839,21 @@ def _decode_loop(cfg, params, prompts_t: torch.Tensor, gen: int, *, device, warm
         "tokens_per_s": batch * (gen - 1) / t_decode if t_decode else float("inf"),
         "generated": generated,
         "step_waits": step_waits,
+        # a streamed step waits on its transfers (and a MoE step on its
+        # routing), so its host time is the step's; a device-resident step's
+        # is the time to enqueue it
+        "step_walls": step_walls,
         "stats": stats,
         "paged": False,
         "n_steps": gen - 1,
         "param_stats": param_stats,
-        "expert_stats": None,
+        "expert_stats": expert_stats,
         "param_plan": wplan,
         "param_step_fetches": step_fetches,
         "param_residency": residency.counters() if residency is not None else None,
-        "expert_decode_bytes": 0,
-        "expert_decode_fetches": 0,
+        "expert_decode_bytes": expert_stats.bytes_h2d - eb0 if expert_stats is not None else 0,
+        "expert_decode_fetches": (expert_stats.unique_group_fetches - ef0
+                                  if expert_stats is not None else 0),
     }
 
 
@@ -845,6 +883,7 @@ def serve(
     param_distance=AUTO,
     param_cache_mb: Optional[float] = None,
     expert_stream: bool = False,
+    route_experts: bool = True,
     prefix_sharing: bool = True,
     shared_prefix_len: int = 0,
     params: Optional[ParamTree] = None,
@@ -860,18 +899,22 @@ def serve(
     across requests; ``prefix_sharing`` lets the pager alias those pages
     copy-on-write.  ``param_kind`` homes the weights off the card and
     streams them group by group on either path (see :class:`ServeSession`
-    and :func:`serve_loop`).  The defaults are the JAX package's, and so are
-    the returned keys (``param_stats`` and the others of the weight
-    stream; ``expert_stats`` is ``None``).  Prompts come from
+    and :func:`serve_loop`).  ``expert_stream`` splits MoE experts into
+    their own fetch groups and decodes router-first, fetching only the
+    routed experts a step (``route_experts=False`` keeps the split program
+    but fetches all E: the all-expert baseline).  The defaults are the JAX
+    package's, and so are the returned keys (``param_stats``,
+    ``expert_stats`` and the others of the weight stream).  Prompts come from
     ``np.random.default_rng(seed + 1)`` on both paths, so a paged and an
     unpaged run serve the same prompts.  Runs on the card unless
     ``device="cpu"`` is passed.
     """
     device = resolve_device(device)
-    _check_weights_on_device(expert_stream)
+    _check_expert_stream(expert_stream, param_kind)
     weights = dict(param_kind=param_kind, device_budget_mb=device_budget_mb,
                    param_layers_per_group=param_layers_per_group, param_distance=param_distance,
-                   param_cache_mb=param_cache_mb)
+                   param_cache_mb=param_cache_mb, expert_stream=expert_stream,
+                   route_experts=route_experts)
     n_requests = n_requests or batch
     rng = np.random.default_rng(seed + 1)
     prompts = rng.integers(1, cfg.vocab_size, (n_requests, prompt_len), dtype=np.int32)
@@ -947,7 +990,6 @@ def serve(
 #: flags of the JAX entry point that this port does not serve yet, and where
 #: their port is queued; any value but the default exits
 _NOT_PORTED = {
-    "expert_stream": _EXPERTS,
     "model_parallel": "model parallelism (ROADMAP.md, queue 1 item 5: multi-device and tooling)",
 }
 
@@ -967,7 +1009,8 @@ def _verify_schedule(args, cfg) -> None:
                            hot_pages=args.hot_pages, page_nbytes=page_nbytes, max_len=max_len)
             if budget is not None:
                 budget -= args.batch * (args.hot_pages + 2) * page_nbytes / 1e6
-    wplan = WeightStreamPlan(cfg, st.abstract_params(cfg), device_budget_mb=budget)
+    wplan = WeightStreamPlan(cfg, st.abstract_params(cfg), device_budget_mb=budget,
+                             expert_stream=args.expert_stream)
     if args.param_cache_mb is not None:
         cache_cap = int(args.param_cache_mb * 1e6)
     else:
@@ -1075,7 +1118,10 @@ def main() -> int:
     ap.add_argument("--param-cache-mb", type=float, default=None,
                     help="weight-residency cache capacity (default: the budget slack above the "
                     "prefetch window; unbounded without a budget; 0 disables)")
-    ap.add_argument("--expert-stream", action="store_true")
+    ap.add_argument("--expert-stream", action="store_true",
+                    help="split MoE experts into per-expert fetch groups and fetch only the "
+                    "routed top-k per decode step (requires a streamed --param-kind and an "
+                    "MoE arch)")
     ap.add_argument("--verify-schedule", action="store_true",
                     help="analyze the streamed-weight + KV page schedule, print the report and "
                     "fail on any violation before serving (needs a streamed --param-kind)")
@@ -1110,6 +1156,9 @@ def main() -> int:
         if getattr(args, dest) != ap.get_default(dest):
             ap.exit(2, f"--{dest.replace('_', '-')} is not ported yet: it needs {where}\n")
 
+    if args.expert_stream and args.param_kind == "device":
+        ap.error("--expert-stream streams routed experts from a weight home; it requires "
+                 "--param-kind pinned_host or disk_host")
     if args.verify_schedule and args.param_kind == "device":
         ap.error("--verify-schedule requires --param-kind pinned_host "
                  "or disk_host (device-resident weights have no schedule)")
@@ -1128,7 +1177,7 @@ def main() -> int:
         n_requests=args.requests, kv_kind=args.kv_kind, kv_page_len=args.kv_page_len,
         hot_pages=args.hot_pages, distance=distance, seed=args.seed, spill_dir=args.spill_dir,
         param_kind=args.param_kind, device_budget_mb=args.device_budget_mb,
-        param_cache_mb=args.param_cache_mb,
+        param_cache_mb=args.param_cache_mb, expert_stream=args.expert_stream,
         prefix_sharing=not args.no_prefix_sharing, shared_prefix_len=args.shared_prefix_len,
         device=args.device,
     )
@@ -1164,6 +1213,13 @@ def main() -> int:
             f"{ps.peak_inflight_bytes} B of {plan.total_param_bytes} B "
             f"total params"
         )
+        if res.get("expert_stats") is not None:
+            es = res["expert_stats"]
+            print(
+                f"experts: {es.unique_group_fetches} fetched groups / "
+                f"{es.cache_hits} resident hits, {es.bytes_h2d} B H2D "
+                f"over {res['n_steps']} steps"
+            )
         if res.get("param_residency") is not None:
             rc = res["param_residency"]
             print(

@@ -22,8 +22,8 @@ gradients and their moments are homed off the card and streamed group by
 group under ``--device-budget-mb`` (the streamed-weight train step;
 ``--param-layers-per-group`` sizes the groups, ``--verify-schedule`` prints
 the static schedule analysis first).  Every placement gives the device
-run's bits.  ``--expert-stream`` exits 2 (ROADMAP.md queue 1 item 7: the
-MoE layers); ``--model-parallel`` above 1 exits 2 (item 5).
+run's bits.  ``--expert-stream`` exits 2 (ROADMAP.md queue 1 item 7:
+training the MoE families); ``--model-parallel`` above 1 exits 2 (item 5).
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ from repro_torch.train import steps as st
 log = logging.getLogger("repro_torch.train")
 
 _MODEL_PARALLEL = "model parallelism (ROADMAP.md, queue 1 item 5: multi-device and tooling)"
-_EXPERTS = "the MoE layers (ROADMAP.md, queue 1 item 7: the other model families)"
+_EXPERTS = "the expert-streamed train step (ROADMAP.md, queue 1 item 7: training the MoE families)"
 
 
 def build_trainer(
@@ -333,7 +333,7 @@ def main() -> int:
     ap.add_argument("--param-layers-per-group", type=int, default=None,
                     help="layers a weight group (default: the most that fit the budget)")
     ap.add_argument("--expert-stream", action="store_true",
-                    help="expert groups of MoE layers (not ported: queue 1 item 7)")
+                    help="expert groups of MoE layers (not ported for training: queue 1 item 7)")
     ap.add_argument("--verify-schedule", action="store_true",
                     help="print the streamed-weight schedule's static analysis first and fail "
                     "on a violation (needs a streamed --param-kind)")

@@ -19,13 +19,16 @@ flash-attention kernel (with the window) and decode through the
 decode-attention kernel.  Over a ring the valid slots are
 always the prefix ``[0, min(pos + 1, W))`` and softmax does not depend on
 the order of the keys, so decode takes ``lengths = min(pos + 1, W)``.
-``attn_impl="chunked"`` is not ported yet.
+``attn_impl="chunked"`` runs the training and prefill attention in query
+blocks of ``cfg.attn_chunk_q`` (:func:`_gqa_attend_chunked`); decode is one
+query and runs the plain path.
 """
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
@@ -37,14 +40,6 @@ NEG_INF = -1e30
 
 def _window_of(cfg: ModelConfig) -> int:
     return cfg.window if (cfg.attn_type == "swa" or cfg.family == "hybrid") else 0
-
-
-def _check_impl(cfg: ModelConfig) -> None:
-    if cfg.attn_impl == "chunked":
-        raise NotImplementedError(
-            "attn_impl='chunked' is not ported yet "
-            "(ROADMAP.md, queue 1 item 7: the other model families)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +118,44 @@ def _gqa_attend(
     return out.reshape(b, s, n, h)
 
 
+def _gqa_attend_chunked(
+    cfg: ModelConfig,
+    q: torch.Tensor,  # (B, S, N, H)
+    k: torch.Tensor,  # (B, T, K, H)
+    v: torch.Tensor,
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    """Attention in query blocks of ``cfg.attn_chunk_q`` (the JAX package's
+    ``_gqa_attend_chunked``): each block sees the full key length T under its
+    own causal (or banded) mask, so peak score memory is ``(B, K, G, bq, T)``
+    instead of ``(B, K, G, S, T)``.  One whole block when ``S <= bq`` or
+    ``bq`` does not divide ``S``.  With gradients on, each block runs under a
+    checkpoint, as the JAX package remats each block, so the backward keeps
+    no block's scores."""
+    b, s, n, h = q.shape
+    t = k.shape[1]
+    bq = cfg.attn_chunk_q or 512
+    if s <= bq or s % bq != 0:
+        return _gqa_attend(cfg, q, k, v, causal_mask(s, window, device=q.device))
+    kpos = torch.arange(t, device=q.device)[None, :]
+
+    def block(qblk, lo):
+        qpos = lo + torch.arange(bq, device=q.device)[:, None]
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        return _gqa_attend(cfg, qblk, k, v, mask)
+
+    remat = torch.is_grad_enabled() and q.requires_grad
+    outs = []
+    for lo in range(0, s, bq):
+        qblk = q[:, lo:lo + bq]
+        outs.append(ckpt.checkpoint(block, qblk, lo, use_reentrant=False,
+                                    preserve_rng_state=False) if remat else block(qblk, lo))
+    return torch.cat(outs, dim=1)
+
+
 def causal_mask(s: int, window: int = 0, offset: int = 0, device=None) -> torch.Tensor:
     """(S, S+offset) causal (optionally banded) mask.  ``offset`` supports
     attending over a prefix (queries start at position ``offset``)."""
@@ -150,13 +183,14 @@ def attention_train(
     full causal).  Under ``attn_impl="pallas"`` with no window it runs the
     flash kernel, which is forward-only (the reference's cannot be
     differentiated either): with gradients on it raises."""
-    _check_impl(cfg)
     q, k, v = _project_qkv(cfg, p, x)
     if angles is not None:
         q = rope.apply_rope(q, angles)
         k = rope.apply_rope(k, angles)
     window = cfg.window if cfg.attn_type == "swa" else 0
-    if cfg.attn_impl == "pallas" and window == 0:
+    if cfg.attn_impl == "chunked":
+        out = _gqa_attend_chunked(cfg, q, k, v, window=window)
+    elif cfg.attn_impl == "pallas" and window == 0:
         if torch.is_grad_enabled() and q.requires_grad:
             raise NotImplementedError(
                 "attn_impl='pallas' runs the forward-only flash kernel; train with "
@@ -182,13 +216,14 @@ def attention_prefill(
     values; a ring of W slots keeps the last ``min(S, W)`` at slots
     ``position % W``, matching ring-buffer decode.
     """
-    _check_impl(cfg)
     q, k, v = _project_qkv(cfg, p, x)
     if angles is not None:
         q = rope.apply_rope(q, angles)
         k = rope.apply_rope(k, angles)
     window = _window_of(cfg)
-    if cfg.attn_impl == "pallas":
+    if cfg.attn_impl == "chunked":
+        out = _gqa_attend_chunked(cfg, q, k, v, window=window)
+    elif cfg.attn_impl == "pallas":
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
                               window=window)
     else:
@@ -228,7 +263,6 @@ def attention_decode(
     ``attn_impl="pallas"`` that is the decode kernel with ``lengths = pos +
     1``, or ``min(pos + 1, W)`` over a ring.
     """
-    _check_impl(cfg)
     q, k, v = _project_qkv(cfg, p, x)
     if angles is not None:
         q = rope.apply_rope(q, angles)

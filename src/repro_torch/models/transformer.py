@@ -17,18 +17,22 @@ The JAX package's ``scan`` over layers or periods becomes a Python loop over
 :func:`layer_slots`, in layer order; the caches follow the same tree.
 
 Modes:
-  ``forward_train`` — full-sequence; returns logits (+ the MoE aux loss, 0
-                      here); ``lm_loss`` adds the seq-chunked CE.
+  ``forward_train`` — full-sequence; returns logits (+ the MoE aux loss,
+                      summed over the layers); ``lm_loss`` adds the
+                      seq-chunked CE.
   ``prefill``       — full-sequence forward + populated caches.
   ``decode_step``   — one token against the caches (scalar or per-slot pos;
                       ring and recurrent caches take a scalar).
 
 All three run one layer body (:func:`_layer`); they differ only in the
 token mixer (attention over the prompt, a cache, or the whole sequence; the
-recurrence with or without a carried state).
+recurrence with or without a carried state) and in a MoE layer's FFN: the
+GShard dispatch (:func:`repro_torch.models.moe.moe_dispatch`, with its aux
+loss) over a whole sequence, the router-first dense top-k
+(:func:`~repro_torch.models.moe.moe_decode`) for one decode token.
 
-xLSTM stacks, MoE, audio codebooks, the vision prefix, M-RoPE and
-sinusoidal positions are not ported yet (ROADMAP.md, queue 1 item 7).
+xLSTM stacks, audio codebooks, the vision prefix, M-RoPE and sinusoidal
+positions are not ported yet (ROADMAP.md, queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as tr
-from repro_torch.models import attention, layers, rglru, rope
+from repro_torch.models import attention, layers, moe, rglru, rope
 from repro_torch.models.layers import ParamTree, Params
 
 
@@ -49,8 +53,6 @@ def check_supported(cfg: ModelConfig) -> None:
     todo = []
     if cfg.family == "ssm":
         todo.append("xLSTM block stacks")
-    if cfg.n_experts:
-        todo.append("MoE layers")
     if cfg.n_codebooks:
         todo.append("audio codebooks")
     if cfg.vision_embed:
@@ -103,7 +105,9 @@ def _init_block(cfg: ModelConfig, kind: str, generator: torch.Generator, device)
         "attn": attention.init_attention(cfg, **kw),
         "ln2": layers.init_norm(cfg.d_model, cfg.norm_type, device),
     }
-    if cfg.d_ff:
+    if cfg.n_experts:
+        p["moe"] = moe.init_moe(cfg, **kw)
+    elif cfg.d_ff:
         p["mlp"] = layers.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw)
     return p
 
@@ -264,12 +268,21 @@ def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """The block's second half: pre-norm MLP plus residual."""
+def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor,
+         decode: bool) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's second half: the pre-norm MLP or MoE FFN plus residual.
+    Returns ``(x, aux)``: a MoE layer's aux loss over a sequence (``decode``
+    False: the dispatch), else ``None``."""
+    if "moe" in p:
+        h = layers.norm_apply(p["ln2"], x, cfg.norm_type)
+        if decode:
+            return x + moe.moe_decode(cfg, p["moe"], h), None
+        y, aux = moe.moe_dispatch(cfg, p["moe"], h)
+        return x + y, aux
     if "mlp" not in p:
-        return x
+        return x, None
     h = layers.norm_apply(p["ln2"], x, cfg.norm_type)
-    return x + layers.mlp_apply(p["mlp"], h, cfg.mlp_type)
+    return x + layers.mlp_apply(p["mlp"], h, cfg.mlp_type), None
 
 
 # ---------------------------------------------------------------------------
@@ -283,18 +296,21 @@ def _store(cache: dict, state: dict) -> None:
 
 
 def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
-           mix: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+           mix: Callable[[torch.Tensor], torch.Tensor],
+           decode: bool = False) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer body every pass runs: the pre-norm token mixer ``mix``
     (attention or the recurrence, on the normed input) plus residual, then
-    the pre-norm MLP plus residual."""
-    return _mlp(cfg, p, x + mix(layers.norm_apply(p["ln1"], x, cfg.norm_type)))
+    the pre-norm MLP or MoE FFN plus residual.  Returns ``(x, aux)`` as
+    :func:`_mlp`."""
+    return _mlp(cfg, p, x + mix(layers.norm_apply(p["ln1"], x, cfg.norm_type)), decode)
 
 
 def _layer_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-                 angles: Optional[torch.Tensor]) -> torch.Tensor:
+                 angles: Optional[torch.Tensor]) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer of the training forward (the JAX package's ``_block_train``
     / ``_hetero_block_train``): no cache; the recurrence starts from zero
-    and runs the plain scan, as the JAX package's ``use_kernel=False``."""
+    and runs the plain scan, as the JAX package's ``use_kernel=False``.
+    Returns ``(x, aux)`` as :func:`_mlp`."""
     if kind == "rec":
         return _layer(cfg, p, x, lambda h: rglru.rglru_block_train(cfg, p["rec"], h)[0])
     return _layer(cfg, p, x, lambda h: attention.attention_train(cfg, p["attn"], h, angles))
@@ -312,7 +328,7 @@ def _layer_prefill(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch
             return h
         return attention.attention_prefill(cfg, p["attn"], h, angles, cache)[0]
 
-    return _layer(cfg, p, x, mix)
+    return _layer(cfg, p, x, mix)[0]
 
 
 def _layer_decode(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch.Tensor,
@@ -326,7 +342,7 @@ def _layer_decode(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch.
             return h
         return attention.attention_decode(cfg, p["attn"], h, angles, cache, pos)[0]
 
-    return _layer(cfg, p, x, mix)
+    return _layer(cfg, p, x, mix, decode=True)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -373,10 +389,12 @@ def _unbind(tree) -> list:
 
 
 def _train_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-                 angles: Optional[torch.Tensor]) -> torch.Tensor:
+                 angles: Optional[torch.Tensor], aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer of the training forward under the config's remat: the
-    program :func:`forward_hidden` and the group stages share."""
-    return _remat(cfg, functools.partial(_layer_train, cfg, kind))(p, x, angles)
+    program :func:`forward_hidden` and the group stages share.  Returns
+    ``(x, aux)`` with a MoE layer's aux loss added to the carried ``aux``."""
+    x, a = _remat(cfg, functools.partial(_layer_train, cfg, kind))(p, x, angles)
+    return x, aux if a is None else aux + a
 
 
 def _plain(params) -> dict:
@@ -385,12 +403,13 @@ def _plain(params) -> dict:
 
 def forward_hidden(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Trunk only: pre-head hidden states (B, S, D) and the MoE aux loss (a
-    0-d f32 zero: the MoE layers are not ported).  Each layer runs under
-    :func:`_remat`."""
+    0-d f32 sum over the layers, zero without MoE layers).  Each layer runs
+    under :func:`_remat`."""
     check_supported(cfg)
     params = _plain(params)
     x = _embed(cfg, params, batch)
     angles = _angles(cfg, x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     stacked: dict = {}
     for kind, path, j in layer_slots(cfg):
         if j is None:
@@ -399,8 +418,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch
             if path not in stacked:
                 stacked[path] = _unbind(_at(params["blocks"], path, None))
             p = stacked[path][j]
-        x = _train_layer(cfg, kind, p, x, angles)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = _train_layer(cfg, kind, p, x, angles, aux)
+    return x, aux
 
 
 def forward_train(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -537,13 +556,23 @@ def block_group_decode(cfg: ModelConfig, blocks_slice: Params, cache_slice: dict
     return x, cache_slice
 
 
-def block_decode_pre_moe(cfg: ModelConfig, blocks_slice: Params, cache_slice: dict, x, angles,
-                         pos):
-    """The router-first half of a MoE layer's decode step: not ported."""
-    raise NotImplementedError(
-        "block_decode_pre_moe: the MoE layers are not ported yet "
-        "(ROADMAP.md, queue 1 item 7: the other model families)"
-    )
+def block_decode_pre_moe(cfg: ModelConfig, blocks_slice: Params, cache_slice: dict,
+                         x: torch.Tensor, angles: Optional[torch.Tensor], pos):
+    """The first half of ONE MoE layer's decode step, up to the routed FFN:
+    attention plus residual, the pre-MoE norm and the router.
+    ``blocks_slice`` is the layer's non-expert group (leading axis 1: the
+    norms, the attention and ``moe.router``; no expert tensors), and
+    ``cache_slice`` its cache layer, updated in place.  Returns ``(x_attn,
+    h2, top_w, top_i)``: the caller fetches the routed experts and finishes
+    with :func:`repro_torch.models.moe.decode_apply` (``x = x_attn + y``),
+    the same operations :func:`block_group_decode` runs on the whole layer."""
+    p = _index(blocks_slice, 0)
+    cache = _index(cache_slice, 0)
+    h = layers.norm_apply(p["ln1"], x, cfg.norm_type)
+    x = x + attention.attention_decode(cfg, p["attn"], h, angles, cache, pos)[0]
+    h2 = layers.norm_apply(p["ln2"], x, cfg.norm_type)
+    top_w, top_i = moe.decode_route(cfg, p["moe"], h2)
+    return x, h2, top_w, top_i
 
 
 def head_stage_logits(cfg: ModelConfig, group: Params, x: torch.Tensor) -> torch.Tensor:
@@ -590,10 +619,9 @@ def block_group_train(cfg: ModelConfig, blocks_slice: Params, x: torch.Tensor, a
                       angles: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
     """Training forward over one stacked layer-group slice ``(Lg, ...)`` of a
     uniform stack: :func:`forward_hidden`'s layer program entered mid-stack.
-    ``aux`` is the MoE aux-loss carry (unchanged: no MoE layers here).
-    Returns ``(x, aux)``."""
+    ``aux`` is the MoE aux-loss carry.  Returns ``(x, aux)``."""
     for p in _unbind(blocks_slice):
-        x = _train_layer(cfg, "attn", p, x, angles)
+        x, aux = _train_layer(cfg, "attn", p, x, angles, aux)
     return x, aux
 
 
@@ -604,7 +632,7 @@ def hetero_group_train(cfg: ModelConfig, kinds, group: Params, x: torch.Tensor,
     period-scanned stack's tail): ``kinds`` is the ``(name, block kind)``
     sequence in layer order.  Returns ``(x, aux)``."""
     for name, kind in kinds:
-        x = _train_layer(cfg, kind, group[name], x, angles)
+        x, aux = _train_layer(cfg, kind, group[name], x, angles, aux)
     return x, aux
 
 
@@ -618,7 +646,7 @@ def period_group_train(cfg: ModelConfig, periods_slice: Params, x: torch.Tensor,
     cols = [_unbind(periods_slice[f"pos_{k}"]) for k in range(period)]
     for j in range(len(cols[0])):
         for k in range(period):
-            x = _train_layer(cfg, cfg.block_kind(k), cols[k][j], x, angles)
+            x, aux = _train_layer(cfg, cfg.block_kind(k), cols[k][j], x, angles, aux)
     return x, aux
 
 

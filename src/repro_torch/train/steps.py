@@ -39,10 +39,10 @@ from repro_torch.core.kvpager import assemble_view, paged_cache_supported  # noq
 from repro_torch.core.refspec import AUTO, PrefetchSpec
 from repro_torch.core.residency import ResidencyCache
 from repro_torch.core.schedcheck import analyze_train_schedule, verify_schedule
-from repro_torch.core.weightstream import PARAM_KINDS, WeightStreamPlan
+from repro_torch.core.weightstream import PARAM_KINDS, WeightStreamPlan, merge_expert_slice
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.device import generator as make_generator
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.layers import ParamTree
 from repro_torch.optim.adamw import (
     AdamWConfig,
@@ -442,12 +442,19 @@ def make_weight_streamed_prefill_step(
     layer group prefills into its ``narrow``ed layers, so no slice is
     concatenated afterwards.
 
+    A ``moe`` unit (expert streaming) runs once all of its groups have
+    landed: the non-expert group and every expert, merged
+    (:func:`~repro_torch.core.weightstream.merge_expert_slice`) into the
+    slice the un-split layer group would have carried.
+
     ``residency`` keeps landed groups on the device across calls: serve
     parameters never change, so a resident group passes through the engine
     at zero requests on every later prefill or decode step until the LRU
     evicts it.  The step has ``close`` (the executor's) and ``residency``."""
     pf, mode = _stream_mode(plan, prefetch)
     head_idx = plan.n_groups - 1
+    #: group index -> (its unit, whether it is the unit's last group)
+    unit_of = {gi: (u, j == len(u.gidx) - 1) for u in plan.units for j, gi in enumerate(u.gidx)}
     box: dict = {}
 
     def apply(i, carry, group):
@@ -464,8 +471,14 @@ def make_weight_streamed_prefill_step(
             xl = transformer._last(box["x"], box["last_pos"])
             box["logits"] = transformer.head_stage_logits(cfg, group, xl)
             return None
+        u, last = unit_of[i]
+        box.setdefault("parts", []).append(group)
+        if not last:
+            return None
+        parts = box.pop("parts")
+        sl = parts[0] if u.kind != "moe" else merge_expert_slice(parts[0], parts[1:])
         box["x"], _ = transformer.block_group_prefill(
-            cfg, group, _layer_view(box["caches"], g.lo, g.hi), box["x"], box["angles"])
+            cfg, sl, _layer_view(box["caches"], u.lo, u.hi), box["x"], box["angles"])
         return None
 
     ex = HostStreamExecutor(apply, indexed=True, engine=engine)
@@ -498,6 +511,8 @@ def make_weight_streamed_decode_step(
     stats: Optional[StreamStats] = None,
     paged: bool = True,
     residency: Optional[ResidencyCache] = None,
+    route_experts: bool = True,
+    expert_stats: Optional[StreamStats] = None,
 ) -> Callable[..., tuple[torch.Tensor, dict]]:
     """Streamed-parameter decode step.
 
@@ -509,15 +524,94 @@ def make_weight_streamed_decode_step(
     groups stream in forward order while each layer group decodes into its
     ``narrow``ed layers of the cache.
 
-    The JAX package's routed-expert decode (``route_experts``,
-    ``expert_stats``) needs the MoE layers (ROADMAP.md, queue 1 item 7):
-    the plan refuses expert streaming, and ``.expert_stats`` is ``None``.
-    Per-group shardings (``param_shardings``) need a mesh (item 5)."""
+    Route-aware expert streaming (``plan.expert_stream``): the pipeline
+    fetches only each MoE layer's non-expert group; the stage runs the
+    router first (:func:`transformer.block_decode_pre_moe`), then only the
+    routed experts' groups are fetched through the engine (submit all, then
+    wait in order), and resident experts (the expert-granular LRU in
+    ``residency``) pass at zero link bytes.  ``route_experts=False`` fetches
+    all E experts through the same path (the all-expert baseline).  Expert
+    traffic is counted in ``expert_stats`` (the step's ``.expert_stats``;
+    one coalesced request a fetched expert group).  The routed rows are
+    gathered before any arithmetic (:func:`~repro_torch.models.moe.decode_apply`
+    on the fetched subset, ``top_i`` remapped into it), so routed decode
+    gives the all-expert and device-resident runs' bits.  The routed set is
+    read on the host: one device sync a MoE layer.
+
+    Per-group shardings (``param_shardings``) need a mesh (ROADMAP.md, queue
+    1 item 5)."""
     pf, mode = _stream_mode(plan, prefetch)
-    # one fetch group per stream unit without expert streaming
+    if plan.expert_stream and expert_stats is None:
+        expert_stats = StreamStats()
+    # the pipeline program: each unit's first group (experts are fetched on
+    # demand, after the router has run)
     prog = [plan.groups[0]] + [plan.groups[u.gidx[0]] for u in plan.units] + [plan.groups[-1]]
     head_pos = len(prog) - 1
     box: dict = {}
+
+    def fetch_experts(home: dict, gs) -> list:
+        """The routed expert groups through the engine: submit all, then
+        wait in order, with the executor's accounting mirrored into
+        ``expert_stats``; landed groups enter the residency LRU."""
+        est = expert_stats
+        futs = []
+        live = 0
+        for g in gs:
+            tree = residency.lookup(g.key) if residency is not None else None
+            if residency is not None and getattr(residency, "sanitize", False):
+                residency.sanitize_home(g.key, home["groups"][g.key], hit=tree is not None)
+            if tree is None:
+                tree = home["groups"][g.key]
+            fut = engine.submit_group(g.index, tree, key=g.key)
+            est.n_transfers += 1
+            est.n_groups += 1
+            est.h2d_requests += fut.n_requests
+            est.bytes_h2d += fut.nbytes
+            est.disk_requests += fut.disk_requests
+            est.bytes_disk += fut.disk_nbytes
+            est.n_devices = max(est.n_devices, fut.n_devices)
+            est.n_device_groups += fut.n_devices
+            if fut.is_resident:
+                est.cache_hits += 1
+            else:
+                est.cache_misses += 1
+                est.unique_group_fetches += 1
+                est.fetched_device_groups += fut.n_devices
+            live += fut.nbytes
+            est.peak_inflight_bytes = max(est.peak_inflight_bytes, live)
+            futs.append((g, fut))
+        parts = []
+        for g, fut in futs:
+            try:
+                w = fut.wait()
+            except BaseException:
+                est.retries += fut.retries
+                est.give_ups += 1
+                raise
+            est.retries += fut.retries
+            est.transfer_wait_s += w
+            est.wait_per_group.append(w)
+            est.disk_wait_s += fut.disk_wait_s
+            est.disk_wait_per_group.append(fut.disk_wait_s)
+            landed = fut.group()
+            if residency is not None:
+                residency.put(g.key, landed, plan.group_bytes(g, fetch=False))
+            parts.append(landed)
+        return parts
+
+    def moe_stage(u, group, cache_slice) -> torch.Tensor:
+        """One MoE layer: attention and the router, the routed experts'
+        fetch, then their FFN on the fetched subset."""
+        x_attn, h2, top_w, top_i = transformer.block_decode_pre_moe(
+            cfg, group, cache_slice, box["x"], box["angles"], box["pos"])
+        with record_function("fetch_experts"):
+            ids = (torch.unique(top_i) if route_experts
+                   else torch.arange(cfg.n_experts, device=top_i.device))
+            eg = plan.experts_for_layer(u.lo)
+            parts = fetch_experts(box["home"], [eg[e] for e in ids.tolist()])
+        stack = {n: torch.cat([t[n] for t in parts], dim=0) for n in plan.expert_names}
+        local = torch.searchsorted(ids.to(top_i.dtype), top_i.contiguous())
+        return x_attn + moe.decode_apply(cfg, stack, top_w, local, h2)
 
     def apply(i, carry, group):
         g = prog[i]
@@ -529,6 +623,10 @@ def make_weight_streamed_decode_step(
         if i == head_pos:
             box["logits"] = transformer.head_stage_logits(cfg, group, box["x"])
             return None
+        u = plan.units[i - 1]
+        if u.kind == "moe":
+            box["x"] = moe_stage(u, group, _layer_view(box["caches"], g.lo, g.hi))
+            return None
         box["x"], _ = transformer.block_group_decode(
             cfg, group, _layer_view(box["caches"], g.lo, g.hi), box["x"], box["angles"],
             box["pos"])
@@ -539,7 +637,7 @@ def make_weight_streamed_decode_step(
     @torch.no_grad()
     def decode(home: dict, caches: dict, batch: dict, pos):
         box.clear()
-        box.update(batch=batch, pos=pos, caches=caches)
+        box.update(batch=batch, pos=pos, caches=caches, home=home)
         if residency is not None:
             groups = [(lambda g=g: plan.fetch_group(home, g, residency)) for g in prog]
         else:
@@ -553,7 +651,7 @@ def make_weight_streamed_decode_step(
 
     decode.close = ex.close  # type: ignore[attr-defined]
     decode.residency = residency  # type: ignore[attr-defined]
-    decode.expert_stats = None  # type: ignore[attr-defined]
+    decode.expert_stats = expert_stats  # type: ignore[attr-defined]
     if not paged:
         return decode
 
@@ -565,7 +663,7 @@ def make_weight_streamed_decode_step(
     paged_decode.close = ex.close  # type: ignore[attr-defined]
     paged_decode.dense = decode  # type: ignore[attr-defined]
     paged_decode.residency = residency  # type: ignore[attr-defined]
-    paged_decode.expert_stats = None  # type: ignore[attr-defined]
+    paged_decode.expert_stats = expert_stats  # type: ignore[attr-defined]
     return paged_decode
 
 
@@ -581,18 +679,27 @@ def _groupwise_f32(cfg: ModelConfig, plan: WeightStreamPlan, seed: int, device: 
     shell first (the untied head goes to the host at once and comes back
     with its group, last), then each middle group's layers in layer order.
     A layer group is drawn only when the caller asks for it, so with each
-    group homed before the next at most one is on the device."""
+    group homed before the next at most one is on the device.
+
+    An expert-split plan draws one layer's whole slice at its non-expert
+    group, hands out the slice without its experts, then each expert group's
+    rows of the same slice: at most one layer's f32 slice is on the device
+    (a caller drops each group before asking for the next)."""
     dev = resolve_device(device)
     gen = make_generator(seed, dev)
     shell = transformer.init_model_shell(cfg, gen, dev)
     head = {k: tr.tree_map(lambda t: t.cpu(), shell.pop(k)) for k in plan.head_home_keys}
     drawn = 0  # layers drawn so far: the generator's position
+    layer = None  # the expert-split layer's slice, while its experts go out
     for g in plan.groups:
         if g.kind == "embed":
             yield g, {k: shell.pop(k) for k in plan.embed_keys}
         elif g.kind == "head":
             yield g, head
+        elif g.kind == "expert":
+            yield g, {n: layer["moe"][n][:, g.expert] for n in plan.expert_names}
         else:
+            layer = None
             if g.lo != drawn:
                 raise ValueError(f"group {g.key} starts at layer {g.lo}, the draws at {drawn}")
             if g.kind == "period":
@@ -601,6 +708,9 @@ def _groupwise_f32(cfg: ModelConfig, plan: WeightStreamPlan, seed: int, device: 
             else:
                 tree = transformer.init_model_slice(cfg, gen, dev, g.lo, g.hi)
             drawn = g.hi
+            if plan.expert_stream:
+                layer = tree
+                tree = plan._strip_experts(tree)
             yield g, tree
 
 
@@ -615,6 +725,7 @@ def init_weight_streamed_params(cfg: ModelConfig, plan: WeightStreamPlan, seed: 
     groups = {}
     for g, f32 in _groupwise_f32(cfg, plan, seed, device):
         groups[g.key] = tr.tree_map(lambda p: _to_host(p.to(cfg.compute_dtype)), f32)
+        del f32
     return {"groups": groups}
 
 
@@ -629,6 +740,7 @@ def init_weight_streamed_state(cfg: ModelConfig, plan: WeightStreamPlan, seed: i
     for g, f32 in _groupwise_f32(cfg, plan, seed, device):
         p_groups[g.key] = tr.tree_map(lambda p: _to_host(p.to(cfg.compute_dtype)), f32)
         o_groups[g.key] = host_opt_state(f32)["leaves"]
+        del f32
     return {"params": {"groups": p_groups},
             "opt": {"groups": o_groups, "step": np.zeros((), np.int32)}}
 
@@ -767,6 +879,10 @@ def make_weight_streamed_train_step(
         raise ValueError("param_kind='disk_host' requires a spill_store")
     if not plan.support.supported:
         raise ValueError(plan.support.reason)
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: streamed-weight training of a MoE config is not ported yet "
+            "(ROADMAP.md, queue 1 item 7: training the MoE families)")
     prefetch = prefetch or PrefetchSpec(buffer_size=plan.n_groups + 2, distance=AUTO)
     mode = "on_demand" if prefetch.on_demand else "prefetch"
     pf = None if mode == "on_demand" else prefetch

@@ -198,21 +198,64 @@ def test_registry_matches_jax():
 # what is not ported raises
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "xlstm-1.3b",
-                                  "qwen3-moe-235b-a22b", "musicgen-medium", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "musicgen-medium", "qwen2-vl-72b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         transformer.init_model(get_smoke_config(arch), torch.Generator(), "meta")
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b"])
+def test_moe_families_match_jax(arch):
+    """The MoE families init with the JAX package's names and shapes, and
+    prefill and three scalar-position decode steps (the smoke mixtral's
+    window ring) give its logits and caches, in f32."""
+    ours = {n: tuple(p.shape) for n, p in
+            transformer.init_model(get_smoke_config(arch), torch.Generator(), "meta").named_parameters()}
+    theirs = jax_steps.abstract_params(jax_get_smoke_config(arch))
+    flat = {".".join(str(k.key) for k in path): tuple(x.shape)
+            for path, x in jax.tree_util.tree_flatten_with_path(theirs)[0]}
+    assert ours == flat
+    jc, pc = _cfgs("float32", "xla", arch)
+    jparams = jax_steps.init_train_state(jax.random.PRNGKey(0), jc)[0]
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), pc, "cpu")
+    tokens = np.random.default_rng(12).integers(1, jc.vocab_size, (B, S), dtype=np.int32)
+    jcaches = jax_tf.init_caches(jc, B, S + STEPS, jc.compute_dtype)
+    jl, jcaches = jax_tf.prefill(jc, jparams, {"tokens": jnp.asarray(tokens)}, jcaches)
+    with torch.no_grad():
+        caches = transformer.init_caches(pc, B, S + STEPS, pc.compute_dtype, "cpu")
+        tl, caches = transformer.prefill(pc, params, {"tokens": torch.from_numpy(tokens).long()},
+                                         caches)
+    for i in range(STEPS):
+        np.testing.assert_allclose(_f32(tl), _f32(jl), err_msg=f"step {i}", **F32_TOL)
+        nxt = np.asarray(jnp.argmax(jl[:, -1], axis=-1), np.int32)
+        jl, jcaches = jax_tf.decode_step(jc, jparams, {"tokens": jnp.asarray(nxt[:, None])}, jcaches,
+                                         jnp.asarray(S + i, jnp.int32))
+        with torch.no_grad():
+            tl, caches = transformer.decode_step(pc, params, {"tokens": torch.tensor(nxt[:, None]).long()},
+                                                 caches, torch.tensor(S + i, dtype=torch.int32))
+    np.testing.assert_allclose(_f32(tl), _f32(jl), **F32_TOL)
+    for name in jcaches:
+        np.testing.assert_allclose(_f32(caches[name]), _f32(jcaches[name]), err_msg=name, **F32_TOL)
+
+
 def test_unported_attention_modes_raise():
-    """``attn_impl="chunked"`` raises; sliding-window rings are ported: an
-    olmo-1b smoke config with ``attn_type="swa"``, window 4, prefills 9
-    tokens and decodes 5 steps (scalar positions) equal to the JAX package."""
-    pc = dataclasses.replace(get_smoke_config("smollm-360m"), attn_impl="chunked")
-    params = st.init_params(pc, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="chunked"):
-        st.make_prefill_step(pc, 1, 8)(params, {"tokens": torch.ones(1, 4, dtype=torch.long)})
+    """``attn_impl="chunked"`` prefills in query blocks (four of 4 here)
+    within f32 tolerance of the plain path, and of the JAX package's chunked
+    prefill; sliding-window rings are ported: an olmo-1b smoke config with
+    ``attn_type="swa"``, window 4, prefills 9 tokens and decodes 5 steps
+    (scalar positions) equal to the JAX package."""
+    jc, pc = (dataclasses.replace(c, attn_impl="chunked", attn_chunk_q=4)
+              for c in _cfgs("float32", "xla", "smollm-360m"))
+    jparams = jax_steps.init_train_state(jax.random.PRNGKey(0), jc)[0]
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), pc, "cpu")
+    tokens = np.random.default_rng(1).integers(1, jc.vocab_size, (B, 16), dtype=np.int32)
+    jl, _ = jax_tf.prefill(jc, jparams, {"tokens": jnp.asarray(tokens)},
+                           jax_tf.init_caches(jc, B, 16, jc.compute_dtype))
+    batch = {"tokens": torch.from_numpy(tokens).long()}
+    chunked, _ = st.make_prefill_step(pc, B, 16)(params, batch)
+    plain, _ = st.make_prefill_step(dataclasses.replace(pc, attn_impl="xla"), B, 16)(params, batch)
+    np.testing.assert_allclose(_f32(chunked), _f32(plain), **F32_TOL)
+    np.testing.assert_allclose(_f32(chunked), _f32(jl), **F32_TOL)
     jc, pc = _cfgs("float32", "pallas", "olmo-1b")
     jc, pc = (dataclasses.replace(c, attn_type="swa", window=4) for c in (jc, pc))
     jparams = jax_steps.init_train_state(jax.random.PRNGKey(0), jc)[0]

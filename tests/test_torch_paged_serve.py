@@ -239,13 +239,13 @@ def test_prefill_widths_are_power_of_two_buckets(mesh, params):
      "cannot hold even a distance-1 weight stream"),
     (dict(param_kind="disk_host", device_budget_mb=1.0, param_cache_mb=5.0), ValueError,
      "param_cache_mb=5.0"),
-    (dict(param_kind="pinned_host", expert_stream=True), NotImplementedError, "queue 1 item 7"),
+    (dict(param_kind="pinned_host", expert_stream=True), ValueError, "requires an MoE config"),
     (dict(hot_pages=-1), ValueError, "hot_pages"),
 ])
 def test_failed_constructor_leaks_nothing(params, tmp_path, kwargs, err, match):
     """A refused construction (a budget the hot window or the weight stream
-    cannot fit, expert streaming, a bad pager knob) raises before any engine
-    thread or spill directory exists."""
+    cannot fit, expert streaming of a dense config, a bad pager knob) raises
+    before any engine thread or spill directory exists."""
     _, pc = _cfgs()
     n0, spill = threading.active_count(), tmp_path / "kv"
     with pytest.raises(err, match=match):
@@ -394,7 +394,7 @@ def test_paged_serve_through_the_kernels_on_card(cuda, kv_kind):
     assert st.disk_requests == (st.n_groups if kv_kind == "disk_host" else 0)
 
 
-@pytest.mark.parametrize("flags, item", [(["--expert-stream"], "queue 1 item 7"),
+@pytest.mark.parametrize("flags, item", [(["--expert-stream"], "--expert-stream streams routed"),
                                          (["--verify-schedule"], "--verify-schedule requires"),
                                          (["--model-parallel", "2"], "queue 1 item 5")])
 def test_cli_names_the_item_a_flag_waits_for(monkeypatch, capsys, flags, item):

@@ -112,22 +112,25 @@ def test_no_card_means_no_silent_cpu(monkeypatch):
 
 @pytest.mark.parametrize("kwargs, err, match", [
     (dict(kv_page_len=32, param_kind="pinned_host", device_budget_mb=2.0, expert_stream=True),
-     NotImplementedError, "ROADMAP.md, queue 1 item 7"),
-    (dict(kv_page_len=0, kv_kind="pinned_host", expert_stream=True), NotImplementedError,
-     "ROADMAP.md, queue 1 item 7"),
+     ValueError, "requires an MoE config"),
+    (dict(kv_page_len=0, kv_kind="pinned_host", expert_stream=True), ValueError,
+     "requires --param-kind pinned_host or disk_host"),
     (dict(kv_page_len=0, param_kind="disk_host", device_budget_mb=0.01), ValueError,
      "cannot hold even a distance-1 weight stream"),
 ])
 def test_unported_serve_options_raise(kwargs, err, match):
-    """Expert streaming is still unported (item 7); the streamed weights are
-    ported, and a budget they cannot fit is refused as in the JAX package."""
+    """Expert streaming of a dense config, or of weights on the card, and a
+    budget the streamed weights cannot fit are refused with the JAX
+    package's messages."""
     _, pc = _cfgs()
     with pytest.raises(err, match=match):
         sv.serve(pc, batch=1, prompt_len=4, gen=2, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("flags, code, text", [
-    (["--expert-stream"], 2, "ROADMAP.md"),
+    (["--expert-stream"], 2, "requires --param-kind pinned_host or disk_host"),
+    (["--arch", "mixtral-8x7b", "--kv-page-len", "0", "--param-kind", "pinned_host",
+      "--expert-stream"], 0, "experts:"),
     (["--loadgen", "--verify-schedule"], 2, "--verify-schedule requires --param-kind"),
     (["--kv-page-len", "0", "--model-parallel", "2"], 2, "ROADMAP.md"),
     (["--kv-page-len", "0", "--param-kind", "pinned_host"], 0, "weights:"),
@@ -135,9 +138,9 @@ def test_unported_serve_options_raise(kwargs, err, match):
      "weight residency:"),
 ])
 def test_cli_exits_on_unported_flags(monkeypatch, capsys, flags, code, text):
-    """What is still unported (expert streaming, model parallelism) exits 2
-    naming ROADMAP.md, as ``--verify-schedule`` on device weights does (a
-    usage error, as in the JAX package); the streamed-weight flags serve."""
+    """What is still unported (model parallelism) exits 2 naming ROADMAP.md,
+    as ``--verify-schedule`` or ``--expert-stream`` on device weights does (a
+    usage error); the streamed-weight and expert-stream flags serve."""
     monkeypatch.setattr(sys, "argv", ["serve", "--smoke", "--device", "cpu", "--batch", "2",
                                       "--prompt-len", "8", "--gen", "3", *flags])
     if code == 0:

@@ -36,8 +36,9 @@ from repro_torch.core.hoststream import StreamStats
 from repro_torch.core.refspec import PrefetchSpec
 from repro_torch.core.residency import ResidencyCache
 from repro_torch.core.weightstream import WeightStreamPlan
+from repro_torch.core import tree as tr
 from repro_torch.launch import serve as sv
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.train import steps as st
 
 SEED = 7
@@ -130,8 +131,28 @@ def test_group_stages_are_the_monolithic_layer_body(params):
     assert all(torch.equal(caches[k], ref[k]) for k in ref)
     one = transformer.init_cache_group(cfg, 3, 2, 16, cfg.compute_dtype, CPU)
     assert one["k"].shape == (3, 2) + tuple(ref["k"].shape[2:])
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        transformer.block_decode_pre_moe(cfg, blocks, caches, x, angles, 0)
+    # a MoE layer's decode stage in two halves (attention and the router,
+    # then the routed experts): the layer body's decode, on its cache view
+    mcfg = dataclasses.replace(get_smoke_config("mixtral-8x7b"), n_experts=8)
+    mparams = st.init_params(mcfg, 0, CPU).as_dict()
+    mcaches = transformer.init_caches(mcfg, 1, 16, mcfg.compute_dtype, CPU)
+    x = transformer.embed_stage(mcfg, mparams, {"tokens": tokens})
+    x, _ = transformer.block_group_prefill(mcfg, mparams["blocks"], mcaches, x,
+                                           transformer.stage_angles(mcfg, {"tokens": tokens}, 9))
+    pos = torch.tensor(9, dtype=torch.int32)
+    step = {"tokens": tokens[:, -1:]}
+    x1 = transformer.embed_stage(mcfg, mparams, step)
+    angles = transformer.stage_angles(mcfg, step, 1, pos=pos)
+    layer = {k: v.narrow(0, 0, 1) for k, v in mcaches.items()}
+    twin = {k: v.clone() for k, v in layer.items()}
+    slice0 = tr.tree_map(lambda a: a[:1], mparams["blocks"])
+    ref_x, _ = transformer.block_group_decode(mcfg, slice0, layer, x1, angles, pos)
+    ne = {**{k: v for k, v in slice0.items() if k != "moe"},
+          "moe": {"router": slice0["moe"]["router"]}}
+    x_attn, h2, top_w, top_i = transformer.block_decode_pre_moe(mcfg, ne, twin, x1, angles, pos)
+    stack = {n: slice0["moe"][n][0] for n in ("wi", "wo", "wg")}
+    assert torch.equal(x_attn + moe.decode_apply(mcfg, stack, top_w, top_i, h2), ref_x)
+    assert all(torch.equal(twin[k], layer[k]) for k in layer)
 
 
 # ---------------------------------------------------------------------------

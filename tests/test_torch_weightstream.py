@@ -31,7 +31,7 @@ from repro_torch.core.weightstream import (
 )
 from repro_torch.train import steps as st
 
-ARCHS = ("smollm-360m", "recurrentgemma-2b")
+ARCHS = ("smollm-360m", "recurrentgemma-2b", "mixtral-8x7b")
 
 
 def _both(arch, full=False):
@@ -136,11 +136,21 @@ def test_recurrentgemma_streamed_serving_refused_with_the_jax_message():
 
 
 def test_expert_stream_and_shardings_name_their_items():
+    """Expert streaming needs a MoE config (the JAX package's message);
+    ``merge_expert_slice`` stacks expert groups on a new expert axis;
+    per-group shardings need a mesh (queue 1 item 5)."""
     cfg = get_smoke_config("smollm-360m")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    jc = jax_get_smoke_config("smollm-360m")
+    with pytest.raises(ValueError, match="requires an MoE config") as ours:
         WeightStreamPlan(cfg, st.abstract_params(cfg), expert_stream=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        merge_expert_slice({}, [])
+    with pytest.raises(ValueError) as theirs:
+        JaxPlan(jc, jax_steps.abstract_params(jc), expert_stream=True)
+    assert str(ours.value) == str(theirs.value)
+    ne = {"attn": {"wq": torch.ones(1, 2)}, "moe": {"router": torch.ones(1, 3)}}
+    experts = [{"wi": torch.full((1, 2, 4), float(e))} for e in range(3)]
+    merged = merge_expert_slice(ne, experts)
+    assert merged["moe"]["wi"].shape == (1, 3, 2, 4) and merged["attn"] is ne["attn"]
+    assert [float(merged["moe"]["wi"][0, e, 0, 0]) for e in range(3)] == [0.0, 1.0, 2.0]
     plan = WeightStreamPlan(cfg, st.abstract_params(cfg))
     assert plan.group_shardings(None) is None and plan.home_group_shardings(None) is None
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
