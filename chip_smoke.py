@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths (dense, hybrid and MoE), the
-paper's offload path, training (with the weights on the card and streamed
-from the host or disk) and the paper's tables on one NVIDIA card.
+"""Drive the PyTorch port's serving paths (dense, hybrid, MoE and xLSTM), the
+paper's offload path, training (dense, xLSTM and MoE, with the weights on the
+card and streamed from the host or disk) and the paper's tables on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -79,8 +80,9 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    routed, at distance 0 and 1 (``param_cache_mb=0``) and ``auto`` (the
    default cache, too small for an expert group); (c) all experts
    (``route_experts=False``), auto; (d) disk, routed, gen 8, spilled under
-   ``build/spill-moe/`` (deleted after); (e) all 32 layers (93.41 GB, more
-   than the card), routed, gen 4, at pinned host, initialized group by
+   ``build/spill-moe/`` (deleted after); (e) 16 layers (46.7 GB; all 32,
+   93.41 GB, more than the card, ran here until phases 2x, 6x and 6m took
+   their time), routed, gen 4, at pinned host, initialized group by
    group, run after (f0) and before any spill, and refused before it starts
    unless the host's MemAvailable holds the home with 3 GB to spare; (f)
    the paged ``ServeSession`` at pinned-host pages with (b)'s weights and
@@ -102,6 +104,20 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    ``rglru_scan``, ``flash_attention`` and ``decode_attention`` must all
    have been launched;
 3b. check its output as in phase 3, on one 3072-token prompt;
+2x. serve full-width xlstm-1.3b (48 layers: 6 periods of 7 mLSTM and an
+   sLSTM; d_model 2048, 4 heads of 512, vocab 50,304, tied; 1,741,275,472
+   parameters, bf16, random weights from seed 0) in lock-step through
+   ``serve``: batch 4, prompt 512 (4 chunks of 128), gen 32, twice, the
+   launch counts zeroed just before and read just after each (no
+   hand-written kernel is on this path, as none is in the JAX package's):
+   the tokens of the two runs bitwise equal; (b) a prefill of 384 tokens and
+   128 decode steps against a prefill of 512, the last logits within 5e-2 of
+   the largest; (c) layer 0's mLSTM cell at full width in f32, the chunkwise
+   form against the sequential one (rtol 2e-4, atol 2e-3), outputs and
+   final states; (d) the batch's prefill and one decode step under the
+   profiler (the card alone): device busy against the unprofiled wall,
+   idle share, launches (``profile_serve --arch xlstm-1.3b`` is
+   :func:`phase_xlstm_profile`'s, which ``main`` skips);
 4. the paper's path, ``streamed_matmul``'s launch count zeroed just before
    and read just after: the quickstart's listings 1-4; the lung-NN Fig 4
    at the JAX package's full size (1.8M pixels, 100 hidden, batch 2, 120
@@ -173,6 +189,31 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    walls, wait, drain, bytes each way and ``max_memory_allocated`` (beside
    phase 6 (a)'s) logged with the card's name and power limit.  No
    hand-written kernel runs here, as in phase 6.
+6x. train full-width xlstm-1.3b at phase 6's batch, sequence and AdamW
+   settings: (a) the state on the card, 4 steps through ``build_trainer``,
+   finite and falling losses, the step wall, tokens/s, model FLOP/s and
+   ``max_memory_allocated`` (one profiled step and the sLSTM loop's part of
+   it are :func:`phase_xlstm_profile`'s, which ``main`` skips: profiling
+   ~770,000 launches takes minutes); (b) the streamed-weight step on the period layout
+   (8 groups: embed, 6 periods of 8 layers, head) under a budget of its
+   distance-1 floor rounded up to 100 MB (1700 MB against 3.48 GB of bf16
+   weights), 2 steps at the device home, then 2 at pinned host (distance
+   auto): losses, parameters and moments bitwise, every request and byte
+   of the weight passes and the optimizer pass the plan's, one H2D request
+   a fetched group; walls, tokens/s, waits, drains and peak memory logged.
+   Runs right after 6m, in a child process, as 6m.
+6m. train full-width mixtral-8x7b (d_model 4096, 32 heads over 8, 8 experts
+   of d_ff 14336 top-2; cut to one layer, 1,713,418,240 parameters) with
+   ``expert_stream=True`` (a non-expert group and 8 expert groups of
+   352,321,536 bytes), batch 2, sequence 512, 2 steps at the device home
+   and 2 at pinned host with the residency cache off, so every group is
+   fetched in both passes: losses, parameters and moments bitwise, every
+   request and byte the plan's (each expert group's bytes twice a step),
+   one H2D request a fetched group.  Runs right after phase 1, in a child
+   process (its host memory goes back when it exits: the later phases leave
+   the host's MemAvailable low), and refuses to start unless the host holds
+   two homes of weights and moments with 3 GB to spare.  The disk
+   home of this step is held on the CPU (tests/test_torch_moe_train.py).
 7. the paper's tables and the engine studies at full size, through the
    port's runner (``repro_torch.benchmarks.run.run_suites``), after phase 5:
    ``HwSpec`` H100's ``hbm_bytes`` within 10% of the card's total memory;
@@ -203,6 +244,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -246,14 +289,24 @@ W_GROUPS, W_PASS_BYTES, W_SHORT_GEN = 34, 818_014_080, 8
 # device-resident twin; the budget above the expert plan's distance-1 floor
 # (three MoE units, 8,707,620,864 bytes) with a residency cache (292 MB) that
 # holds no expert group (352,321,536 bytes); the disk run's and the whole
-# model's shorter generation; the whole model's depth and the host memory it
-# must leave free (the H100 host this was sized on: MemTotal 105,906,176 kB,
-# 80.2 GB of free disk)
+# model's shorter generation; the deep run's depth (16 of 32 layers: the
+# whole model's 93.4 GB ran until phases 2x, 6x and 6m needed the time) and
+# the host memory it must leave free (the H100 host this was sized on:
+# MemTotal 105,906,176 kB, 80.2 GB of free disk)
 MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2, 512, 16
 MOE_BUDGET_MB, MOE_DISK_GEN, MOE_FULL_GEN = 9000, 8, 4
-MOE_FULL_LAYERS, MOE_HOST_MARGIN = 32, 3_000_000_000
+MOE_FULL_LAYERS, MOE_HOST_MARGIN = 16, 3_000_000_000
 # the recurrentgemma-2b cell: a prompt longer than the 2048-token window
 HYB_PROMPT = 3072
+# phase 2x: full-width xlstm-1.3b served (a prompt of 4 mLSTM chunks); phase
+# 6x: trained at phase 6's batch and sequence, then streamed 2 steps a home
+XL_BATCH, XL_PROMPT, XL_GEN, XL_PARAMS = 4, 512, 32, 1_741_275_472
+XL_TRAIN_STEPS, XL_W_STEPS = 4, 2
+# phase 6m: full-width mixtral-8x7b trained with its experts streamed, cut to
+# one layer: the streamed step holds a home's old and new state until it
+# returns, so the device home needs twice its 16 B a parameter on the card
+# (~55 GB at one layer; two layers, 3.16 B parameters, would need ~101 GB)
+MT_LAYERS, MT_BATCH, MT_SEQ, MT_STEPS = 1, 2, 512, 2
 # phase 6: full-width smollm-360m training at the JAX package's train defaults
 # (remat "full", loss chunks of 512 positions), its AdamW settings; the
 # streamed optimizer's groups; the DISK_OPT host budget and its steps; the
@@ -1262,7 +1315,8 @@ def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
     stream = dict(param_kind="pinned_host", expert_stream=True, device_budget_mb=MOE_BUDGET_MB,
                   device=device)
 
-    # (e) the whole model: more than the card holds, at the home this machine
+    # (e) the deep run (the whole model's 32 layers are more than the card
+    # holds; MOE_FULL_LAYERS says how many run), at the home this machine
     # holds; (a)'s weights leave the card first and are drawn again after
     big = dataclasses.replace(full, n_layers=MOE_FULL_LAYERS)
     bplan = WeightStreamPlan(big, st.abstract_params(big), expert_stream=True,
@@ -1273,9 +1327,7 @@ def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
     # files are gone (~11 GB after (d)'s)
     gc.collect()
     cached = host_pinned_cached()
-    empty = getattr(torch._C, "_host_emptyCache", None)
-    if empty is not None:
-        empty()
+    free_host(device)
     fits, avail = moe_home_fits(bplan, MOE_HOST_MARGIN)
     card = torch.cuda.get_device_properties(0).total_memory if device == "cuda" else 0
     log(f"  (e) {big.n_layers} layers: {bplan.total_param_bytes} B of weights, the card "
@@ -1536,7 +1588,8 @@ def same_bits(a, b) -> bool:
     from repro_torch.core.arrays import host_tensor
 
     la, lb = tr.leaves(a), tr.leaves(b)
-    on = lambda x: host_tensor(x).to("cuda")  # noqa: E731
+    dev = "cuda" if torch.cuda.is_available() else "cpu"  # a rehearsal on the CPU
+    on = lambda x: host_tensor(x).to(dev)  # noqa: E731
     return len(la) == len(lb) and all(
         on(x).dtype == on(y).dtype and torch.equal(bits(on(x)), bits(on(y))) for x, y in zip(la, lb))
 
@@ -2139,6 +2192,476 @@ def phase_train_streamed(cfg, ref: dict, smi: str, device="cuda",
     log(f"  phase 6w done in {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phases 2x, 6x, 6m: the xLSTM family served and trained, and MoE training
+# with the experts streamed
+# ---------------------------------------------------------------------------
+
+def profile_ms(fn, wall_s: Optional[float] = None) -> dict:
+    """``fn()`` once under the profiler, tracing the card alone (a train
+    step's million launches would cost as many host-side records): device
+    busy ms, kernel launches and the idle share against ``wall_s`` (else the
+    profiled run's own wall)."""
+    from repro_torch.launch.profile_serve import _breakdown
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        own = time.perf_counter() - t0
+    r = _breakdown(prof, wall_s or own, 1, 8)
+    r["profiled_wall_ms"] = own * 1e3
+    return r
+
+
+def phase_xlstm_serve(smi: str, device: str = "cuda", full=None) -> None:
+    """Phase 2x: full-width xlstm-1.3b served in lock-step through the entry
+    point (``full`` and ``device="cpu"`` rehearse it at another size)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as tr
+    from repro_torch.launch import serve as sv
+    from repro_torch.models import xlstm
+    from repro_torch.models.rglru import _causal_conv
+    from repro_torch.train import steps as st
+
+    t_phase = time.perf_counter()
+    cfg = full or get_config("xlstm-1.3b")
+    n_params = sum(x.numel() for x in tr.leaves(st.abstract_params(cfg)))
+    log(f"phase 2x serve {cfg.name}: {cfg.n_layers} layers ({cfg.n_layers // cfg.slstm_every} periods "
+        f"of {cfg.slstm_every - 1} mLSTM + sLSTM), d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}, tied, {cfg.dtype}; {n_params:,} parameters; "
+        f"batch {XL_BATCH}, prompt {XL_PROMPT} (chunks of {cfg.mlstm_chunk}), gen {XL_GEN}, "
+        f"lock-step, device-resident; {smi}")
+    if full is None and n_params != XL_PARAMS:
+        raise SystemExit(f"2x: xlstm-1.3b has {n_params} parameters, not {XL_PARAMS}")
+    since = [time.perf_counter()]
+
+    def lap() -> float:
+        now = time.perf_counter()
+        dt, since[0] = now - since[0], now
+        return dt
+
+    params = st.init_params(cfg, SEED, device)
+    log(f"  weights drawn on the {device} in {lap():.1f} s")
+    wrappers = serving_kernels()
+    runs = []
+    for i in range(2):
+        reset_peak(device)
+        for w in wrappers.values():
+            w.launches = 0
+        res = sv.serve(cfg, batch=XL_BATCH, prompt_len=XL_PROMPT, gen=XL_GEN, kv_page_len=0,
+                       seed=SEED, params=params, device=device)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        walls = sorted(res["step_walls"])
+        log(f"  run {i + 1}: prefill {res['prefill_s'] * 1e3:.3f} ms for {XL_BATCH} requests, decode "
+            f"{res['decode_s'] * 1e3 / max(res['n_steps'], 1):.3f} ms a step (median host "
+            f"{walls[len(walls) // 2] * 1e3:.3f} ms) over {res['n_steps']} steps, "
+            f"{res['tokens_per_s']:.1f} tok/s; max_memory_allocated {peak_allocated(device)} B; "
+            f"launches {launches} (the xLSTM path reaches no hand-written kernel, as in the JAX "
+            f"package) ({lap():.1f} s)")
+        runs.append(res)
+    gen = runs[0]["generated"]
+    if gen.shape != (XL_BATCH, XL_GEN) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        raise SystemExit(f"2x: generated tokens malformed: {gen.shape}")
+    if not np.array_equal(gen, runs[1]["generated"]):
+        raise SystemExit("2x: a second serve of the same weights and prompts gave other tokens")
+    log(f"  tokens bitwise equal across the two runs; first request {gen[0, :8].tolist()}...")
+
+    # (b) prefill then decode against the longer prefill: the decode steps
+    # carry the state across the last chunk of the prompt
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    toks = torch.randint(1, cfg.vocab_size, (XL_BATCH, XL_PROMPT), generator=g, device=device)
+    head = XL_PROMPT - cfg.mlstm_chunk
+    la, _ = st.make_prefill_step(cfg, XL_BATCH, XL_PROMPT + 2)(params, {"tokens": toks})
+    _, caches = st.make_prefill_step(cfg, XL_BATCH, XL_PROMPT + 2)(params, {"tokens": toks[:, :head]})
+    decode = st.make_decode_step(cfg)
+    for t in range(head, XL_PROMPT):
+        lb, caches = decode(params, caches, {"tokens": toks[:, t:t + 1]},
+                            sv.step_pos(cfg, XL_BATCH, t, device))
+    la, lb = la.float(), lb.float()
+    if not (torch.isfinite(la).all() and torch.isfinite(lb).all()):
+        raise SystemExit("2x: logits are not finite")
+    rel = max_err(la, lb) / la.abs().max().item()
+    same = bool((la.argmax(-1) == lb.argmax(-1)).all())
+    log(f"  (b) prefill {head} + {XL_PROMPT - head} decode steps against a prefill of {XL_PROMPT}: "
+        f"max |diff| / max |logit| = {rel:.3e} (limit {LOGIT_RTOL}), same greedy tokens: {same} "
+        f"({lap():.1f} s)")
+    if rel > LOGIT_RTOL:
+        raise SystemExit("2x (b): prefill-then-decode disagrees with the longer prefill")
+    del caches, la, lb
+
+    # (c) one full-width mLSTM layer in f32: the chunkwise form against the
+    # sequential oracle
+    p = {k: v[0].float() for k, v in params.as_dict()["blocks"]["periods"]["pos_0"]["mlstm"].items()}
+    x = torch.randn(2, XL_PROMPT, cfg.d_model, generator=g, device=device)
+    u, _ = torch.chunk(x @ p["w_up"], 2, dim=-1)
+    uc, _ = _causal_conv({"conv": p["conv"]}, u)
+    q, k, v, li, lf = xlstm._mlstm_qkv_gates(cfg, p, u, torch.nn.functional.silu(uc))
+    hc, sc_ = xlstm.mlstm_chunkwise(q, k, v, li, lf, chunk=cfg.mlstm_chunk)
+    hs, ss = xlstm.mlstm_sequential(q, k, v, li, lf)
+    check_close(f"2x mLSTM layer 0 chunkwise vs sequential, f32 {tuple(q.shape)} -> "
+                f"{tuple(hc.shape)}", hc, hs, rtol=2e-4, atol=2e-3)
+    for name in ("C", "n", "m"):
+        check_close(f"2x mLSTM final state {name}", sc_[name], ss[name], rtol=2e-4, atol=2e-3)
+    log(f"  (c) {lap():.1f} s")
+    del p, x, u, uc, q, k, v, hc, hs, sc_, ss
+
+    # (d) where the batch's prefill and one decode step spend the card:
+    # device busy against the unprofiled wall, launches (a trace of the
+    # card alone; phase_xlstm_profile runs profile_serve's fuller one)
+    if device == "cuda":
+        box = {}
+
+        def prefill():
+            box["first"], box["caches"] = sv.prefill_all(cfg, params, toks, XL_PROMPT + 2)
+
+        def step():
+            decode(params, box["caches"], {"tokens": box["first"].long()[:, None]},
+                   sv.step_pos(cfg, XL_BATCH, XL_PROMPT, device))
+
+        for name, fn in (("prefill (the batch, lock-step)", prefill), ("decode step", step)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            r = profile_ms(fn, wall)
+            idle = r["device_idle_share"]
+            log(f"  (d) {name}: wall {wall * 1e3:.3f} ms, device busy "
+                f"{r['device_busy_ms_per_unit']:.3f} ms, idle share "
+                f"{'not measured' if idle is None else f'{idle:.3f}'}, "
+                f"{r['kernel_launches_per_unit']:.0f} launches")
+        del box
+        log(f"  (d) {lap():.1f} s")
+    del params
+
+    log(f"  phase 2x done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def slstm_share(cfg, step_prof: dict) -> None:
+    """The sLSTM layers' part of one profiled train step: one sLSTM block at
+    the train shape, run as the step runs it under ``remat="full"`` (its
+    forward without gradients, then the recomputed forward and the
+    backward), profiled alone and scaled by the step's sLSTM layers."""
+    from repro_torch.core import tree as tr
+    from repro_torch.models import xlstm
+
+    n_s = sum(cfg.block_kind(i) == "slstm" for i in range(cfg.n_layers))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    p = xlstm.init_slstm_block(cfg, generator=gen, device="cuda")
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, generator=gen, device="cuda").to(cfg.compute_dtype)
+
+    flat, treedef = tr.flatten(p)
+
+    def block():
+        with torch.no_grad():
+            xlstm.slstm_block_train(cfg, p, x)
+        leaves = [t.detach().requires_grad_(True) for t in flat]
+        xi = x.detach().requires_grad_(True)
+        out, _ = xlstm.slstm_block_train(cfg, tr.unflatten(treedef, leaves), xi)
+        torch.autograd.grad(out.float().sum(), [xi, *leaves])
+
+    block()  # warm-up
+    r = profile_ms(block)
+    launches, ms = r["kernel_launches_per_unit"] * n_s, r["device_busy_ms_per_unit"] * n_s
+    log(f"  (a) the sLSTM loop: one block at ({TRAIN_BATCH}, {TRAIN_SEQ}, {cfg.d_model}) takes "
+        f"{r['kernel_launches_per_unit']:.0f} launches and {r['device_busy_ms_per_unit']:.3f} device "
+        f"ms (forward, recomputed forward, backward; host wall {r['profiled_wall_ms']:.1f} ms); "
+        f"x {n_s} sLSTM layers = {launches:.0f} launches ({launches / step_prof['kernel_launches_per_unit']:.3f}"
+        f" of the step's {step_prof['kernel_launches_per_unit']:.0f}) and {ms:.1f} device ms "
+        f"({ms / step_prof['device_busy_ms_per_unit']:.3f} of the step's "
+        f"{step_prof['device_busy_ms_per_unit']:.1f})")
+
+
+def free_host(device: str) -> None:
+    """Collect, and give back the pinned buffers the CUDA caching host
+    allocator keeps (a streamed train step's drains: tens of GB)."""
+    gc.collect()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if device == "cuda" and empty is not None:
+        empty()
+
+
+def streamed_train_pair(phase: str, cfg, plan, smi: str, *, batch_fn, tokens: int, steps: int,
+                        residency=None, device: str = "cuda") -> dict:
+    """The streamed-weight train step from one group-wise init, at the
+    device home and then at pinned host (distance auto), ``steps`` steps
+    each: losses, parameters and moments bitwise; each step's requests and
+    bytes of the weight passes and the optimizer pass the plan's closed
+    form, with one H2D request a fetched group; the steps' walls, waits,
+    drains and peak memory logged.  ``residency`` (``ResidencyCache(0)``)
+    turns the cache off, else the budget's cache may hold the head's home
+    alone.  Returns the device run's losses and its per-step numbers."""
+    import gc
+
+    from repro_torch.core import schedcheck as sc
+    from repro_torch.core import tree as tr
+    from repro_torch.core.refspec import PrefetchSpec
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps as st
+
+    n = plan.n_groups
+    budget = plan.device_budget_bytes
+    cap = residency.capacity_bytes if residency is not None else plan.residency_capacity_bytes()
+    max_d = plan.max_distance_for_budget(cached_bytes=cap or 0)
+    report = sc.analyze_train_schedule(plan, distance=max_d, cache_capacity=cap, spill=False)
+    log(f"  {phase} plan: {n} groups ({plan.layout}{', expert-split' if plan.expert_stream else ''}), "
+        f"{plan.total_param_bytes} B of weights, budget {budget} B, residency cache {cap} B, max "
+        f"distance {max_d}; analyzed peak {report.peak_bytes} B, ok {report.ok}")
+    if not report.ok or (budget is not None and report.peak_bytes > budget):
+        raise SystemExit(f"{phase}: the schedule fails its analysis\n{report}")
+    head_home = plan.head_home_bytes
+    fits = [g.key for g in plan.groups if cap is not None and plan.group_bytes(g, fetch=False) <= cap]
+    if fits not in ([], [plan.groups[-1].key]):
+        raise SystemExit(f"{phase}: a {cap} B cache holds other groups than the head's home: {fits}")
+    head_cached = bool(fits)
+    bwd = list(reversed(plan.groups[1:-1])) + [plan.groups[0]]
+    total = plan.total_param_bytes
+    pass_bytes = sum(plan.group_bytes(g) for g in plan.groups) + sum(plan.group_bytes(g) for g in bwd)
+    leaves = {k: len(tr.leaves(t)) for k, t in
+              plan.init_home(st.abstract_params(cfg))["groups"].items()}
+    n_ex = len(plan.expert_groups)
+
+    def expected(kind: str, k: int) -> dict:
+        if kind == "device":  # every group passes through by reference
+            w = dict(h2d_requests=0, bytes_h2d=0, unique_group_fetches=0, cache_hits=2 * n - 1)
+        else:
+            hit = int(head_cached and k > 0)  # the head's home, cached from step 0's forward
+            w = dict(h2d_requests=2 * n - 1, bytes_h2d=pass_bytes - hit * head_home,
+                     unique_group_fetches=2 * n - 1, cache_hits=0)
+        # the backward's gradients, a D2H request a leaf; an expert group's
+        # drain at its layer's non-expert group, a 0-d f32 placeholder at its own
+        w.update(d2h_requests=sum(leaves[g.key] for g in bwd) + n_ex,
+                 bytes_d2h=total - head_home + 4 * n_ex, disk_requests=0)
+        o = dict(h2d_requests=n - (kind == "device"), d2h_requests=4 * sum(leaves.values()),
+                 bytes_d2h=7 * total, disk_requests=0,
+                 bytes_h2d=(total - head_home) + (6 * total if kind != "device" else 0))
+        return {"param": w, "opt": o}
+
+    free_host(device)
+    t0 = time.perf_counter()
+    # the last run takes the initial state over, so that its first step can
+    # free it: a home's old and new states are both held while a step runs
+    box = {"state0": st.init_weight_streamed_state(cfg, plan, SEED, device)}
+    log(f"  {phase} group-wise init of the state at the host: {time.perf_counter() - t0:.1f} s "
+        f"(host MemAvailable {mem_available()} B)")
+
+    def run(name: str, kind: str) -> dict:
+        free_host(device)
+        reset_peak(device)
+        step = st.make_weight_streamed_train_step(
+            cfg, AdamWConfig(**TRAIN_OPT), plan=plan, param_kind=kind,
+            prefetch=PrefetchSpec(buffer_size=n + 2, distance="auto"),
+            residency=residency if kind != "device" else None, device=device)
+        t0 = time.perf_counter()
+        s = (st.device_weight_streamed_state(plan, box["state0"], device) if kind == "device"
+             else box.pop("state0"))
+        out = dict(name=name, home_s=time.perf_counter() - t0, losses=[], walls=[], steps=[],
+                   host_avail=mem_available())
+        stats = {"param": step.param_stats, "opt": step.opt_stats}
+        try:
+            for k in range(steps):
+                b = batch_fn(k)
+                before = {w: {f: getattr(s_, f) for f in STREAM_FIELDS} for w, s_ in stats.items()}
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s, m = step(s, b)
+                out["losses"].append(float(m["loss"]))
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                out["walls"].append(time.perf_counter() - t0)
+                out["steps"].append({w: {f: getattr(s_, f) - before[w][f] for f in STREAM_FIELDS}
+                                     for w, s_ in stats.items()})
+            out["state"] = s
+            out["peak"] = peak_allocated(device)
+            out["fetched_per_request"] = step.param_stats.per_tier()["h2d"][
+                "requests_per_fetched_device_group"]
+            out["streamed_peak"] = step.param_stats.peak_inflight_bytes
+        finally:
+            step.close()
+        for k, got in enumerate(out["steps"]):
+            want = expected(kind, k)
+            for w in ("param", "opt"):
+                for f, v in want[w].items():
+                    if got[w][f] != v:
+                        raise SystemExit(f"{phase} {name} step {k}: {w} {f} {got[w][f]}, expected {v}")
+        per = out["steps"]
+        log(f"  {phase} {name}: losses {out['losses']}; step walls "
+            f"{[round(w * 1e3, 1) for w in out['walls']]} ms ("
+            f"{[round(tokens / w, 1) for w in out['walls']]} tok/s); wait "
+            f"{[round((x['param']['transfer_wait_s'] + x['opt']['transfer_wait_s']) * 1e3, 1) for x in per]}"
+            f" ms, drain "
+            f"{[round((x['param']['writeback_drain_s'] + x['opt']['writeback_drain_s']) * 1e3, 1) for x in per]}"
+            f" ms a step; H2D {per[-1]['param']['bytes_h2d']:,} + {per[-1]['opt']['bytes_h2d']:,} B "
+            f"({per[-1]['param']['h2d_requests']} + {per[-1]['opt']['h2d_requests']} requests), D2H "
+            f"{per[-1]['param']['bytes_d2h']:,} + {per[-1]['opt']['bytes_d2h']:,} B a step (weights + "
+            f"optimizer), every count the plan's; peak streamed {out['streamed_peak']} B; "
+            f"max_memory_allocated {out['peak']} B; home placed in {out['home_s']:.1f} s; host "
+            f"MemAvailable {out['host_avail']} B at the start ({smi})")
+        return out
+
+    a = run("(device home)", "device")
+    if not all(map(math.isfinite, a["losses"])):
+        raise SystemExit(f"{phase}: losses not finite: {a['losses']}")
+    b = run("(pinned host, distance auto)", "pinned_host")
+    if b["losses"] != a["losses"]:
+        raise SystemExit(f"{phase}: pinned-host losses {b['losses']} differ from the device "
+                         f"home's {a['losses']}")
+    for part in ("params", "opt"):
+        for key in a["state"][part]["groups"]:
+            if not same_bits(b["state"][part]["groups"][key], a["state"][part]["groups"][key]):
+                raise SystemExit(f"{phase}: {part} group {key} differs between the homes")
+    if b["fetched_per_request"] != 1.0:
+        raise SystemExit(f"{phase}: {b['fetched_per_request']} H2D requests a fetched group")
+    if budget is not None and b["streamed_peak"] > budget:
+        raise SystemExit(f"{phase}: {b['streamed_peak']} B streamed over the budget {budget} B")
+    log(f"  {phase}: losses, parameters and moments bitwise across the device and pinned-host "
+        f"homes; one H2D request a fetched group")
+    del a["state"], b["state"]
+    return a
+
+
+def phase_xlstm_train(smi: str) -> None:
+    """Phase 6x: full-width xlstm-1.3b trained on the card (the AdamW state on
+    the card), then through the streamed-weight step on its period layout
+    under a budget of its distance-1 floor rounded up."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.weightstream import WeightStreamPlan
+    from repro_torch.train import steps as st
+
+    t_phase = time.perf_counter()
+    tcfg = train_cfg(get_config("xlstm-1.3b"))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    since = [t_phase]
+
+    def lap() -> float:
+        now = time.perf_counter()
+        dt, since[0] = now - since[0], now
+        return dt
+
+    log(f"phase 6x train {tcfg.name}: {XL_PARAMS:,} parameters, {tcfg.dtype}, remat={tcfg.remat}, "
+        f"loss_chunk {tcfg.loss_chunk}; batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, AdamW {TRAIN_OPT}; "
+        f"{smi}")
+    reset_peak("cuda")
+    a = train_run(tcfg, ROOT / "build" / "train-ckpt-x", steps=XL_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for _, loss in a["losses"]]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"6x (a): losses not finite or not falling: {losses}")
+    wall = median(a["walls"][1:])
+    log(f"  (a) AdamW on the card, {XL_TRAIN_STEPS} steps: losses {[round(x, 4) for x in losses]}; "
+        f"step walls {[round(w * 1e3, 1) for w in a['walls']]} ms, median of steps 1-"
+        f"{XL_TRAIN_STEPS - 1} {wall * 1e3:.1f} ms = {tokens / wall:.1f} tok/s, model "
+        f"{6 * XL_PARAMS * tokens / wall / 1e12:.2f} TFLOP/s (6 N T); max_memory_allocated {peak} B "
+        f"({lap():.1f} s)")
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the streamed-weight step on the period layout
+    free = WeightStreamPlan(tcfg, st.abstract_params(tcfg), layers_per_group=1)
+    floor = free.peak_device_bytes(1)
+    budget_mb = math.ceil(floor / 1e8) * 100
+    plan = WeightStreamPlan(tcfg, st.abstract_params(tcfg), layers_per_group=1,
+                            device_budget_mb=budget_mb)
+    log(f"  (b) budget {budget_mb} MB: the period plan's distance-1 floor {floor} B rounded up to "
+        f"100 MB, against {plan.total_param_bytes} B of bf16 weights")
+    if plan.layout != "period" or not budget_mb * 1e6 < plan.total_param_bytes:
+        raise SystemExit(f"6x (b): layout {plan.layout}, budget {budget_mb} MB")
+    streamed_train_pair("6x (b)", tcfg, plan, smi, batch_fn=lambda k: train_batch(tcfg, k),
+                        tokens=tokens, steps=XL_W_STEPS)
+    log(f"  phase 6x done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_xlstm_profile(smi: str) -> None:
+    """Where xlstm-1.3b's time goes on the card (not run by :func:`main`:
+    its profiles of a train step's ~770,000 launches take ~5 minutes; a
+    script under ``build/`` that imports this module calls it): one train
+    step with the AdamW state on the card under the profiler (device busy,
+    idle share against the step's wall, launches, top kernels), the sLSTM
+    loop's part of it (:func:`slstm_share`), and ``profile_serve --arch
+    xlstm-1.3b`` (prefill and decode)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import profile_serve
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps as st
+
+    tcfg = train_cfg(get_config("xlstm-1.3b"))
+    log(f"xlstm-1.3b profiles: train batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat={tcfg.remat}; {smi}")
+    step_fn = st.make_train_step(tcfg, AdamWConfig(**TRAIN_OPT))
+    params, opt = st.init_train_state(tcfg, SEED, "cuda")
+    box = {}
+    for k in range(3):  # warm, then two timed steps
+        batch = train_batch(tcfg, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _ = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        box.setdefault("walls", []).append(time.perf_counter() - t0)
+    wall = min(box["walls"][1:])
+
+    def one():
+        box["out"] = step_fn(params, opt, batch)
+
+    r = profile_ms(one, wall)
+    idle = r["device_idle_share"]
+    log(f"  train step: walls {[round(w * 1e3, 1) for w in box['walls']]} ms; profiled: device busy "
+        f"{r['device_busy_ms_per_unit']:.1f} ms of the {wall * 1e3:.1f} ms wall, idle share "
+        f"{'not measured' if idle is None else f'{idle:.4f}'}, {r['kernel_launches_per_unit']:.0f} "
+        f"kernel launches; top kernels: "
+        + "; ".join(f"{k['ms_per_unit']:.1f} ms x{k['calls_per_unit']:.0f} {k['name'][:40]}"
+                    for k in r["top_kernels"][:6]))
+    del params, opt, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    slstm_share(tcfg, r)
+    argv = sys.argv
+    sys.argv = ["profile_serve", "--arch", tcfg.name, "--batch", str(XL_BATCH), "--prompt-len",
+                str(XL_PROMPT)]
+    try:
+        log(f"  profile_serve --arch {tcfg.name} --batch {XL_BATCH} --prompt-len {XL_PROMPT}:")
+        profile_serve.main()
+    finally:
+        sys.argv = argv
+
+
+def phase_moe_train(smi: str, device: str = "cuda", full=None) -> None:
+    """Phase 6m: full-width mixtral-8x7b, cut to ``MT_LAYERS``, trained with
+    ``expert_stream=True`` at the device home and at pinned host (``full``
+    and ``device="cpu"`` rehearse it at another size)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.residency import ResidencyCache
+    from repro_torch.core.weightstream import WeightStreamPlan
+    from repro_torch.data import SyntheticConfig, synthetic_batch
+    from repro_torch.train import steps as st
+
+    t_phase = time.perf_counter()
+    cfg = train_cfg(dataclasses.replace(full or get_config("mixtral-8x7b"), n_layers=MT_LAYERS))
+    plan = WeightStreamPlan(cfg, st.abstract_params(cfg), expert_stream=True)
+    n_params = plan.total_param_bytes // 2
+    log(f"phase 6m train {cfg.name} with expert_stream=True: {MT_LAYERS} layer(s) of d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts of d_ff "
+        f"{cfg.d_ff} top-{cfg.moe_top_k}; {n_params:,} parameters ({16 * n_params} B of weights, "
+        f"gradients, masters and moments); batch {MT_BATCH}, seq {MT_SEQ}, {MT_STEPS} steps; the "
+        f"residency cache off, so every group is fetched in each pass; {smi}")
+    fits, avail = moe_home_fits(plan, 14 * n_params + MOE_HOST_MARGIN)
+    if not fits:
+        raise SystemExit(f"6m: this machine's host cannot hold two homes of weights and moments "
+                         f"({28 * n_params} B) with {MOE_HOST_MARGIN} B to spare ({avail} B available)")
+    sc_ = SyntheticConfig(cfg.vocab_size, MT_SEQ, MT_BATCH, seed=SEED)
+
+    def batch_fn(k):
+        return {name: v.to(device) for name, v in synthetic_batch(cfg, sc_, k).items()}
+
+    streamed_train_pair("6m", cfg, plan, smi, batch_fn=batch_fn, tokens=MT_BATCH * MT_SEQ,
+                        steps=MT_STEPS, residency=ResidencyCache(0), device=device)
+    log(f"  6m expert groups: {len(plan.expert_groups)} of {plan.per_expert_bytes} B; a pinned "
+        f"step fetches each twice (forward, backward), {2 * len(plan.expert_groups) * plan.per_expert_bytes} B")
+    log(f"  phase 6m done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def check_mlp_chain(x, w_up, w_down, y, margin: float = 1.1) -> None:
     """The two-product chain against float64 (no intermediate rounding):
     the kernel's chain must be as close to it as the plain chain, within
@@ -2469,6 +2992,23 @@ def phase_tables(smi: str) -> None:
     log(f"  phase 7 done in {time.perf_counter() - t0:.1f} s")
 
 
+def isolated(phase: str, smi: str) -> None:
+    """Run the phase function ``phase`` in a child process on the same card.
+    Phases 6m and 6x hold tens of GB of host memory (numpy homes, pinned
+    drains) that the caching allocators and the C heap keep after they
+    return (whole runs in-process saw 41 of the host's 105.9 GB available
+    after 6m had freed its state, and 13.6 GB left for 6x after phases
+    2m-6w).  A child gives it all back when it exits."""
+    torch.cuda.empty_cache()  # the child gets the card's memory
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke as cs; "
+            f"from repro_torch.device import resolve_device; resolve_device('cuda'); "
+            f"cs.{phase}({smi!r})")
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, "-c", code], cwd=ROOT).returncode
+    if rc:
+        raise SystemExit(f"{phase} failed in its child process (rc {rc})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2482,6 +3022,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     errs = phase_kernels(cfg, hcfg)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    # the two phases that hold tens of GB of host memory, first, each in a
+    # child process: the later phases leave the host's memory low
+    isolated("phase_moe_train", smi)
+    isolated("phase_xlstm_train", smi)
     from repro_torch.train.steps import init_params
 
     params = init_params(cfg, SEED, "cuda")  # phases 2 and 2p share them
@@ -2490,10 +3038,6 @@ def main() -> int:
     phase_paged(cfg, params, res, launches)
     phase_streamed(cfg, params, res, launches)
     del params
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
     mlaunches = phase_moe(smi)
     phase_check(cfg, res, PROMPT, "3")
     del res
@@ -2501,6 +3045,7 @@ def main() -> int:
                                   ("rglru_scan", "flash_attention", "decode_attention"))
     phase_check(hcfg, hres, HYB_PROMPT, "3b")
     del hres
+    phase_xlstm_serve(smi)
     launches["streamed_matmul"], sweep = phase_paper(cfg)
     train = phase_train(cfg)
     phase_train_streamed(cfg, train, smi)

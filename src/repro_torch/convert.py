@@ -4,9 +4,10 @@ The tests feed both packages the same weights: the JAX package initialises
 them, ``jax.tree.map(np.asarray, params)`` turns them into numpy, and
 :func:`params_from_numpy` builds the port's parameters from that tree, name
 for name (``{"blocks": {"attn": {"wq": ...}}}`` -> ``blocks.attn.wq``), in
-each of the JAX tree's layouts: stacked uniform blocks, the hybrid's period
-tree (``blocks.periods.pos_0.rec.w_a``, ``blocks.tail_1.mlp.wi``) and
-unrolled blocks (``blocks.layer_000...``).
+each of the JAX tree's layouts: stacked uniform blocks, the period trees of
+the hybrid and the xLSTM stack (``blocks.periods.pos_0.rec.w_a``,
+``blocks.tail_1.mlp.wi``, ``blocks.periods.pos_0.mlstm.w_up``) and unrolled
+blocks (``blocks.layer_000...``, ``blocks.layer_002.slstm.r_z``).
 
 The streamed-weight path carries its weights as a plan home
 (``{"groups": {key: tree}}``, host numpy leaves):

@@ -92,19 +92,32 @@ def _align(n: int) -> int:
     return (n + _ALIGN - 1) // _ALIGN * _ALIGN
 
 
+#: the tail of a precise sleep that is waited in ``sleep(0)`` yields: about
+#: what one ``time.sleep`` overshoots by on Linux (~60 us)
+_SPIN_TAIL_S = 100e-6
+
+
 def _sleep_precise(duration_s: float) -> None:
-    """Sleep with sub-millisecond accuracy without starving other threads:
-    ``time.sleep`` overshoots by ~1 ms, more than the paper's 0.104 ms per
-    request, so the tail is waited in ``sleep(0)`` yields."""
+    """Sleep with ~10 us accuracy: one ``time.sleep`` up to the last
+    ``_SPIN_TAIL_S``, the tail in ``sleep(0)`` yields.
+
+    Each yield has to take the GIL back.  The JAX package yields for the
+    last 1.5 ms, while its compute thread waits in XLA with the GIL
+    released.  Here the compute thread runs eager torch ops, whose Python
+    holds the GIL for stretches of up to the 5 ms switch interval, so
+    every yield could stall the engine's worker that long: an emulated
+    0.45 ms transfer took ~2 ms while a decode step computed, and the
+    transfers a prefetch window put in flight landed only once the step
+    had ended.  One sleep takes the GIL back once."""
     end = time.perf_counter() + duration_s
     while True:
         remaining = end - time.perf_counter()
         if remaining <= 0:
             return
-        if remaining > 1.5e-3:
-            time.sleep(remaining - 1e-3)
+        if remaining > _SPIN_TAIL_S:
+            time.sleep(remaining - _SPIN_TAIL_S)
         else:
-            time.sleep(0)  # yield the GIL, keep ~10 us accuracy
+            time.sleep(0)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,7 @@ idle share, the kernel launches, and the kernels that take the most device
 time.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-      [--arch smollm-360m|recurrentgemma-2b] [--prompt-len 512] \\
+      [--arch smollm-360m|recurrentgemma-2b|xlstm-1.3b] [--prompt-len 512] \\
       [--attn-impl pallas|xla] [--kv-page-len 32 --kv-kind pinned_host] \\
       [--param-kind pinned_host --device-budget-mb 160] [--out profile_serve.json]
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mixtral-8x7b \\
@@ -19,8 +19,9 @@ time.
 
 Batch 4 (``--batch``), random bf16 weights from seed 0; 8 decode steps are
 profiled.  ``--n-layers`` cuts the depth.
-chip_smoke.py's cells take prompt 512 for smollm-360m and 3072 for
-recurrentgemma-2b (longer than its 2048 window).  Prefill times are per
+chip_smoke.py's cells take prompt 512 for smollm-360m and xlstm-1.3b (whose
+prompts longer than its 128-token chunk must be a multiple of it) and 3072
+for recurrentgemma-2b (longer than its 2048 window).  Prefill times are per
 request: the batch's over 4.
 
 ``--kv-page-len > 0`` profiles the paged decode step instead: one

@@ -19,8 +19,8 @@ evicted or retired between decode steps, each with its own prompt length
 ``kv_page_len=0`` is the unpaged path (:func:`serve_loop`, the JAX
 package's ``_serve_unpaged``) with its two schedules.  Pageable (full-attention) caches: one prefill per request, the
 caches stacked on the batch axis, and per-slot positions.  Ring and
-recurrent caches (recurrentgemma's): one batched prefill and one scalar
-position per step (lock-step).  With ``kv_kind="pinned_host"`` the whole
+recurrent caches (recurrentgemma's, xlstm's): one batched prefill and one
+scalar position per step (lock-step).  With ``kv_kind="pinned_host"`` the whole
 cache round-trips through host memory synchronously every step, the A/B
 baseline of the pager.
 
@@ -47,6 +47,8 @@ fetching only the routed experts.  Model parallelism is a later slice
       --lg-gen-lens 8,16,32 --shared-prefix-len 64 --kv-kind pinned_host
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
       --batch 4 --prompt-len 3072 --gen 32 --kv-page-len 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
+      --batch 4 --prompt-len 512 --gen 32 --kv-page-len 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --batch 4 --prompt-len 512 --gen 32 --kv-page-len 0 --param-kind pinned_host \\
       --device-budget-mb 160

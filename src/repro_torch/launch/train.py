@@ -21,9 +21,10 @@ spilled to the disk tier past ``--host-budget-mb`` (``disk_opt``).  With
 gradients and their moments are homed off the card and streamed group by
 group under ``--device-budget-mb`` (the streamed-weight train step;
 ``--param-layers-per-group`` sizes the groups, ``--verify-schedule`` prints
-the static schedule analysis first).  Every placement gives the device
-run's bits.  ``--expert-stream`` exits 2 (ROADMAP.md queue 1 item 7:
-training the MoE families); ``--model-parallel`` above 1 exits 2 (item 5).
+the static schedule analysis first; ``--expert-stream`` splits each MoE
+layer into its non-expert group and one group per expert).  Every
+placement gives the device run's bits.  ``--model-parallel`` above 1
+exits 2 (ROADMAP.md queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -54,7 +55,9 @@ from repro_torch.train import steps as st
 log = logging.getLogger("repro_torch.train")
 
 _MODEL_PARALLEL = "model parallelism (ROADMAP.md, queue 1 item 5: multi-device and tooling)"
-_EXPERTS = "the expert-streamed train step (ROADMAP.md, queue 1 item 7: training the MoE families)"
+#: the JAX package's refusal of ``--expert-stream`` without a weight home
+_EXPERTS_NEED_HOME = ("--expert-stream streams routed experts from a weight home; "
+                      "it requires --param-kind pinned_host or disk_host")
 
 
 def build_trainer(
@@ -75,6 +78,7 @@ def build_trainer(
     param_kind: str = "device",
     device_budget_mb: Optional[float] = None,
     param_layers_per_group: Optional[int] = None,
+    expert_stream: bool = False,
     verify_schedule: bool = False,
     transfer_retries: int = 1,
     device: DeviceLike = None,
@@ -98,7 +102,8 @@ def build_trainer(
     ``param_kind`` ``"pinned_host"`` or ``"disk_host"`` homes the weights,
     their gradients and their moments off the card and trains through the
     streamed-weight step (:func:`_build_weight_streamed`, which the policy's
-    optimizer placement and ``stream_opt`` give way to).
+    optimizer placement and ``stream_opt`` give way to); ``expert_stream``
+    splits its MoE layers into expert groups and needs such a home.
 
     Each placement starts from the same f32 master, so every route gives
     the device run's bits."""
@@ -109,6 +114,8 @@ def build_trainer(
                             distance=prefetch_distance)
     if param_kind not in PARAM_KINDS:
         raise ValueError(f"unknown --param-kind {param_kind!r}; expected one of {PARAM_KINDS}")
+    if expert_stream and param_kind == "device":
+        raise ValueError(_EXPERTS_NEED_HOME)
     if param_kind != "device":
         if stream_opt:
             log.warning("--stream-opt is subsumed by --param-kind %s: the AdamW moments are "
@@ -117,7 +124,8 @@ def build_trainer(
             cfg, opt_cfg=opt_cfg, driver_cfg=driver_cfg, loader=loader, seed=seed,
             fail_at=fail_at, spill_dir=spill_dir, param_kind=param_kind,
             device_budget_mb=device_budget_mb, param_layers_per_group=param_layers_per_group,
-            verify_schedule=verify_schedule, transfer_retries=transfer_retries, device=dev)
+            expert_stream=expert_stream, verify_schedule=verify_schedule,
+            transfer_retries=transfer_retries, device=dev)
     run_meta = {"mesh": el.mesh_fingerprint(), "param_kind": param_kind}
     p_abs, o_abs = st.abstract_train_state(cfg)
 
@@ -208,8 +216,9 @@ def build_trainer(
 def _build_weight_streamed(cfg: ModelConfig, *, opt_cfg: AdamWConfig, driver_cfg: DriverConfig,
                            loader, seed: int, fail_at, spill_dir, param_kind: str,
                            device_budget_mb: Optional[float],
-                           param_layers_per_group: Optional[int], verify_schedule: bool,
-                           transfer_retries: int, device) -> TrainDriver:
+                           param_layers_per_group: Optional[int], expert_stream: bool,
+                           verify_schedule: bool, transfer_retries: int,
+                           device) -> TrainDriver:
     """:func:`build_trainer`'s streamed-weight route (the JAX package's
     ``build_trainer`` streamed branch): the plan, the residency cache sized
     to the budget's slack, the schedule analysis, the grouped checkpoint
@@ -220,7 +229,7 @@ def _build_weight_streamed(cfg: ModelConfig, *, opt_cfg: AdamWConfig, driver_cfg
     if not support:
         raise ValueError(f"--param-kind {param_kind}: {support.reason}")
     plan = WeightStreamPlan(cfg, st.abstract_params(cfg), layers_per_group=param_layers_per_group,
-                            device_budget_mb=device_budget_mb)
+                            device_budget_mb=device_budget_mb, expert_stream=expert_stream)
     log.info("weight streaming: %s program, %d groups (%d layers/group), total %.1f MB, "
              "peak(d=1) %.1f MB, max distance %d", plan.layout, plan.n_groups,
              plan.layers_per_group, plan.total_param_bytes / 1e6, plan.peak_device_bytes(1) / 1e6,
@@ -293,7 +302,6 @@ def _build_weight_streamed(cfg: ModelConfig, *, opt_cfg: AdamWConfig, driver_cfg
 #: flags of the JAX entry point whose port is queued, and where; any value
 #: but the default exits 2
 _NOT_PORTED = {
-    "expert_stream": _EXPERTS,
     "model_parallel": _MODEL_PARALLEL,
 }
 
@@ -333,7 +341,8 @@ def main() -> int:
     ap.add_argument("--param-layers-per-group", type=int, default=None,
                     help="layers a weight group (default: the most that fit the budget)")
     ap.add_argument("--expert-stream", action="store_true",
-                    help="expert groups of MoE layers (not ported for training: queue 1 item 7)")
+                    help="stream each MoE layer as its non-expert group plus one group per "
+                    "expert (needs a streamed --param-kind)")
     ap.add_argument("--verify-schedule", action="store_true",
                     help="print the streamed-weight schedule's static analysis first and fail "
                     "on a violation (needs a streamed --param-kind)")
@@ -353,6 +362,8 @@ def main() -> int:
     for dest, where in _NOT_PORTED.items():
         if getattr(args, dest) != ap.get_default(dest):
             ap.exit(2, f"--{dest.replace('_', '-')} is not ported yet: it needs {where}\n")
+    if args.expert_stream and args.param_kind == "device":
+        ap.exit(2, f"{_EXPERTS_NEED_HOME}\n")
     if args.verify_schedule and args.param_kind == "device":
         ap.error("--verify-schedule requires a streamed --param-kind (pinned_host or disk_host)")
 
@@ -368,7 +379,8 @@ def main() -> int:
         seed=args.seed, fail_at=fail_at, policy=mk.get_policy(args.policy),
         stream_opt=args.stream_opt, spill_dir=args.spill_dir, host_budget_mb=args.host_budget_mb,
         param_kind=args.param_kind, device_budget_mb=args.device_budget_mb,
-        param_layers_per_group=args.param_layers_per_group, verify_schedule=args.verify_schedule,
+        param_layers_per_group=args.param_layers_per_group, expert_stream=args.expert_stream,
+        verify_schedule=args.verify_schedule,
         transfer_retries=args.transfer_retries, device=args.device,
     )
     t0 = time.time()

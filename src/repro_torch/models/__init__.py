@@ -1,5 +1,6 @@
-"""Model substrate: the uniform decoder stack and the recurrentgemma hybrid, in PyTorch."""
-from repro_torch.models import attention, layers, rglru, rope, transformer
+"""Model substrate: the uniform decoder stack, the recurrentgemma hybrid and the
+xLSTM stack, in PyTorch."""
+from repro_torch.models import attention, layers, rglru, rope, transformer, xlstm
 from repro_torch.models.transformer import decode_step, init_caches, init_model, prefill
 
 __all__ = [
@@ -8,6 +9,7 @@ __all__ = [
     "rglru",
     "rope",
     "transformer",
+    "xlstm",
     "init_model",
     "init_caches",
     "prefill",

@@ -1,5 +1,5 @@
-"""Model assembly: the uniform decoder stack and the recurrentgemma hybrid,
-for training and serving.
+"""Model assembly: the uniform decoder stack, the recurrentgemma hybrid and
+the xLSTM stack, for training and serving.
 
 Pre-norm residual blocks.  Parameters live in a
 :class:`~repro_torch.models.layers.ParamTree` whose names follow the JAX
@@ -9,7 +9,8 @@ tree, in its three layouts (``models/transformer.py:init_model``):
   period-scanned  — ``blocks.periods.pos_k`` stacked over the ``L // P``
                     full periods of the block pattern, then ``blocks.tail_k``
                     for the ``L % P`` layers left (recurrentgemma-2b: 8
-                    periods of (rec, rec, attn) and a tail of 2 rec);
+                    periods of (rec, rec, attn) and a tail of 2 rec;
+                    xlstm-1.3b: 6 periods of 7 mLSTM and an sLSTM);
   unrolled        — ``blocks.layer_000`` ... (a pattern that repeats fewer
                     than twice, as the smoke configs).
 
@@ -29,10 +30,12 @@ token mixer (attention over the prompt, a cache, or the whole sequence; the
 recurrence with or without a carried state) and in a MoE layer's FFN: the
 GShard dispatch (:func:`repro_torch.models.moe.moe_dispatch`, with its aux
 loss) over a whole sequence, the router-first dense top-k
-(:func:`~repro_torch.models.moe.moe_decode`) for one decode token.
+(:func:`~repro_torch.models.moe.moe_decode`) for one decode token.  An
+xLSTM block (``mlstm`` / ``slstm``) is its own token mixer and carries no
+MLP.
 
-xLSTM stacks, audio codebooks, the vision prefix, M-RoPE and sinusoidal
-positions are not ported yet (ROADMAP.md, queue 1 item 7).
+Audio codebooks, the vision prefix, M-RoPE and sinusoidal positions are not
+ported yet (ROADMAP.md, queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -44,15 +47,13 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as tr
-from repro_torch.models import attention, layers, moe, rglru, rope
+from repro_torch.models import attention, layers, moe, rglru, rope, xlstm
 from repro_torch.models.layers import ParamTree, Params
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
     todo = []
-    if cfg.family == "ssm":
-        todo.append("xLSTM block stacks")
     if cfg.n_codebooks:
         todo.append("audio codebooks")
     if cfg.vision_embed:
@@ -93,6 +94,12 @@ def layer_slots(cfg: ModelConfig) -> Iterator[tuple[str, tuple, Optional[int]]]:
 
 def _init_block(cfg: ModelConfig, kind: str, generator: torch.Generator, device) -> dict:
     kw = dict(generator=generator, device=device)
+    if kind == "mlstm":
+        return {"ln1": layers.init_norm(cfg.d_model, cfg.norm_type, device),
+                "mlstm": xlstm.init_mlstm_block(cfg, **kw)}
+    if kind == "slstm":
+        return {"ln1": layers.init_norm(cfg.d_model, cfg.norm_type, device),
+                "slstm": xlstm.init_slstm_block(cfg, **kw)}
     if kind == "rec":
         return {
             "ln1": layers.init_norm(cfg.d_model, cfg.norm_type, device),
@@ -208,6 +215,10 @@ def init_model_period_slice(cfg: ModelConfig, generator: torch.Generator, device
 def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, cl: int, dtype, device) -> dict:
     if kind == "rec":
         return rglru.init_rglru_state(cfg, batch, device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm.init_slstm_state(cfg, batch, device)
     w = cfg.window if cfg.family == "hybrid" else cl
     return attention.init_cache(cfg, batch, min(w or cl, cl) or cl, dtype, device)
 
@@ -217,8 +228,9 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype=torch.bfloat16
     """Decode state for a context of ``seq_len`` tokens, in the layout of the
     parameters: ``{"k": (L, B, T, K, H), "v": ...}`` for a uniform stack;
     ``{"periods": {"pos_k": ...}, "tail_k": ...}`` or ``{"layer_000": ...}``
-    for the hybrid, whose attention layers hold ``min(window, T)``-slot rings
-    and whose recurrent layers hold f32 states."""
+    for the hybrid and the xLSTM stack, whose attention layers hold
+    ``min(window, T)``-slot rings and whose recurrent and xLSTM layers hold
+    f32 states."""
     check_supported(cfg)
     cl = cfg.cache_len(seq_len)
     return _layer_tree(cfg, lambda kind: _init_layer_cache(cfg, kind, batch, cl, dtype, device))
@@ -305,6 +317,11 @@ def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return _mlp(cfg, p, x + mix(layers.norm_apply(p["ln1"], x, cfg.norm_type)), decode)
 
 
+#: the xLSTM blocks' sequence and decode-step forms, by block kind
+_XLSTM_TRAIN = {"mlstm": xlstm.mlstm_block_train, "slstm": xlstm.slstm_block_train}
+_XLSTM_STEP = {"mlstm": xlstm.mlstm_block_step, "slstm": xlstm.slstm_block_step}
+
+
 def _layer_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  angles: Optional[torch.Tensor]) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer of the training forward (the JAX package's ``_block_train``
@@ -313,6 +330,8 @@ def _layer_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     Returns ``(x, aux)`` as :func:`_mlp`."""
     if kind == "rec":
         return _layer(cfg, p, x, lambda h: rglru.rglru_block_train(cfg, p["rec"], h)[0])
+    if kind in _XLSTM_TRAIN:
+        return _layer(cfg, p, x, lambda h: _XLSTM_TRAIN[kind](cfg, p[kind], h)[0])
     return _layer(cfg, p, x, lambda h: attention.attention_train(cfg, p["attn"], h, angles))
 
 
@@ -324,6 +343,10 @@ def _layer_prefill(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch
         if kind == "rec":
             h, state = rglru.rglru_block_train(cfg, p["rec"], h, cache,
                                                use_kernel=cfg.attn_impl == "pallas")
+            _store(cache, state)
+            return h
+        if kind in _XLSTM_TRAIN:
+            h, state = _XLSTM_TRAIN[kind](cfg, p[kind], h, cache)
             _store(cache, state)
             return h
         return attention.attention_prefill(cfg, p["attn"], h, angles, cache)[0]
@@ -338,6 +361,10 @@ def _layer_decode(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch.
     def mix(h):
         if kind == "rec":
             h, state = rglru.rglru_block_step(cfg, p["rec"], h, cache)
+            _store(cache, state)
+            return h
+        if kind in _XLSTM_STEP:
+            h, state = _XLSTM_STEP[kind](cfg, p[kind], h, cache)
             _store(cache, state)
             return h
         return attention.attention_decode(cfg, p["attn"], h, angles, cache, pos)[0]

@@ -802,17 +802,25 @@ def _leaf_sqsums(tree: Pytree) -> tuple:
     return tuple(torch.sum(torch.square(g.to(torch.float32))) for g in tr.leaves(tree))
 
 
-def _vjp(fn: Callable, group: Pytree, xs: tuple = (), ct: Optional[torch.Tensor] = None):
+def _vjp(fn: Callable, group: Pytree, xs: tuple = (), ct: Optional[torch.Tensor] = None,
+         aux_ct: bool = False):
     """Run ``fn(group, *xs)`` on fresh leaves under autograd and pull back its
     output (its first element when it returns a tuple: a scalar loss, or a
-    tensor whose cotangent is ``ct``).  Returns ``(output, d group, d xs)``."""
+    tensor whose cotangent is ``ct``).  With ``aux_ct`` the second element
+    (a stage's aux-loss carry) is pulled back too, with a cotangent of 1, as
+    the loss adds it; a carry that no parameter reaches (no MoE layer in the
+    stage) adds nothing.  Returns ``(output, d group, d xs)``."""
     flat, treedef = tr.flatten(group)
     leaves = [t.detach().requires_grad_(True) for t in flat]
     ins = [x.detach().requires_grad_(True) for x in xs]
     with torch.enable_grad():
         out = fn(tr.unflatten(treedef, leaves), *ins)
-        grads = torch.autograd.grad(out[0] if isinstance(out, tuple) else out, leaves + ins,
-                                    grad_outputs=ct, materialize_grads=True)
+        outs = [out[0] if isinstance(out, tuple) else out]
+        cts = [ct]
+        if aux_ct and out[1].requires_grad:
+            outs.append(out[1])
+            cts.append(torch.ones_like(out[1]))
+        grads = torch.autograd.grad(outs, leaves + ins, grad_outputs=cts, materialize_grads=True)
     return out, tr.unflatten(treedef, list(grads[:len(leaves)])), grads[len(leaves):]
 
 
@@ -856,6 +864,17 @@ def make_weight_streamed_train_step(
         moments}`` H2D and its updated ``{params, moments}`` drain D2H on one
         writeback to the home kind.
 
+    A plan's stage is its unit: one group, or for an expert-split MoE layer
+    (``plan.expert_stream``) the layer's non-expert group and its expert
+    groups, buffered until the last has landed and merged on the card
+    (:func:`~repro_torch.core.weightstream.merge_expert_slice`) into the
+    unsplit slice.  Every stage's backward pulls back the hidden state's
+    cotangent and a cotangent of 1 for the stage's aux-loss carry (a MoE
+    layer's load-balancing loss, which the loss adds).  A MoE unit's
+    gradients drain at its non-expert group's position (a 0-d placeholder
+    at each expert's) and are split back into the expert groups for the
+    optimizer pass.
+
     ``param_kind`` names the home: ``pinned_host`` (host numpy),
     ``disk_host`` (``wp/<key>`` and ``wopt/<key>`` chunks of
     ``spill_store``) or ``device`` (the bitwise baseline: groups pass
@@ -879,10 +898,6 @@ def make_weight_streamed_train_step(
         raise ValueError("param_kind='disk_host' requires a spill_store")
     if not plan.support.supported:
         raise ValueError(plan.support.reason)
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: streamed-weight training of a MoE config is not ported yet "
-            "(ROADMAP.md, queue 1 item 7: training the MoE families)")
     prefetch = prefetch or PrefetchSpec(buffer_size=plan.n_groups + 2, distance=AUTO)
     mode = "on_demand" if prefetch.on_demand else "prefetch"
     pf = None if mode == "on_demand" else prefetch
@@ -913,19 +928,32 @@ def make_weight_streamed_train_step(
     f32 = torch.float32
 
     head_idx = plan.n_groups - 1
-    #: middle group index -> its stage (1:1 without expert streaming)
-    stage: dict = {}
-    for u in plan.units:
+    units = plan.units
+    #: each unit's stage: ``(groups, x, aux, angles) -> (x, aux)``; a moe
+    #: unit's groups (the layer's non-expert group, then its experts) merge
+    #: into the unsplit slice on the card first
+    stages: list = []
+    for u in units:
         g = plan.groups[u.gidx[0]]
-        if u.kind == "layers":
-            stage[g.index] = lambda p, x, a, ang: transformer.block_group_train(cfg, p, x, a, ang)
+        if u.kind == "moe":
+            stages.append(lambda ps, x, a, ang: transformer.block_group_train(
+                cfg, merge_expert_slice(ps[0], ps[1:]), x, a, ang))
+        elif u.kind == "layers":
+            stages.append(lambda ps, x, a, ang: transformer.block_group_train(cfg, ps[0], x, a, ang))
         elif u.kind == "period":
-            stage[g.index] = lambda p, x, a, ang: transformer.period_group_train(cfg, p, x, a, ang)
+            stages.append(lambda ps, x, a, ang: transformer.period_group_train(
+                cfg, ps[0], x, a, ang))
         else:
             kinds = tuple((name, cfg.block_kind(layer))
                           for name, layer in zip(plan.block_names(g), range(g.lo, g.hi)))
-            stage[g.index] = (lambda p, x, a, ang, kinds=kinds:
-                              transformer.hetero_group_train(cfg, kinds, p, x, a, ang))
+            stages.append(lambda ps, x, a, ang, kinds=kinds: transformer.hetero_group_train(
+                cfg, kinds, ps[0], x, a, ang))
+    #: middle group index -> (unit position, True when the group completes
+    #: its unit in forward fetch order)
+    unit_pos: dict = {}
+    for u_i, u in enumerate(units):
+        for j, gi in enumerate(u.gidx):
+            unit_pos[gi] = (u_i, j == len(u.gidx) - 1)
     #: backward program: the middle groups reversed, then embed
     bwd_order = [plan.groups[i] for i in range(head_idx - 1, 0, -1)] + [plan.groups[0]]
     #: optimizer program: head first (its gradients were born on the card)
@@ -960,7 +988,7 @@ def make_weight_streamed_train_step(
         if i == 0:
             x = transformer.embed_stage(cfg, group, batch)
             box.update(x=x, angles=transformer.stage_angles(cfg, batch, x.shape[1]),
-                       aux=torch.zeros((), dtype=f32, device=x.device), acts={})
+                       aux=torch.zeros((), dtype=f32, device=x.device), acts={}, parts=[])
             return None
         if i == head_idx:
             (loss, metrics), dp, (dx,) = _vjp(
@@ -971,8 +999,13 @@ def make_weight_streamed_train_step(
                        dp_head=dp_home, dp_head_embed=dp_embed, ct=dx,
                        sq=[_leaf_sqsums(dp_home)])
             return None
-        box["acts"][i] = box["x"]  # the group's boundary activation
-        box["x"], box["aux"] = stage[i](group, box["x"], box["aux"], box["angles"])
+        u_i, last = unit_pos[i]
+        box["parts"].append(group)
+        if not last:  # a moe unit: buffered until its last group has landed
+            return None
+        parts, box["parts"] = box["parts"], []
+        box["acts"][u_i] = box["x"]  # the unit's boundary activation
+        box["x"], box["aux"] = stages[u_i](parts, box["x"], box["aux"], box["angles"])
         return None
 
     def apply_b(i, carry, group):
@@ -988,12 +1021,21 @@ def make_weight_streamed_train_step(
                                           box["dp_head_embed"])
             box["sq"].append(_leaf_sqsums(dp))
             return None, dp
-        fn = stage[g.index]
-        _, dp, (dx,) = _vjp(lambda p, x: fn(p, x, box["aux0"], box["angles"]), group,
-                            (box["acts"].pop(g.index),), box["ct"])
+        u_i, _ = unit_pos[g.index]
+        box["parts"].append(group)
+        if g.index != units[u_i].gidx[0]:
+            # a moe unit's experts land (reversed) before its non-expert
+            # group; their gradients drain at that group's position, and a
+            # placeholder keeps the writeback stream one output a group
+            return None, torch.zeros((), dtype=f32, device=box["ct"].device)
+        parts = box["parts"][::-1]  # fetch order: non-expert group, experts
+        box["parts"] = []
+        fn = stages[u_i]
+        _, dp, (dx,) = _vjp(lambda ps, x: fn(ps, x, box["aux0"], box["angles"]), tuple(parts),
+                            (box["acts"].pop(u_i),), box["ct"], aux_ct=True)
         box["ct"] = dx
         box["sq"].append(_leaf_sqsums(dp))
-        return None, dp
+        return None, (dp[0] if len(dp) == 1 else {"ne": dp[0], "ex": dp[1:]})
 
     def apply_o(i, carry, group):
         flat_g, treedef = tr.flatten(group["g"])
@@ -1050,8 +1092,19 @@ def make_weight_streamed_train_step(
         box["glob"] = adamw_globals_from_norm(opt_cfg, torch.sqrt(torch.sum(torch.stack(sq))),
                                               step_no)
         # phase O: {grads, moments} in, {params, moments} out on one drain
+        # a moe unit drained all its gradients at its non-expert group: split
+        # them back out, so that every group (experts too) updates on its own
         grads = {plan.groups[-1].key: box.pop("dp_head")}
-        grads.update((g.key, tr.tree_map(host_array, out)) for g, out in zip(bwd_order, grad_outs))
+        for g, out in zip(bwd_order, grad_outs):
+            if g.kind == "expert":
+                continue
+            out = tr.tree_map(host_array, out)
+            u = units[unit_pos[g.index][0]] if g.index in unit_pos else None
+            if u is not None and u.kind == "moe":
+                grads[g.key] = out["ne"]
+                grads.update((plan.groups[gi].key, ex) for gi, ex in zip(u.gidx[1:], out["ex"]))
+            else:
+                grads[g.key] = out
         o_groups = [{"g": grads.pop(g.key), "s": opt["groups"][g.key]} for g in o_order]
         _, o_outs = ex_o.run(None, o_groups, mode=mode, prefetch=pf, stats=opt_stats,
                              group_keys=[g.key for g in o_order])

@@ -265,14 +265,6 @@ def test_streamed_steps_are_the_monolithic_bits(arch, distance, cached):
         assert es.unique_group_fetches == aes.unique_group_fetches == 0
 
 
-def test_streamed_train_step_refuses_moe():
-    pc, _ = _cfgs("mixtral-8x7b")
-    for es in (False, True):
-        plan = WeightStreamPlan(pc, st.abstract_params(pc), expert_stream=es)
-        with pytest.raises(NotImplementedError, match="training the MoE families"):
-            st.make_weight_streamed_train_step(pc, AdamWConfig(), plan=plan, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # serving against the JAX package
 # ---------------------------------------------------------------------------

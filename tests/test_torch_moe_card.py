@@ -89,3 +89,61 @@ def test_routed_serve_through_the_kernels_on_card(cuda, kind):
     assert es.per_tier()["h2d"]["requests_per_fetched_device_group"] == 1.0
     assert 0 < res["expert_decode_bytes"] < 5 * cfg.n_layers * cfg.n_experts * (
         res["param_plan"].per_expert_bytes)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's phase 6m: MoE training with the experts streamed
+# ---------------------------------------------------------------------------
+
+def _phase_6m(device, monkeypatch, flip: bool) -> None:
+    """chip_smoke's phase 6m on a smoke mixtral (bf16, 8 experts, 16-token
+    sequences); with ``flip``, the pinned-host home's optimizer flips one
+    bit of an expert group's master after each step."""
+    import chip_smoke as cs
+    from repro_torch.core import tree as tr
+    from repro_torch.core.arrays import host_tensor
+    from repro_torch.train import steps as st
+
+    monkeypatch.setattr(cs, "MT_SEQ", 16)
+    if flip:
+        real = st.make_weight_streamed_train_step
+
+        def faulty(*args, param_kind="pinned_host", **kw):
+            step = real(*args, param_kind=param_kind, **kw)
+            if param_kind != "pinned_host":
+                return step
+
+            def flipped(state, batch):
+                new, metrics = step(state, batch)
+                key = next(k for k in new["opt"]["groups"] if "_expert_" in k)
+                leaf = host_tensor(tr.leaves(new["opt"]["groups"][key])[0])
+                leaf.view(torch.int32).view(-1)[0] ^= 1
+                return new, metrics
+
+            for name in ("close", "param_stats", "opt_stats", "engine", "residency"):
+                setattr(flipped, name, getattr(step, name))
+            return flipped
+
+        monkeypatch.setattr(st, "make_weight_streamed_train_step", faulty)
+    full = dataclasses.replace(get_smoke_config("mixtral-8x7b"), n_experts=8)
+    cs.phase_moe_train(f"{device}", device=device, full=full)
+
+
+@pytest.mark.parametrize("flip", [False, True], ids=["clean", "one-bit-flipped"])
+def test_phase_6m_bitwise_gate_is_live_on_cpu(monkeypatch, flip):
+    """Rehearsed on the CPU: the phase passes, and fails on one flipped bit
+    of one expert group's master at the pinned-host home."""
+    if flip:
+        with pytest.raises(SystemExit, match="differs between the homes"):
+            _phase_6m("cpu", monkeypatch, flip)
+    else:
+        _phase_6m("cpu", monkeypatch, flip)
+
+
+@pytest.mark.cuda
+def test_phase_6m_bitwise_gate_is_live_on_card(cuda, monkeypatch):
+    """On the card: phase 6m passes, and its bitwise gate fails on one
+    flipped bit of one expert group's master at the pinned-host home."""
+    _phase_6m("cuda", monkeypatch, False)
+    with pytest.raises(SystemExit, match="differs between the homes"):
+        _phase_6m("cuda", monkeypatch, True)

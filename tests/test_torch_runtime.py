@@ -328,10 +328,11 @@ RESHARDS = {
     "uniform-merge": ("smollm-360m", {"n_layers": 4}, 1, 3),
     "period": ("recurrentgemma-2b", {"n_layers": 6}, 1, 2),
     "unrolled": ("recurrentgemma-2b", {}, 2, 1),
+    "moe-merge": ("mixtral-8x7b", {}, 1, 2),
 }
 
 
-def _ws_plans(arch, over, lpg):
+def _ws_plans(arch, over, lpg, expert_stream=False):
     from repro.configs import get_smoke_config as jax_smoke
     from repro.core.weightstream import WeightStreamPlan as JaxPlan
     from repro.train import steps as jax_steps
@@ -339,16 +340,17 @@ def _ws_plans(arch, over, lpg):
 
     pc = dataclasses.replace(get_smoke_config(arch), **over)
     jc = dataclasses.replace(jax_smoke(arch), **over)
-    return (pc, WeightStreamPlan(pc, st.abstract_params(pc), layers_per_group=lpg),
-            JaxPlan(jc, jax_steps.abstract_params(jc), layers_per_group=lpg))
+    kw = dict(expert_stream=True) if expert_stream else dict(layers_per_group=lpg)
+    return (pc, WeightStreamPlan(pc, st.abstract_params(pc), **kw),
+            JaxPlan(jc, jax_steps.abstract_params(jc), **kw))
 
 
-def _grouped_checkpoint(root, arch, over, lpg, step=3):
+def _grouped_checkpoint(root, arch, over, lpg, step=3, expert_stream=False):
     """A port checkpoint of a weight-streamed state after one streamed step
-    (moments non-zero), grouped ``lpg`` layers a group."""
+    (moments non-zero), grouped ``lpg`` layers a group (or expert-split)."""
     from repro_torch.checkpoint import CheckpointManager
 
-    cfg, plan, _ = _ws_plans(arch, over, lpg)
+    cfg, plan, _ = _ws_plans(arch, over, lpg, expert_stream)
     fn = st.make_weight_streamed_train_step(cfg, AdamWConfig(peak_lr=1e-3, warmup_steps=1,
                                                               total_steps=4),
                                             plan=plan, param_kind="pinned_host", device="cpu")
@@ -392,6 +394,35 @@ def test_reshard_gives_the_jax_files_byte_for_byte(tmp_path, case):
     assert {g.key for g in plan.groups} == {n.split("__")[2] for n in a if "__groups__" in n}
     # nothing left to do on the new grouping
     assert not el.reshard_grouped_checkpoint(CheckpointManager(tmp_path / "ours", keep=0), plan)
+
+
+@pytest.mark.parametrize("split_first", [True, False], ids=["split-to-unsplit", "unsplit-to-split"])
+def test_reshard_between_expert_split_and_unsplit_plans_refuses_as_jax(tmp_path, split_first):
+    """An expert-split grouped checkpoint and an unsplit one of the same MoE
+    model do not reshard into each other (another group program: resume
+    with the original ``--expert-stream``): both packages refuse with the
+    same message and leave the files as they were; an expert-split
+    checkpoint is already its own plan's partition."""
+    import shutil
+
+    from repro.checkpoint.manager import CheckpointManager as JaxCkpt
+    from repro_torch.checkpoint import CheckpointManager
+
+    _grouped_checkpoint(tmp_path / "orig", "mixtral-8x7b", {}, 1, expert_stream=split_first)
+    shutil.copytree(tmp_path / "orig", tmp_path / "ours")
+    shutil.copytree(tmp_path / "orig", tmp_path / "theirs")
+    _, plan, jplan = _ws_plans("mixtral-8x7b", {}, 1, expert_stream=not split_first)
+    with pytest.raises(ValueError) as ours:
+        el.reshard_grouped_checkpoint(CheckpointManager(tmp_path / "ours", keep=0), plan)
+    with pytest.raises(ValueError) as theirs:
+        jax_el.reshard_grouped_checkpoint(JaxCkpt(tmp_path / "theirs", keep=0), jplan)
+    assert str(ours.value) == str(theirs.value)
+    assert "toggling --expert-stream" in str(ours.value)
+    orig = _files(tmp_path / "orig" / "step_00000003")
+    assert _files(tmp_path / "ours" / "step_00000003") == orig
+    _, same, jsame = _ws_plans("mixtral-8x7b", {}, 1, expert_stream=split_first)
+    assert not el.reshard_grouped_checkpoint(CheckpointManager(tmp_path / "ours", keep=0), same)
+    assert not jax_el.reshard_grouped_checkpoint(JaxCkpt(tmp_path / "theirs", keep=0), jsame)
 
 
 def test_resharded_checkpoint_restores_the_state_regrouped(tmp_path):

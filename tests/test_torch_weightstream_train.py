@@ -164,7 +164,9 @@ def _layout_cfg(arch, over):
 
 LAYOUTS = {"uniform": ("smollm-360m", {"n_layers": 4}, 2),
            "period": ("recurrentgemma-2b", {"n_layers": 6}, 1),
-           "unrolled": ("recurrentgemma-2b", {}, 2)}
+           "unrolled": ("recurrentgemma-2b", {}, 2),
+           "xlstm-unrolled": ("xlstm-1.3b", {}, 2),
+           "xlstm-period": ("xlstm-1.3b", {"n_layers": 6}, 1)}
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
@@ -174,7 +176,7 @@ def test_groupwise_init_matches_init_train_state(layout):
     arch, over, lpg = LAYOUTS[layout]
     c = _layout_cfg(arch, over)
     p = WeightStreamPlan(c, st.abstract_params(c), layers_per_group=lpg)
-    assert p.layout == layout
+    assert p.layout == layout.split("-")[-1]
     params, opt = st.init_train_state(c, 3, "cpu")
     ref_home = p.init_home(params)
     flat, treedef = tr.flatten(opt["leaves"], is_leaf=is_state_leaf)
@@ -199,29 +201,20 @@ def _budgeted_plan(c, lpg):
                             device_budget_mb=free.peak_device_bytes(2) / 1e6)
 
 
-@pytest.mark.parametrize("layout, disk", [("unrolled", True), ("period", False)])
+@pytest.mark.parametrize("layout, disk", [("unrolled", True), ("period", False),
+                                          ("xlstm-unrolled", True), ("xlstm-period", True)])
 def test_hetero_streamed_train_bitwise_under_budget(layout, disk):
     """The unrolled and period layouts stream under a budget: every home
     gives the device home's losses and state."""
     arch, over, lpg = LAYOUTS[layout]
     c = _layout_cfg(arch, over)
     p = _budgeted_plan(c, lpg)
-    assert p.layout == layout and p.device_budget_bytes is not None
+    assert p.layout == layout.split("-")[-1] and p.device_budget_bytes is not None
     ref_losses, ref_state, *_ = _run(c, p, "device")
     for kind in ("pinned_host",) + (("disk_host",) if disk else ()):
         losses, state, *_ = _run(c, p, kind)
         assert losses == ref_losses, kind
         _assert_same_state(state, ref_state)
-
-
-def test_xlstm_streamed_training_names_item_7():
-    """xLSTM stacks are not ported yet (ROADMAP.md, queue 1 item 7): their
-    group-wise init refuses, naming the item."""
-    c = get_smoke_config("xlstm-1.3b")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        st.abstract_params(c)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        transformer.init_model_shell(c, torch.Generator(), "cpu")
 
 
 # ---------------------------------------------------------------------------
