@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths (dense, hybrid, MoE and xLSTM), the
-paper's offload path, training (dense, xLSTM and MoE, with the weights on the
-card and streamed from the host or disk) and the paper's tables on one
-NVIDIA card.
+"""Drive the PyTorch port's serving paths (dense, hybrid, MoE, xLSTM and
+audio codebooks), the paper's offload path, training (dense, xLSTM, MoE,
+audio and vision-language, with the weights on the card and streamed from
+the host or disk) and the paper's tables on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -25,7 +25,9 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    ``(chunk_t, block_w)`` tilings; flash also at head_dim 128 with 1 and 8
    query heads per KV head and a window, and at mixtral-8x7b's prefill
    (batch 2, prompt 512, 32 heads over 8, window 4096) and decode (its
-   528-slot ring); the attention kernels also at the
+   528-slot ring), at musicgen-medium's prefill and decode (24 heads over
+   24 KV heads, head_dim 64) and at qwen2-vl-72b's training forward (1152
+   positions, 64 heads over 8, head_dim 128); the attention kernels also at the
    hybrid's head_dim 256 with 10 query heads over 1 KV head, on scores
    peaked enough that a missing key block or a window off by one fails
    (decode there at atol 2e-3), decode also at every edge of its key
@@ -79,10 +81,11 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    the plan's distance-1 floor of three MoE units, 8,707,620,864 bytes),
    routed, at distance 0 and 1 (``param_cache_mb=0``) and ``auto`` (the
    default cache, too small for an expert group); (c) all experts
-   (``route_experts=False``), auto; (d) disk, routed, gen 8, spilled under
-   ``build/spill-moe/`` (deleted after); (e) 16 layers (46.7 GB; all 32,
+   (``route_experts=False``), auto; (d) disk, routed, gen 4, spilled under
+   ``build/spill-moe/`` (deleted after); (e) 8 layers (23.4 GB; all 32,
    93.41 GB, more than the card, ran here until phases 2x, 6x and 6m took
-   their time), routed, gen 4, at pinned host, initialized group by
+   their time, 16 until 2a, 6a and 6v), routed, gen 4, at pinned host,
+   initialized group by
    group, run after (f0) and before any spill, and refused before it starts
    unless the host's MemAvailable holds the home with 3 GB to spare; (f)
    the paged ``ServeSession`` at pinned-host pages with (b)'s weights and
@@ -118,6 +121,19 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    profiler (the card alone): device busy against the unprofiled wall,
    idle share, launches (``profile_serve --arch xlstm-1.3b`` is
    :func:`phase_xlstm_profile`'s, which ``main`` skips);
+2a. serve full-width musicgen-medium (48 layers, d_model 1536, 24 heads
+   over 24, d_ff 6144, 4 codebooks of 2048, sinusoidal positions; 1.38 B
+   parameters, bf16, random weights from seed 0) through ``serve`` at batch
+   4, prompt 512, gen 32, each run with the launch counts zeroed just
+   before and read just after: (a) unpaged, device caches, the baseline,
+   its prefill logits (1, 4, 1, 2048) and first decode step within 5e-2
+   of the plain attention path's and its first token that prefill's; (b)
+   the paged session at device, pinned-host and disk pages, tokens bitwise
+   (a)'s, one H2D request a fetched page group; (c) the weights homed at
+   pinned host, then disk (gen 4), streamed one pass a prefill or step
+   under the one-layer plan's distance-1 floor rounded up to 100 MB with
+   the residency cache off: tokens bitwise (a)'s, every request and byte
+   the plan's (the codebook heads' group reads the embedding's);
 4. the paper's path, ``streamed_matmul``'s launch count zeroed just before
    and read just after: the quickstart's listings 1-4; the lung-NN Fig 4
    at the JAX package's full size (1.8M pixels, 100 hidden, batch 2, 120
@@ -177,8 +193,8 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    and AdamW moments homed off the card under ``device_budget_mb=160``, one
    layer a group (34 groups), from the group-wise init (no whole model on
    the card), the schedule analyzed first: (a) the device home, 2 steps,
-   its step-0 loss within 2e-2 of phase 6 (a)'s; (b) pinned host, 2 steps
-   each at distance 0, 1 and ``auto``; (c) disk (``wp/`` and ``wopt/``
+   its step-0 loss within 2e-2 of phase 6 (a)'s; (b) pinned host, 1 step
+   each at distance 0 and 1 and 2 at ``auto``; (c) disk (``wp/`` and ``wopt/``
    chunks, fsync'd), 1 step.  Every home's losses, parameters and moments
    bitwise (a)'s; each step's H2D, D2H and disk requests and bytes, of the
    weight passes and of the optimizer pass, the plan's; the peak streamed
@@ -190,14 +206,15 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    phase 6 (a)'s) logged with the card's name and power limit.  No
    hand-written kernel runs here, as in phase 6.
 6x. train full-width xlstm-1.3b at phase 6's batch, sequence and AdamW
-   settings: (a) the state on the card, 4 steps through ``build_trainer``,
+   settings: (a) the state on the card, 3 steps through ``build_trainer``,
    finite and falling losses, the step wall, tokens/s, model FLOP/s and
    ``max_memory_allocated`` (one profiled step and the sLSTM loop's part of
    it are :func:`phase_xlstm_profile`'s, which ``main`` skips: profiling
-   ~770,000 launches takes minutes); (b) the streamed-weight step on the period layout
-   (8 groups: embed, 6 periods of 8 layers, head) under a budget of its
-   distance-1 floor rounded up to 100 MB (1700 MB against 3.48 GB of bf16
-   weights), 2 steps at the device home, then 2 at pinned host (distance
+   ~770,000 launches takes minutes); (b) the streamed-weight step on the
+   period layout, cut to 24 layers (5 groups: embed, 3 periods of 7 mLSTM
+   and an sLSTM, head; 48 layers and 2 steps a home until phases 2a, 6a and
+   6v) under a budget of its distance-1 floor rounded up to 100 MB, 1 step
+   at the device home, then 1 at pinned host (distance
    auto): losses, parameters and moments bitwise, every request and byte
    of the weight passes and the optimizer pass the plan's, one H2D request
    a fetched group; walls, tokens/s, waits, drains and peak memory logged.
@@ -205,15 +222,37 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
 6m. train full-width mixtral-8x7b (d_model 4096, 32 heads over 8, 8 experts
    of d_ff 14336 top-2; cut to one layer, 1,713,418,240 parameters) with
    ``expert_stream=True`` (a non-expert group and 8 expert groups of
-   352,321,536 bytes), batch 2, sequence 512, 2 steps at the device home
-   and 2 at pinned host with the residency cache off, so every group is
+   352,321,536 bytes), batch 2, sequence 512, 1 step at the device home
+   and 1 at pinned host with the residency cache off, so every group is
    fetched in both passes: losses, parameters and moments bitwise, every
    request and byte the plan's (each expert group's bytes twice a step),
-   one H2D request a fetched group.  Runs right after phase 1, in a child
+   one H2D request a fetched group.  Runs right after 6v, in a child
    process (its host memory goes back when it exits: the later phases leave
    the host's MemAvailable low), and refuses to start unless the host holds
    two homes of weights and moments with 3 GB to spare.  The disk
    home of this step is held on the CPU (tests/test_torch_moe_train.py).
+6a. train full-width musicgen-medium at phase 6's batch, sequence and AdamW
+   settings: (a) the state on the card, 4 steps, finite losses, the step
+   wall, tokens/s, model FLOP/s, one profiled step's idle share and
+   ``max_memory_allocated``; (b) the streamed-weight step cut to 24 layers
+   (26 groups, one layer each, under the distance-1 floor rounded up to
+   100 MB, the residency cache off) 2 steps at the device home and 2 at
+   pinned host: losses, parameters and moments bitwise, every request and
+   byte the plan's, the step-0 loss bitwise the monolithic ``lm_loss`` on
+   the same weights.  Runs in a child process after 6x.
+6v. full-width qwen2-vl-72b (d_model 8192, 64 heads over 8, head_dim 128,
+   d_ff 29568, vocab 152,064, M-RoPE sections (16, 24, 24), qkv bias,
+   untied) on one sequence of 1024 text positions behind a 128-position
+   vision prefix: (a) 2 layers on the card (4.3 B parameters), ``lm_loss``
+   and the logits with no gradients through ``flash_attention`` (a launch
+   a layer each, zeroed just before and read just after) within 5e-2 of the
+   plain path, the prefix's targets ignored; (b) 1 layer (3.44 B
+   parameters) through one streamed-weight step at the pinned-host home if
+   MemAvailable holds it (the home, the largest group's state, the
+   gradients and 8 GB; the step donates its state, so the old and new
+   homes overlap by one group), else at disk: its loss bitwise the
+   monolithic ``lm_loss`` on the same weights, every request and byte the
+   plan's, on demand with the cache off.  Runs first, in a child process.
 7. the paper's tables and the engine studies at full size, through the
    port's runner (``repro_torch.benchmarks.run.run_suites``), after phase 5:
    ``HwSpec`` H100's ``hbm_bytes`` within 10% of the card's total memory;
@@ -289,24 +328,39 @@ W_GROUPS, W_PASS_BYTES, W_SHORT_GEN = 34, 818_014_080, 8
 # device-resident twin; the budget above the expert plan's distance-1 floor
 # (three MoE units, 8,707,620,864 bytes) with a residency cache (292 MB) that
 # holds no expert group (352,321,536 bytes); the disk run's and the whole
-# model's shorter generation; the deep run's depth (16 of 32 layers: the
-# whole model's 93.4 GB ran until phases 2x, 6x and 6m needed the time) and
+# model's shorter generation; the deep run's depth (8 of 32 layers: the
+# whole model's 93.4 GB ran until phases 2x, 6x and 6m needed the time, 16
+# layers until phases 2a, 6a and 6v did) and
 # the host memory it must leave free (the H100 host this was sized on:
 # MemTotal 105,906,176 kB, 80.2 GB of free disk)
 MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2, 512, 16
-MOE_BUDGET_MB, MOE_DISK_GEN, MOE_FULL_GEN = 9000, 8, 4
-MOE_FULL_LAYERS, MOE_HOST_MARGIN = 16, 3_000_000_000
+MOE_BUDGET_MB, MOE_DISK_GEN, MOE_FULL_GEN = 9000, 4, 4
+MOE_FULL_LAYERS, MOE_HOST_MARGIN = 8, 3_000_000_000
 # the recurrentgemma-2b cell: a prompt longer than the 2048-token window
 HYB_PROMPT = 3072
 # phase 2x: full-width xlstm-1.3b served (a prompt of 4 mLSTM chunks); phase
-# 6x: trained at phase 6's batch and sequence, then streamed 2 steps a home
+# 6x: trained at phase 6's batch and sequence (3 steps; 4 until phases 2a, 6a
+# and 6v needed the time), then streamed 1 step a home cut to 3 of its 6
+# periods (all 48 layers and 2 steps a home before then; at 2 periods the
+# budget of its floor would hold the whole model)
 XL_BATCH, XL_PROMPT, XL_GEN, XL_PARAMS = 4, 512, 32, 1_741_275_472
-XL_TRAIN_STEPS, XL_W_STEPS = 4, 2
+XL_TRAIN_STEPS, XL_W_LAYERS, XL_W_STEPS = 3, 24, 1
+# phase 2a: full-width musicgen-medium served at phase 2's batch, prompt and
+# gen (the disk-homed weights' run at a shorter gen); phase 6a: trained at
+# phase 6's batch and sequence, AdamW on the card for 4 steps, then the
+# streamed-weight step 2 steps a home, cut to 24 of its 48 layers
+AU_DISK_GEN, AU_TRAIN_STEPS, AU_W_LAYERS, AU_W_STEPS = 4, 4, 24, 2
+# phase 6v: full-width qwen2-vl-72b cut to 2 layers for the no-gradient
+# forward and to 1 for the streamed-weight step (whose home, 14 B a
+# parameter, is 48 GB); one sequence of 1024 text positions behind its
+# 128-position vision prefix; the host memory the chosen home leaves free
+VL_LAYERS, VL_W_LAYERS, VL_BATCH, VL_TEXT = 2, 1, 1, 1024
+VL_HOST_MARGIN = 8_000_000_000
 # phase 6m: full-width mixtral-8x7b trained with its experts streamed, cut to
 # one layer: the streamed step holds a home's old and new state until it
 # returns, so the device home needs twice its 16 B a parameter on the card
 # (~55 GB at one layer; two layers, 3.16 B parameters, would need ~101 GB)
-MT_LAYERS, MT_BATCH, MT_SEQ, MT_STEPS = 1, 2, 512, 2
+MT_LAYERS, MT_BATCH, MT_SEQ, MT_STEPS = 1, 2, 512, 1
 # phase 6: full-width smollm-360m training at the JAX package's train defaults
 # (remat "full", loss chunks of 512 positions), its AdamW settings; the
 # streamed optimizer's groups; the DISK_OPT host budget and its steps; the
@@ -426,17 +480,22 @@ def phase_kernels(cfg, hcfg) -> dict:
         (2, 300, 300, 8, 1, 128, 100, 20),
         # mixtral-8x7b's prefill: head_dim 128, 4 query heads a KV head, window 4096
         (MOE_BATCH, MOE_PROMPT, MOE_PROMPT, 32, 8, 128, 4096, 0),
+        # musicgen-medium's prefill (one request): 24 heads over 24 KV heads, head_dim 64
+        (1, PROMPT, PROMPT, 24, 24, 64, 0, 0),
+        # qwen2-vl-72b's training forward: 1024 text + 128 vision positions, 64 over 8
+        (VL_BATCH, VL_TEXT + VL_TEXT // 8, VL_TEXT + VL_TEXT // 8, 64, 8, 128, 0, 0),
     ]
+    flash_named = {0: "flash_attention", len(flash_cases) - 3: "flash_attention_moe",
+                   len(flash_cases) - 2: "flash_attention_audio",
+                   len(flash_cases) - 1: "flash_attention_vlm"}
     for i, (b, s, t, nn, kk, hh, window, qo) in enumerate(flash_cases):
         q, k, v = flash_inputs(b, s, t, nn, kk, hh)
         out = flash_attention(q, k, v, window=window, q_offset=qo)
         ref = attention_ref(q, k, v, window=window, q_offset=qo)
         err = check_close(f"flash_attention B={b} S={s} T={t} N={nn} KH={kk} H={hh} "
                           f"window={window} q_offset={qo}", out, ref)
-        if i == 0:
-            errs["flash_attention"] = err
-        if i == len(flash_cases) - 1:
-            errs["flash_attention_moe"] = err
+        if i in flash_named:
+            errs[flash_named[i]] = err
     t = PROMPT + GEN
     tm = MOE_PROMPT + MOE_GEN  # mixtral's ring: min(window, context) slots
     decode_cases = [
@@ -445,7 +504,11 @@ def phase_kernels(cfg, hcfg) -> dict:
         (1, 300, 4, 1, 128, [300]),
         (2, 256, 10, 5, 64, [0, 129]),
         (MOE_BATCH, tm, 32, 8, 128, [tm, tm - 3]),
+        # musicgen-medium's decode: 24 heads over 24 KV heads, head_dim 64
+        (BATCH, t, 24, 24, 64, [t, t - 1, 300, 1]),
     ]
+    decode_named = {len(decode_cases) - 2: "decode_attention_moe",
+                    len(decode_cases) - 1: "decode_attention_audio"}
     for i, (b, tt, nn, kk, hh, lens) in enumerate(decode_cases):
         q, k, v, lengths = decode_inputs(b, tt, nn, kk, hh, lens)
         out = decode_attention(q, k, v, lengths)
@@ -461,8 +524,8 @@ def phase_kernels(cfg, hcfg) -> dict:
                 f" (buffer_size, distance): {same}")
             if not same:
                 raise SystemExit("decode_attention: value depends on the PrefetchSpec")
-        if i == len(decode_cases) - 1:
-            errs["decode_attention_moe"] = err
+        if i in decode_named:
+            errs[decode_named[i]] = err
     errs.update(check_attention_256(hcfg))
     errs.update(check_rglru_scan(hcfg))
     errs.update(check_streamed_matmul(cfg))
@@ -1219,6 +1282,14 @@ def check_moe_counts(name: str, res: dict, budget_bytes: int, *, disk: bool = Fa
 
 def expert_bytes_per_layer_step(res: dict) -> float:
     return res["expert_decode_bytes"] / res["n_steps"] / res["param_plan"].n_layers
+
+
+def rss_bytes() -> int:
+    """This process's resident set (``/proc/self/status``'s VmRSS), B."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024
+    return 0
 
 
 def mem_available() -> int:
@@ -2174,9 +2245,9 @@ def phase_train_streamed(cfg, ref: dict, smi: str, device="cuda",
     # (b) pinned host at distance 0, 1 and auto (last: the pinned buffers the
     # drains allocate are then warm)
     for dist in (0, 1, "auto"):
-        r = run(f"(b) pinned_host d={dist}", "pinned_host", dist, W_TRAIN_STEPS,
-                profile=dist == "auto")
-        check(r, "pinned_host", dist, a["kept"][W_TRAIN_STEPS])
+        steps = W_TRAIN_STEPS if dist == "auto" else 1
+        r = run(f"(b) pinned_host d={dist}", "pinned_host", dist, steps, profile=dist == "auto")
+        check(r, "pinned_host", dist, a["kept"][steps])
         del r
 
     # (c) disk, one step: the fsync'd writeback of every group
@@ -2383,6 +2454,37 @@ def free_host(device: str) -> None:
         empty()
 
 
+def streamed_step_counts(plan, leaves: dict, kind: str, hit: int) -> dict:
+    """One streamed train step's counters at home ``kind`` (the plan's closed
+    form): the weight passes (forward ``embed, L.., head``, backward the
+    middle groups reversed and ``embed``), then the optimizer pass
+    ({grads, moments} in; {params, moments} out).  ``leaves`` counts each
+    home group's leaves; ``hit`` is 1 when the head's home is a residency
+    hit (cached from an earlier step's forward)."""
+    n, total, head_home = plan.n_groups, plan.total_param_bytes, plan.head_home_bytes
+    bwd = list(reversed(plan.groups[1:-1])) + [plan.groups[0]]
+    pass_bytes = sum(plan.group_bytes(g) for g in plan.groups) + sum(plan.group_bytes(g) for g in bwd)
+    n_ex = len(plan.expert_groups)
+    disk = kind == "disk_host"
+    if kind == "device":  # every group passes through by reference
+        w = dict(h2d_requests=0, bytes_h2d=0, unique_group_fetches=0, cache_hits=2 * n - 1,
+                 disk_requests=0)
+    else:
+        # from disk each fetched group reads its chunk, and a head that reads
+        # the embedding (tied, or codebook heads) the embed chunk too
+        w = dict(h2d_requests=2 * n - 1, bytes_h2d=pass_bytes - hit * head_home,
+                 unique_group_fetches=2 * n - 1, cache_hits=0,
+                 disk_requests=(2 * n - 1 + int(plan.head_reads_embed) - hit) if disk else 0)
+    # the backward's gradients, a D2H request a leaf; an expert group's
+    # drain at its layer's non-expert group, a 0-d f32 placeholder at its own
+    w.update(d2h_requests=sum(leaves[g.key] for g in bwd) + n_ex,
+             bytes_d2h=total - head_home + 4 * n_ex)
+    o = dict(h2d_requests=n - (kind == "device"), d2h_requests=4 * sum(leaves.values()),
+             bytes_d2h=7 * total, disk_requests=n if disk else 0,
+             bytes_h2d=(total - head_home) + (6 * total if kind != "device" else 0))
+    return {"param": w, "opt": o}
+
+
 def streamed_train_pair(phase: str, cfg, plan, smi: str, *, batch_fn, tokens: int, steps: int,
                         residency=None, device: str = "cuda") -> dict:
     """The streamed-weight train step from one group-wise init, at the
@@ -2411,33 +2513,15 @@ def streamed_train_pair(phase: str, cfg, plan, smi: str, *, batch_fn, tokens: in
         f"distance {max_d}; analyzed peak {report.peak_bytes} B, ok {report.ok}")
     if not report.ok or (budget is not None and report.peak_bytes > budget):
         raise SystemExit(f"{phase}: the schedule fails its analysis\n{report}")
-    head_home = plan.head_home_bytes
     fits = [g.key for g in plan.groups if cap is not None and plan.group_bytes(g, fetch=False) <= cap]
     if fits not in ([], [plan.groups[-1].key]):
         raise SystemExit(f"{phase}: a {cap} B cache holds other groups than the head's home: {fits}")
     head_cached = bool(fits)
-    bwd = list(reversed(plan.groups[1:-1])) + [plan.groups[0]]
-    total = plan.total_param_bytes
-    pass_bytes = sum(plan.group_bytes(g) for g in plan.groups) + sum(plan.group_bytes(g) for g in bwd)
     leaves = {k: len(tr.leaves(t)) for k, t in
               plan.init_home(st.abstract_params(cfg))["groups"].items()}
-    n_ex = len(plan.expert_groups)
 
     def expected(kind: str, k: int) -> dict:
-        if kind == "device":  # every group passes through by reference
-            w = dict(h2d_requests=0, bytes_h2d=0, unique_group_fetches=0, cache_hits=2 * n - 1)
-        else:
-            hit = int(head_cached and k > 0)  # the head's home, cached from step 0's forward
-            w = dict(h2d_requests=2 * n - 1, bytes_h2d=pass_bytes - hit * head_home,
-                     unique_group_fetches=2 * n - 1, cache_hits=0)
-        # the backward's gradients, a D2H request a leaf; an expert group's
-        # drain at its layer's non-expert group, a 0-d f32 placeholder at its own
-        w.update(d2h_requests=sum(leaves[g.key] for g in bwd) + n_ex,
-                 bytes_d2h=total - head_home + 4 * n_ex, disk_requests=0)
-        o = dict(h2d_requests=n - (kind == "device"), d2h_requests=4 * sum(leaves.values()),
-                 bytes_d2h=7 * total, disk_requests=0,
-                 bytes_h2d=(total - head_home) + (6 * total if kind != "device" else 0))
-        return {"param": w, "opt": o}
+        return streamed_step_counts(plan, leaves, kind, int(head_cached and k > 0))
 
     free_host(device)
     t0 = time.perf_counter()
@@ -2560,14 +2644,15 @@ def phase_xlstm_train(smi: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b) the streamed-weight step on the period layout
+    # (b) the streamed-weight step on the period layout, cut in depth
+    tcfg = dataclasses.replace(tcfg, n_layers=XL_W_LAYERS)
     free = WeightStreamPlan(tcfg, st.abstract_params(tcfg), layers_per_group=1)
     floor = free.peak_device_bytes(1)
     budget_mb = math.ceil(floor / 1e8) * 100
     plan = WeightStreamPlan(tcfg, st.abstract_params(tcfg), layers_per_group=1,
                             device_budget_mb=budget_mb)
-    log(f"  (b) budget {budget_mb} MB: the period plan's distance-1 floor {floor} B rounded up to "
-        f"100 MB, against {plan.total_param_bytes} B of bf16 weights")
+    log(f"  (b) {XL_W_LAYERS} layers, budget {budget_mb} MB: the period plan's distance-1 floor "
+        f"{floor} B rounded up to 100 MB, against {plan.total_param_bytes} B of bf16 weights")
     if plan.layout != "period" or not budget_mb * 1e6 < plan.total_param_bytes:
         raise SystemExit(f"6x (b): layout {plan.layout}, budget {budget_mb} MB")
     streamed_train_pair("6x (b)", tcfg, plan, smi, batch_fn=lambda k: train_batch(tcfg, k),
@@ -2660,6 +2745,478 @@ def phase_moe_train(smi: str, device: str = "cuda", full=None) -> None:
     log(f"  6m expert groups: {len(plan.expert_groups)} of {plan.per_expert_bytes} B; a pinned "
         f"step fetches each twice (forward, backward), {2 * len(plan.expert_groups) * plan.per_expert_bytes} B")
     log(f"  phase 6m done in {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phases 2a, 6a, 6v: the modality front ends (musicgen-medium's codebooks and
+# sinusoidal positions, qwen2-vl-72b's vision prefix and M-RoPE)
+# ---------------------------------------------------------------------------
+
+def disk_free(path: Path) -> int:
+    """Free bytes of the file system that holds ``path``."""
+    import shutil
+
+    path.mkdir(parents=True, exist_ok=True)
+    return shutil.disk_usage(path).free
+
+
+def phase_audio_serve(smi: str, device: str = "cuda", full=None) -> dict:
+    """Phase 2a: full-width musicgen-medium (or ``full``) served through
+    ``serve``: unpaged (the baseline), paged at device, pinned-host and disk
+    pages, and with the weights streamed from pinned host and disk.
+    Returns (a)'s kernel launches (for phase 5)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.weightstream import WeightStreamPlan
+    from repro_torch.launch import serve as sv
+    from repro_torch.train import steps as st
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(full or get_config("musicgen-medium"), attn_impl="pallas")
+    on_card = device == "cuda"
+    abstract = st.abstract_params(cfg)
+    n_params = sum(int(np.prod(x.shape)) for x in _leaves(abstract))
+    log(f"phase 2a serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, {cfg.n_codebooks} "
+        f"codebooks of {cfg.vocab_size}, {cfg.pos_type} positions, {cfg.dtype}; {n_params:,} "
+        f"parameters; batch {BATCH}, prompt {PROMPT}, gen {GEN}; {smi}")
+    params = st.init_params(cfg, SEED, device)
+    kernels = ("flash_attention", "decode_attention")
+    wrappers = serving_kernels()
+
+    def run(name: str, gen: int = GEN, **kw) -> tuple[dict, dict]:
+        """One serve through the entry point, the launch counts zeroed just
+        before and read just after."""
+        reset_peak(device)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        res = sv.serve(cfg, batch=BATCH, prompt_len=PROMPT, gen=gen, seed=SEED, params=params,
+                       device=device, **kw)
+        launches = {k: wrappers[k].launches for k in kernels}
+        if on_card and min(launches.values()) <= 0:
+            raise SystemExit(f"2a {name}: a kernel of the path was not launched: {launches}")
+        st_ = res["stats"]
+        log(f"  {name}: prefill {res['prefill_s'] * 1e3:.3f} ms for {BATCH} requests, decode "
+            f"{res['decode_s'] * 1e3 / max(res['n_steps'], 1):.3f} ms a step ({res['n_steps']} "
+            f"steps), {res['tokens_per_s']:.1f} tok/s; KV h2d {st_.h2d_requests} req / "
+            f"{st_.bytes_h2d} B over {st_.n_groups} groups, disk {st_.disk_requests} req; "
+            f"max_memory_allocated {peak_allocated(device)} B; launches {launches} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        return res, launches
+
+    def same(name, got, want):
+        if not np.array_equal(got, want):
+            raise SystemExit(f"2a {name}: tokens differ from (a)'s")
+
+    # (a) the unpaged baseline
+    a, la = run("(a) unpaged, device caches", kv_kind="device", kv_page_len=0)
+    gen = a["generated"]
+    if gen.shape != (BATCH, GEN) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        raise SystemExit(f"2a (a): generated tokens malformed: shape {gen.shape}, range "
+                         f"[{gen.min()}, {gen.max()}]")
+    log(f"  (a) first request's codebook-0 stream {gen[0, :8].tolist()}...")
+    # the kernel path against the plain path on request 0 (serve's prompts)
+    prompts = np.random.default_rng(SEED + 1).integers(1, cfg.vocab_size, (BATCH, PROMPT),
+                                                      dtype=np.int32)
+    prompt = torch.as_tensor(prompts[:1], device=device)
+    out = {}
+    with torch.no_grad():
+        for impl in ("pallas", "xla"):
+            c = dataclasses.replace(cfg, attn_impl=impl)
+            logits, caches = st.make_prefill_step(c, 1, PROMPT + 2)(params,
+                                                                  sv._prompt_batch(c, prompt))
+            first = sv._greedy(logits)  # (1, K)
+            logits2, _ = st.make_decode_step(c)(params, caches, sv._step_batch(c, first, device),
+                                                sv.step_pos(c, 1, PROMPT, device))
+            out[impl] = (logits.float(), logits2.float(), first, sv._greedy(logits2))
+            del caches
+    for i, step in enumerate(("prefill", "decode")):
+        k_, p_ = out["pallas"][i], out["xla"][i]
+        if k_.shape != (1, cfg.n_codebooks, 1, cfg.vocab_size):
+            raise SystemExit(f"2a {step} logits of shape {tuple(k_.shape)}")
+        if not (torch.isfinite(k_).all() and torch.isfinite(p_).all()):
+            raise SystemExit(f"2a {step} logits are not finite")
+        rel = max_err(k_, p_) / p_.abs().max().item()
+        log(f"  (a) {step} logits (1, {cfg.n_codebooks}, 1, {cfg.vocab_size}), kernel path vs "
+            f"plain path: max |diff| / max |logit| = {rel:.3e} (limit {LOGIT_RTOL}), same greedy "
+            f"tokens: {bool((k_.argmax(-1) == p_.argmax(-1)).all())}")
+        if rel > LOGIT_RTOL:
+            raise SystemExit(f"2a {step} logits of the kernel path disagree with the plain path")
+    # serve prefills request by request: its first token is this prefill's
+    if int(out["pallas"][2][0, 0]) != gen[0, 0]:
+        raise SystemExit(f"2a: the kernel path's first codebook-0 token "
+                         f"{int(out['pallas'][2][0, 0])} is not serve's {gen[0, 0]}")
+    del out
+
+    # (b) the paged session at each page home
+    spill = ROOT / "build" / "spill-audio"
+    page = dict(kv_page_len=PAGE_LEN, hot_pages=HOT_PAGES, distance="auto")
+    for kind in ("device", "pinned_host", "disk_host"):
+        shutil.rmtree(spill, ignore_errors=True)
+        res, launches = run(f"(b) paged, {kind} pages", kv_kind=kind,
+                            spill_dir=str(spill) if kind == "disk_host" else None, **page)
+        shutil.rmtree(spill, ignore_errors=True)
+        same(f"(b) {kind}", res["generated"], gen)
+        st_ = res["stats"]
+        if kind == "device":
+            if st_.h2d_requests or st_.d2h_requests or launches != la:
+                raise SystemExit(f"2a (b) device pages: {st_.h2d_requests} H2D, "
+                                 f"{st_.d2h_requests} D2H requests, launches {launches} against "
+                                 f"(a)'s {la}")
+            continue
+        if not (st_.h2d_requests == st_.n_groups > 0 and st_.disk_requests == (
+                st_.n_groups if kind == "disk_host" else 0)):
+            raise SystemExit(f"2a (b) {kind}: {st_.h2d_requests} H2D and {st_.disk_requests} "
+                             f"disk requests for {st_.n_groups} page groups")
+        if not res["peak_resident_bytes"] < res["total_cache_bytes"]:
+            raise SystemExit(f"2a (b) {kind}: the device retained the whole cache")
+
+    # (c) the weights streamed from pinned host, then disk, the cache off
+    floor = WeightStreamPlan(cfg, abstract, layers_per_group=1).peak_device_bytes(1)
+    budget_mb = math.ceil(floor / 1e8) * 100
+    log(f"  (c) budget {budget_mb} MB: the one-layer plan's distance-1 floor {floor} B rounded "
+        f"up to 100 MB, the residency cache off")
+    for kind, g in (("pinned_host", GEN), ("disk_host", AU_DISK_GEN)):
+        shutil.rmtree(spill, ignore_errors=True)
+        res, launches = run(f"(c) weights at {kind}", gen=g, kv_kind="device", kv_page_len=0,
+                            param_kind=kind, device_budget_mb=budget_mb, param_cache_mb=0,
+                            spill_dir=str(spill) if kind == "disk_host" else None)
+        shutil.rmtree(spill, ignore_errors=True)
+        same(f"(c) {kind}", res["generated"], gen[:, :g])
+        ps, plan = res["param_stats"], res["param_plan"]
+        runs = BATCH + g  # a prefill a request, the warm-up step, g - 1 decode steps
+        fetches = runs * plan.n_groups
+        pass_bytes = sum(plan.fetch_sequence_bytes())
+        checks = {
+            "passes": (ps.n_runs, runs),
+            "groups fetched": (ps.unique_group_fetches, fetches),
+            "h2d_requests": (ps.h2d_requests, fetches),
+            "bytes_h2d": (ps.bytes_h2d, runs * pass_bytes),
+            "cache_hits": (ps.cache_hits, 0),
+            # the codebook heads' group reads the embed chunk beside its own
+            "disk_requests": (ps.disk_requests, fetches + runs if kind == "disk_host" else 0),
+        }
+        for what, (got, want) in checks.items():
+            if got != want:
+                raise SystemExit(f"2a (c) {kind}: {what} {got}, the plan's {want}")
+        if not (ps.peak_inflight_bytes <= budget_mb * 1e6
+                and (budget_mb * 1e6 < plan.total_param_bytes or not on_card)):
+            raise SystemExit(f"2a (c) {kind}: streamed {ps.peak_inflight_bytes} B against the "
+                             f"budget {budget_mb} MB and {plan.total_param_bytes} B of weights")
+        log(f"    {plan.n_groups} groups ({plan.layers_per_group} layer(s) each), {runs} passes of "
+            f"{pass_bytes} B: {ps.h2d_requests} H2D requests / {ps.bytes_h2d} B, "
+            f"{ps.disk_requests} disk requests, the plan's; peak streamed "
+            f"{ps.peak_inflight_bytes} B; transfer wait {ps.transfer_wait_s:.3f} s")
+    del params
+    log(f"  phase 2a done in {time.perf_counter() - t_phase:.1f} s")
+    return la
+
+
+def _leaves(tree) -> list:
+    from repro_torch.core import tree as tr
+
+    return tr.leaves(tree)
+
+
+def phase_audio_train(smi: str, device: str = "cuda", full=None) -> None:
+    """Phase 6a: full-width musicgen-medium (or ``full``) trained with the
+    AdamW state on the card, then through the streamed-weight step at the
+    device and pinned-host homes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.residency import ResidencyCache
+    from repro_torch.core.weightstream import WeightStreamPlan
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps as st
+
+    t_phase = time.perf_counter()
+    tcfg = train_cfg(full or get_config("musicgen-medium"))
+    abstract = st.abstract_params(tcfg)
+    n_params = sum(x.numel() for x in _leaves(abstract))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"phase 6a train {tcfg.name}: {n_params:,} parameters, {tcfg.n_codebooks} codebooks, "
+        f"{tcfg.dtype}, remat={tcfg.remat}, loss_chunk {tcfg.loss_chunk}; batch {TRAIN_BATCH}, "
+        f"seq {TRAIN_SEQ}, AdamW {TRAIN_OPT}; {smi}")
+    reset_peak(device)
+    step_fn = st.make_train_step(tcfg, AdamWConfig(**TRAIN_OPT))
+    params, opt = st.init_train_state(tcfg, SEED, device)
+    losses, walls = [], []
+    for k in range(AU_TRAIN_STEPS):
+        batch = train_batch(tcfg, k, device)
+        sync(device)
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        sync(device)
+        walls.append(time.perf_counter() - t0)
+    peak = peak_allocated(device)
+    if not all(map(math.isfinite, losses)):
+        raise SystemExit(f"6a (a): losses not finite: {losses}")
+    wall = median(walls[1:])
+    idle = "not measured"
+    if device == "cuda":
+        batch = train_batch(tcfg, AU_TRAIN_STEPS, device)
+        r = profile_ms(lambda: step_fn(params, opt, batch), wall)
+        idle = (f"device busy {r['device_busy_ms_per_unit']:.1f} ms of the {wall * 1e3:.1f} ms "
+                f"wall, idle share {r['device_idle_share']:.4f}, "
+                f"{r['kernel_launches_per_unit']:.0f} kernel launches")
+    log(f"  (a) AdamW on the card, {AU_TRAIN_STEPS} steps: losses {losses} (falling: "
+        f"{losses[-1] < losses[0]}); step walls {[round(w * 1e3, 1) for w in walls]} ms, median "
+        f"of steps 1-{AU_TRAIN_STEPS - 1} {wall * 1e3:.1f} ms = {tokens / wall:.1f} tok/s, model "
+        f"{6 * n_params * tokens / wall / 1e12:.2f} TFLOP/s (6 N T); {idle}; max_memory_allocated "
+        f"{peak} B ({smi})")
+    del params, opt, step_fn
+    gc.collect()
+    reset_peak(device)
+
+    # (b) the streamed-weight step cut in depth, one layer a group, the cache
+    # off, against the monolithic loss on the same weights
+    bcfg = dataclasses.replace(tcfg, n_layers=min(AU_W_LAYERS, tcfg.n_layers))
+    with torch.no_grad():
+        whole = st.init_params(bcfg, SEED, device)
+        mono = float(transformer.lm_loss(bcfg, whole, train_batch(bcfg, 0, device))[0])
+    del whole
+    reset_peak(device)
+    abstract = st.abstract_params(bcfg)
+    floor = WeightStreamPlan(bcfg, abstract, layers_per_group=1).peak_device_bytes(1)
+    budget_mb = math.ceil(floor / 1e8) * 100
+    plan = WeightStreamPlan(bcfg, abstract, layers_per_group=1, device_budget_mb=budget_mb)
+    log(f"  (b) {bcfg.n_layers} layers, budget {budget_mb} MB: the plan's distance-1 floor "
+        f"{floor} B rounded up to 100 MB, against {plan.total_param_bytes} B of bf16 weights; "
+        f"the codebook heads' group reads the embedding: {plan.head_reads_embed}")
+    b = streamed_train_pair("6a (b)", bcfg, plan, smi,
+                            batch_fn=lambda k: train_batch(bcfg, k, device), tokens=tokens,
+                            steps=AU_W_STEPS, residency=ResidencyCache(0), device=device)
+    if b["losses"][0] != mono:
+        raise SystemExit(f"6a (b): the streamed step-0 loss {b['losses'][0]} is not the "
+                         f"monolithic lm_loss {mono}")
+    log(f"  (b) step-0 loss {b['losses'][0]} bitwise the monolithic lm_loss on the same weights")
+    log(f"  phase 6a done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+VL_RESULT = ROOT / "build" / "phase-6v.json"
+
+
+def pinned(n: int) -> int:
+    """Host bytes of an ``n``-byte page-locked buffer: exact from
+    ``EXACT_PIN_BYTES`` up (``engine.page_locked_empty`` registers them),
+    else the CUDA host allocator's power of two."""
+    from repro_torch.core.engine import EXACT_PIN_BYTES
+
+    return n if n >= EXACT_PIN_BYTES else 1 << max(n - 1, 0).bit_length()
+
+
+def streamed_home_need(plan) -> tuple[dict, str]:
+    """Host bytes (with ``VL_HOST_MARGIN``) a donated streamed-weight step of
+    ``plan`` holds at its peak, at each home, and the disk bytes of the disk
+    home; and how they were reckoned.  The optimizer pass runs one group at a
+    time (head, the layers backwards, embed): at group i the host holds the
+    old moments and gradients of groups i.. (the old weights went after the
+    backward), group i's staging or its drains (the staging goes once the
+    group has landed), and the new home of the groups before it (pinned
+    host: in those drains; disk: on disk, group i's chunk copied out of its
+    drains as it is written)."""
+    from repro_torch.core import tree as tr
+    from repro_torch.core.engine import EXACT_PIN_BYTES
+    from repro_torch.train import steps as st
+
+    home = plan.init_home(st.abstract_params(plan.cfg))["groups"]
+    leaves = {k: [x.numel() * x.element_size() for x in tr.leaves(t)] for k, t in home.items()}
+    order = [plan.groups[-1].key] + [g.key for g in reversed(plan.groups[:-1])]
+    size = {k: sum(v) for k, v in leaves.items()}
+    drains = {k: sum(pinned(b) + 3 * pinned(2 * b) for b in v) for k, v in leaves.items()}
+    grads = {k: 0 if k == order[0] else sum(pinned(b) for b in v) for k, v in leaves.items()}
+    staging = {k: pinned((6 if k == order[0] else 7) * size[k]) for k in order}
+    peaks = {
+        "pinned_host": max(sum(6 * size[j] + grads[j] for j in order[i:])
+                           + max(staging[k], drains[k]) + sum(drains[j] for j in order[:i])
+                           for i, k in enumerate(order)) + VL_HOST_MARGIN,
+        "disk_host": max(sum(grads[j] for j in order[i:])
+                         + max(staging[k] + 6 * size[k], drains[k] + 7 * size[k])
+                         for i, k in enumerate(order)) + VL_HOST_MARGIN,
+    }
+    peaks["disk"] = 7 * plan.total_param_bytes + max(7 * n for n in size.values())
+    return peaks, (f"page-locked blocks exact from {EXACT_PIN_BYTES} B, else powers of two; "
+                   f"drains {sum(drains.values())} B, the largest staging "
+                   f"{max(staging.values())} B; margin {VL_HOST_MARGIN} B")
+
+
+def phase_vlm_train(smi: str, device: str = "cuda", full=None) -> None:
+    """Phase 6v: full-width qwen2-vl-72b (or ``full``) cut in depth: the
+    no-gradient forward and loss at ``VL_LAYERS`` layers, kernel path
+    against plain path; one streamed-weight train step at ``VL_W_LAYERS``
+    layer(s), its loss bitwise the monolithic ``lm_loss``'s under the same
+    weights.  Writes the flash kernel's launches to ``VL_RESULT`` for
+    phase 5."""
+    import shutil
+
+    from repro_torch.configs import get_config, vision_prefix_len
+    from repro_torch.core import tree as tr
+    from repro_torch.core.refspec import PrefetchSpec
+    from repro_torch.core.residency import ResidencyCache
+    from repro_torch.core.spillstore import SpillStore
+    from repro_torch.core.weightstream import WeightStreamPlan
+    from repro_torch.data import SyntheticConfig, synthetic_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps as st
+
+    t_phase = time.perf_counter()
+    base = full or get_config("qwen2-vl-72b")
+    s_img = vision_prefix_len(base, VL_TEXT)
+
+    def batch_for(c) -> dict:
+        sc_ = SyntheticConfig(c.vocab_size, VL_TEXT, VL_BATCH, seed=SEED)
+        return {k: v.to(device) for k, v in synthetic_batch(c, sc_, 0).items()}
+
+    # (a) the no-gradient forward at VL_LAYERS layers, kernel path vs plain
+    c2 = dataclasses.replace(base, n_layers=VL_LAYERS, loss_chunk=512)
+    n2 = sum(x.numel() for x in _leaves(st.abstract_params(c2)))
+    log(f"phase 6v {base.name}: d_model {base.d_model}, {base.n_heads}/{base.n_kv_heads} heads, "
+        f"head_dim {base.head_dim}, d_ff {base.d_ff}, vocab {base.vocab_size}, M-RoPE sections "
+        f"{base.mrope_sections}, qkv bias {base.qkv_bias}; batch {VL_BATCH} x ({VL_TEXT} text + "
+        f"{s_img} vision) positions; {smi}")
+    reset_peak(device)
+    t0 = time.perf_counter()
+    params = st.init_params(c2, SEED, device)
+    batch = batch_for(c2)
+    if tuple(batch["positions_3d"].shape) != (VL_BATCH, 3, VL_TEXT + s_img):
+        raise SystemExit(f"6v: positions_3d of shape {tuple(batch['positions_3d'].shape)}")
+    out = {}
+    with torch.no_grad():
+        for impl in ("pallas", "xla"):
+            c = dataclasses.replace(c2, attn_impl=impl)
+            flash_attention.launches = 0
+            logits, _ = transformer.forward_train(c, params, batch)
+            loss, aux = transformer.lm_loss(c, params, batch)
+            out[impl] = (logits[:, -VL_TEXT:].float(), float(loss), int(aux["n_tokens"]),
+                         flash_attention.launches)
+            del logits
+    launches = out["pallas"][3]  # the forward's and the loss's, a layer each
+    if device == "cuda" and (launches != 2 * VL_LAYERS or out["xla"][3]):
+        raise SystemExit(f"6v (a): flash launched {launches} times on the kernel path (expected "
+                         f"{2 * VL_LAYERS}), {out['xla'][3]} on the plain path")
+    lk, lp = out["pallas"][0], out["xla"][0]
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise SystemExit("6v (a): logits are not finite")
+    rel = max_err(lk, lp) / lp.abs().max().item()
+    dloss = abs(out["pallas"][1] - out["xla"][1]) / abs(out["xla"][1])
+    log(f"  (a) {VL_LAYERS} layers, {n2:,} parameters (init {time.perf_counter() - t0:.1f} s): "
+        f"lm_loss kernel path {out['pallas'][1]} vs plain {out['xla'][1]} (relative "
+        f"{dloss:.3e}), text logits max |diff| / max |logit| = {rel:.3e} (limit {LOGIT_RTOL}); "
+        f"{out['pallas'][2]} target tokens (the {s_img}-position prefix ignored); flash "
+        f"launches {launches}; max_memory_allocated {peak_allocated(device)} B")
+    if rel > LOGIT_RTOL or dloss > LOGIT_RTOL or out["pallas"][2] != VL_BATCH * VL_TEXT:
+        raise SystemExit("6v (a): the kernel path disagrees with the plain path")
+    VL_RESULT.parent.mkdir(parents=True, exist_ok=True)
+    VL_RESULT.write_text(json.dumps({"flash_attention": launches}))
+    del params, out, lk, lp
+    gc.collect()
+    reset_peak(device)
+
+    # (b) one streamed-weight step at VL_W_LAYERS layer(s): the home by the
+    # host's memory, the cache off, on demand (an optimizer group of the
+    # 152,064-row tables is 17-18 GB a side on the card)
+    c1 = train_cfg(dataclasses.replace(base, n_layers=VL_W_LAYERS))
+    plan = WeightStreamPlan(c1, st.abstract_params(c1), layers_per_group=1)
+    n = plan.n_groups
+    need, why = streamed_home_need(plan)
+    spill = ROOT / "build" / "spill-6v"
+    avail, free = mem_available(), disk_free(spill)
+    home = 7 * plan.total_param_bytes  # bf16 weights + f32 master, m, v
+    if avail >= need["pinned_host"]:
+        kind = "pinned_host"
+    elif avail >= need["disk_host"] and free >= need["disk"]:
+        kind = "disk_host"
+    else:
+        raise SystemExit(f"6v (b): MemAvailable {avail} B holds neither home ({need}; disk "
+                         f"{free} B free)")
+    log(f"  (b) {VL_W_LAYERS} layer(s), {plan.total_param_bytes // 2:,} parameters in {n} groups, "
+        f"home {home} B (weights and moments): {kind}; MemAvailable {avail} B, disk {free} B "
+        f"free, against the pinned home's {need['pinned_host']} B and the disk home's "
+        f"{need['disk_host']} B of host and {need['disk']} B of disk ({why})")
+    # the monolithic loss on init_params' weights: the group-wise init draws
+    # the same bits (tests/test_torch_frontends.py), group by group
+    batch = batch_for(c1)
+    t0 = time.perf_counter()
+    whole = st.init_params(c1, SEED, device)
+    with torch.no_grad():
+        mono = float(transformer.lm_loss(c1, whole, batch)[0])
+    del whole
+    gc.collect()
+    reset_peak(device)
+    log(f"  (b) monolithic lm_loss: {mono} ({time.perf_counter() - t0:.1f} s)")
+    store = None
+    try:
+        if kind == "disk_host":  # ephemeral: no fsync (a capacity tier in this phase)
+            shutil.rmtree(spill, ignore_errors=True)
+            store = SpillStore(spill, ephemeral=True)
+        t0 = time.perf_counter()
+        state = st.init_weight_streamed_state(c1, plan, SEED, device, store=store)
+        avail = mem_available()
+        log(f"  (b) group-wise init of the state at {kind}: {time.perf_counter() - t0:.1f} s "
+            f"(host MemAvailable {avail} B, this process's resident set {rss_bytes()} B)")
+        # what the step holds beyond the home it was handed
+        extra = need[kind] - VL_HOST_MARGIN - (home if kind == "pinned_host" else 0)
+        if avail < extra + VL_HOST_MARGIN:
+            raise SystemExit(f"6v (b): MemAvailable {avail} B after the init holds not the "
+                             f"step's {extra} B beyond its home with {VL_HOST_MARGIN} B to spare")
+        leaves = {k: len(tr.leaves(t)) for k, t in
+                  plan.init_home(st.abstract_params(c1))["groups"].items()}
+        reset_peak(device)
+        step = st.make_weight_streamed_train_step(
+            c1, AdamWConfig(**TRAIN_OPT), plan=plan, param_kind=kind, spill_store=store,
+            prefetch=PrefetchSpec(buffer_size=n + 2, distance=0), residency=ResidencyCache(0),
+            donate=True, device=device)
+        try:
+            stats = {"param": step.param_stats, "opt": step.opt_stats}
+            before = {w: {f: getattr(s_, f) for f in STREAM_FIELDS} for w, s_ in stats.items()}
+            sync(device)
+            t0 = time.perf_counter()
+            new, m = step(state, batch)
+            loss = float(m["loss"])
+            sync(device)
+            wall = time.perf_counter() - t0
+            got = {w: {f: getattr(s_, f) - before[w][f] for f in STREAM_FIELDS}
+                   for w, s_ in stats.items()}
+        finally:
+            step.close()
+        want = streamed_step_counts(plan, leaves, kind, 0)
+        for w in ("param", "opt"):
+            for f, v in want[w].items():
+                if got[w][f] != v:
+                    raise SystemExit(f"6v (b): {w} {f} {got[w][f]}, the plan's {v}")
+        if loss != mono or not math.isfinite(loss):
+            raise SystemExit(f"6v (b): the streamed step-0 loss {loss} is not the monolithic "
+                             f"lm_loss {mono}")
+        if any(state[p]["groups"] for p in ("params", "opt")):
+            raise SystemExit("6v (b): the donated state still holds groups")
+        log(f"  (b) {kind}: step-0 loss {loss} bitwise the monolithic lm_loss; step wall "
+            f"{wall * 1e3:.1f} ms ({VL_BATCH * (VL_TEXT + s_img) / wall:.1f} positions/s); wait "
+            f"{(got['param']['transfer_wait_s'] + got['opt']['transfer_wait_s']) * 1e3:.1f} ms, "
+            f"drain {(got['param']['writeback_drain_s'] + got['opt']['writeback_drain_s']) * 1e3:.1f}"
+            f" ms; H2D {got['param']['bytes_h2d']:,} + {got['opt']['bytes_h2d']:,} B "
+            f"({got['param']['h2d_requests']} + {got['opt']['h2d_requests']} requests), D2H "
+            f"{got['param']['bytes_d2h']:,} + {got['opt']['bytes_d2h']:,} B, disk "
+            f"{got['param']['disk_requests']} + {got['opt']['disk_requests']} requests (weights + "
+            f"optimizer), every count the plan's; max_memory_allocated {peak_allocated(device)} B; "
+            f"host MemAvailable after {mem_available()} B ({smi})")
+        del new, state
+    finally:
+        if store is not None:
+            store.close(delete=True)
+        shutil.rmtree(spill, ignore_errors=True)
+    log(f"  phase 6v done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def check_mlp_chain(x, w_up, w_down, y, margin: float = 1.1) -> None:
@@ -2792,7 +3349,7 @@ def host_cost(cfg) -> None:
 
 
 def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict, mlaunches: dict,
-                sweep: list, train: dict) -> list:
+                alaunches: dict, sweep: list, train: dict) -> list:
     from repro_torch.core.refspec import PrefetchSpec
     from repro_torch.kernels.rglru_scan import linear_recurrence, linear_recurrence_ref
     from repro_torch.kernels.streamed_matmul import matmul_ref, streamed_matmul
@@ -2823,6 +3380,17 @@ def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict, mlaunche
         decode_row("mixtral-8x7b", MOE_PROMPT + MOE_GEN, 32, 8, 128,
                    [MOE_PROMPT + MOE_GEN - 1] * MOE_BATCH, mlaunches["decode_attention"],
                    errs["decode_attention_moe"], flush),
+        # musicgen-medium (phase 2a (a)): one request's prefill, and the last
+        # decode step of the batch over its prompt + gen slots
+        flash_row("musicgen-medium", 1, PROMPT, 24, 24, 64, 0, alaunches["flash_attention"],
+                  errs["flash_attention_audio"], flush),
+        decode_row("musicgen-medium", PROMPT + GEN, 24, 24, 64, [PROMPT + GEN - 1] * BATCH,
+                   alaunches["decode_attention"], errs["decode_attention_audio"], flush),
+        # qwen2-vl-72b (phase 6v (a), in its child process): the no-gradient
+        # training forward over the text and the vision prefix
+        flash_row("qwen2-vl-72b", VL_BATCH, VL_TEXT + VL_TEXT // 8, 64, 8, 128, 0,
+                  json.loads(VL_RESULT.read_text())["flash_attention"],
+                  errs["flash_attention_vlm"], flush),
     ]
     # the recurrence of one rec layer's prefill: read a and b, write h, f32
     shape = (BATCH, HYB_PROMPT, hcfg.lru_width)
@@ -3028,8 +3596,10 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     # the two phases that hold tens of GB of host memory, first, each in a
     # child process: the later phases leave the host's memory low
+    isolated("phase_vlm_train", smi)
     isolated("phase_moe_train", smi)
     isolated("phase_xlstm_train", smi)
+    isolated("phase_audio_train", smi)
     from repro_torch.train.steps import init_params
 
     params = init_params(cfg, SEED, "cuda")  # phases 2 and 2p share them
@@ -3046,10 +3616,11 @@ def main() -> int:
     phase_check(hcfg, hres, HYB_PROMPT, "3b")
     del hres
     phase_xlstm_serve(smi)
+    alaunches = phase_audio_serve(smi)
     launches["streamed_matmul"], sweep = phase_paper(cfg)
     train = phase_train(cfg)
     phase_train_streamed(cfg, train, smi)
-    rows = phase_times(cfg, hcfg, errs, launches, hlaunches, mlaunches, sweep, train)
+    rows = phase_times(cfg, hcfg, errs, launches, hlaunches, mlaunches, alaunches, sweep, train)
     phase_tables(smi)
     log(f"done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,8 +1,9 @@
 """Architecture registry.
 
 ``get_config(arch)`` / ``get_smoke_config(arch)`` return the full / reduced
-``ModelConfig``.  The JAX package's dry-run helpers (``input_specs``,
-``cell_is_runnable``) are not ported yet: they serve the dry-run tooling.
+``ModelConfig``; ``vision_prefix_len`` the vision prefix of a VLM sequence.
+The JAX package's dry-run helpers (``input_specs``, ``cell_is_runnable``)
+are not ported yet: they serve the dry-run tooling.
 """
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ import importlib
 
 from repro_torch.configs.base import SHAPES, ModelConfig
 
-__all__ = ["ARCHS", "SHAPES", "ModelConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "get_config", "get_smoke_config",
+           "vision_prefix_len"]
 
 _MODULES = {
     "olmo-1b": "olmo_1b",
@@ -40,3 +42,8 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke()
+
+
+def vision_prefix_len(cfg: ModelConfig, seq_len: int) -> int:
+    """VLM cells dedicate 1/8 of the sequence to the (stub) vision prefix."""
+    return seq_len // 8 if cfg.vision_embed else 0

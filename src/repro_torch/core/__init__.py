@@ -1,9 +1,8 @@
 """Core abstractions: memory kinds, pass-by-reference offload, prefetch engines.
 
 The paper's contribution (Jamieson & Brown, JPDC 2020) on one CUDA card,
-with the JAX package's ``repro.core`` names.  The KV pager, weight
-streaming, the residency cache and the schedule verifier are not ported yet
-(ROADMAP.md).
+with the JAX package's ``repro.core`` names; the KV pager, weight streaming,
+the residency cache and the schedule verifier are its submodules.
 """
 from repro_torch.core import memkind
 from repro_torch.core.memkind import (

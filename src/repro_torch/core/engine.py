@@ -17,7 +17,10 @@ coalescing
     Leaves already on the engine's device pass through by reference.
 
 buffer reuse
-    Staging buffers are pooled per group layout (``staging_slots``).  A
+    Staging buffers are pooled per group layout (``staging_slots``), and
+    :meth:`TransferEngine.release_buffers` lets the pools go.  Page-locked
+    buffers of a GiB or more are registered at their exact size
+    (:func:`page_locked_empty`).  A
     buffer goes back to the pool only after its copy has completed (the
     worker synchronises the copy stream's event), so a later group never
     overwrites bytes in flight.  The flat device buffer is allocated on the
@@ -55,9 +58,11 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import queue
 import threading
 import time
+import weakref
 from typing import Any, Optional
 
 import numpy as np
@@ -299,6 +304,34 @@ def group_signature(group: Pytree, device: Optional[torch.device] = None) -> tup
     )
 
 
+#: page-locked buffers of at least this many bytes are registered with CUDA
+#: at their exact size: the CUDA host allocator rounds every block up
+#: to a power of two (torch 2.11 has no threshold for it), so a 4.98 GB
+#: moment would hold 8 GiB of host memory.  Registering
+#: fresh pages takes longer a byte than the allocator's block
+#: (``pinned_buffer_bench.py``), so smaller buffers keep the allocator
+EXACT_PIN_BYTES = 1 << 30
+
+
+def page_locked_empty(shape, dtype: torch.dtype) -> torch.Tensor:
+    """An uninitialized page-locked CPU tensor, for copies to and from the
+    card.  Below :data:`EXACT_PIN_BYTES` it comes from the CUDA host
+    allocator; above, it is a pageable allocation of the exact size
+    registered with ``cudaHostRegister`` and unregistered when the tensor is
+    collected (views of it then keep pageable memory, which a copy still
+    reads correctly)."""
+    n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    if n < EXACT_PIN_BYTES:
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+    t = torch.empty(shape, dtype=dtype)
+    cudart = torch.cuda.cudart()
+    err = cudart.cudaHostRegister(t.data_ptr(), n, 0)
+    if int(err) != 0:
+        raise RuntimeError(f"cudaHostRegister of {n} B failed: {err}")
+    weakref.finalize(t, cudart.cudaHostUnregister, t.data_ptr())
+    return t
+
+
 class GroupLayout:
     """Pack/unpack plan for one group structure.
 
@@ -344,8 +377,9 @@ class GroupLayout:
 
     def new_staging(self) -> torch.Tensor:
         """A staging buffer: page-locked when it feeds a CUDA device."""
-        pin = self.device is not None and self.device.type == "cuda"
-        return torch.empty((self.staging_bytes,), dtype=torch.uint8, pin_memory=pin)
+        if self.device is not None and self.device.type == "cuda":
+            return page_locked_empty((self.staging_bytes,), torch.uint8)
+        return torch.empty((self.staging_bytes,), dtype=torch.uint8)
 
     def views(self, buf: torch.Tensor) -> list[torch.Tensor]:
         """The packed leaves as zero-copy views of a flat buffer."""
@@ -701,6 +735,20 @@ class TransferEngine:
         if len(free) < max(1, self.config.staging_slots):
             free.append(staging)
 
+    def release_buffers(self) -> None:
+        """Drop the pooled staging buffers, H2D and disk, and hand the CUDA
+        host allocator's cached page-locked blocks back, so their host memory
+        goes back to the system.  Call between runs, with no transfer in
+        flight (a run releases each staging buffer before it completes the
+        transfer's future); the next group of a layout allocates anew.  For
+        groups that do not come back soon: a step's optimizer groups, tens
+        of GB each at full width."""
+        for pool in (*self._staging_free.values(), *self._disk_free.values()):
+            pool.clear()
+        empty = getattr(torch._C, "_host_emptyCache", None)
+        if self.device.type == "cuda" and empty is not None:
+            empty()
+
     # -- disk stage pool (read-ahead window) --------------------------------
     def _disk_layout_for(self, dsig: tuple, disk_leaves: list) -> GroupLayout:
         lo = self._disk_layouts.get(dsig)
@@ -985,8 +1033,7 @@ class TransferEngine:
         with torch.cuda.stream(self._copy_stream):
             self._copy_stream.wait_event(ready)
             host = tr.tree_map(
-                lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
-                    t, non_blocking=True),
+                lambda t: page_locked_empty(t.shape, t.dtype).copy_(t, non_blocking=True),
                 group_out,
             )
             event = torch.cuda.Event()

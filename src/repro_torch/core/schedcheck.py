@@ -838,17 +838,11 @@ def _sweep() -> int:
     a budget of the distance-2 peak.  Returns the count of failures."""
     from repro_torch.configs import ARCHS, get_smoke_config
     from repro_torch.core.weightstream import WeightStreamPlan, weight_stream_support
-    from repro_torch.models.transformer import check_supported
     from repro_torch.train.steps import abstract_params
 
     failures = 0
     for arch in ARCHS:
         cfg = get_smoke_config(arch)
-        try:
-            check_supported(cfg)
-        except NotImplementedError as e:
-            print(f"schedcheck: {arch}: skipped ({e})")
-            continue
         support = weight_stream_support(cfg)
         if not support.supported:
             print(f"schedcheck: {arch}: skipped ({support.reason})")

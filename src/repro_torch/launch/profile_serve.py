@@ -10,7 +10,7 @@ idle share, the kernel launches, and the kernels that take the most device
 time.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-      [--arch smollm-360m|recurrentgemma-2b|xlstm-1.3b] [--prompt-len 512] \\
+      [--arch smollm-360m|recurrentgemma-2b|xlstm-1.3b|musicgen-medium] [--prompt-len 512] \\
       [--attn-impl pallas|xla] [--kv-page-len 32 --kv-kind pinned_host] \\
       [--param-kind pinned_host --device-budget-mb 160] [--out profile_serve.json]
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mixtral-8x7b \\
@@ -200,14 +200,13 @@ def profile_streamed(cfg, params, prompts, args, report: dict) -> None:
         first, caches = sv.prefill_all(
             cfg, home, prompts, max_len,
             lambda b: st.make_weight_streamed_prefill_step(cfg, plan, b, max_len, **kw))
-        tokens = first.long()[:, None]
 
         def decode_steps():
-            tok = tokens
+            tok = first
             for i in range(STEPS):
                 pos = sv.step_pos(cfg, batch, args.prompt_len + i, dev)
-                logits, _ = decode(home, caches, {"tokens": tok}, pos)
-                tok = logits[:, -1].argmax(-1)[:, None]
+                logits, _ = decode(home, caches, sv._step_batch(cfg, tok, dev), pos)
+                tok = sv._greedy(logits)
             torch.cuda.synchronize()
 
         decode_steps()  # warm-up
@@ -301,6 +300,10 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     cfg = dataclasses.replace(get_config(args.arch), attn_impl=args.attn_impl)
+    try:
+        sv._check_servable(cfg)
+    except ValueError as e:
+        ap.error(str(e))
     if args.n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     prompt = args.prompt_len
@@ -325,14 +328,13 @@ def main() -> int:
     def prefill_once():
         return sv.prefill_all(cfg, params, prompts, max_len)
 
-    first, caches = prefill_once()
-    tokens = first.long()[:, None]
+    tokens, caches = prefill_once()
 
     def decode_steps(caches, tokens):
         for i in range(STEPS):
             pos = sv.step_pos(cfg, batch, prompt + i, dev)
-            logits, caches = decode(params, caches, {"tokens": tokens}, pos)
-            tokens = logits[:, -1].argmax(-1)[:, None]
+            logits, caches = decode(params, caches, sv._step_batch(cfg, tokens, dev), pos)
+            tokens = sv._greedy(logits)
         return tokens
 
     decode_steps(st.clone_caches(caches), tokens)  # warm-up

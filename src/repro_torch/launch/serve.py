@@ -168,26 +168,67 @@ def lock_step(cfg) -> bool:
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The last position's greedy tokens: (B,) int32, or (B, K) from a
+    codebook model's (B, K, S, V) logits."""
     return logits[..., -1, :].argmax(dim=-1).to(torch.int32)
+
+
+def _prompt_batch(cfg, tokens: torch.Tensor) -> dict:
+    """(B, S) prompt ids on the device -> the model's batch (a codebook model
+    replicates the ids over its codebooks, as the JAX package does)."""
+    tokens = tokens.to(torch.long)
+    if cfg.n_codebooks:
+        b, s = tokens.shape
+        return {"codes": tokens[:, None].expand(b, cfg.n_codebooks, s)}
+    return {"tokens": tokens}
+
+
+def _step_batch(cfg, tokens, device) -> dict:
+    """Per-slot next tokens ((B,), or (B, K) for a codebook model; on the
+    host or the device) as a one-token decode batch."""
+    t = torch.as_tensor(tokens, device=device).to(torch.long)
+    if cfg.n_codebooks:
+        return {"codes": t.reshape(-1, cfg.n_codebooks, 1)}
+    return {"tokens": t.reshape(-1, 1)}
+
+
+def _emit(cfg, tok) -> int:
+    """The emitted stream token (a codebook model reports codebook 0)."""
+    return int(tok[0]) if cfg.n_codebooks else int(tok)
+
+
+def _emitted(cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """:func:`_emit` over a batch: (B,) or (B, K) tokens -> (B,)."""
+    return tokens[:, 0] if cfg.n_codebooks else tokens
+
+
+def _check_servable(cfg) -> None:
+    """Refuse an M-RoPE config: serving builds no 3-D position ids (the JAX
+    package's serve builds none either, and fails with ``KeyError:
+    'positions_3d'``)."""
+    if cfg.pos_type == "mrope":
+        raise ValueError(
+            f"{cfg.name}: serving builds no M-RoPE positions_3d (the prompt and step batches "
+            "carry token ids only); train or score it with lm_loss")
 
 
 def prefill_all(cfg, params: ParamTree, prompts: torch.Tensor, max_len: int,
                 make_prefill=None) -> tuple[torch.Tensor, dict]:
     """Prefill every row of ``prompts`` ((B, S) token ids on the device) into
     caches of ``max_len`` positions.  Returns each request's first greedy
-    token ((B,) int32) and the caches.  Pageable caches prefill one request
-    at a time and stack on the batch axis; in :func:`lock_step` all rows
-    prefill in one batch.  ``make_prefill(batch_size)`` builds the prefill
+    token ((B,) int32, or (B, K) for a codebook model) and the caches.
+    Pageable caches prefill one request at a time and stack on the batch
+    axis; in :func:`lock_step` all rows prefill in one batch.  ``make_prefill(batch_size)`` builds the prefill
     step (default :func:`~repro_torch.train.steps.make_prefill_step`; the
     streamed-weight step takes the plan's home as ``params``)."""
     make_prefill = make_prefill or (lambda b: st.make_prefill_step(cfg, b, max_len))
     if lock_step(cfg):
-        logits, caches = make_prefill(prompts.shape[0])(params, {"tokens": prompts})
+        logits, caches = make_prefill(prompts.shape[0])(params, _prompt_batch(cfg, prompts))
         return _greedy(logits), caches
     prefill_fn = make_prefill(1)
     first, slot_caches = [], []
     for b in range(prompts.shape[0]):
-        logits, cache = prefill_fn(params, {"tokens": prompts[b:b + 1]})
+        logits, cache = prefill_fn(params, _prompt_batch(cfg, prompts[b:b + 1]))
         first.append(_greedy(logits))
         slot_caches.append(cache)
     # (L, B, T, K, H): requests stack on the batch axis
@@ -198,12 +239,6 @@ def step_pos(cfg, batch: int, pos: int, device) -> torch.Tensor:
     """The decode step's position ``pos``: one per slot ((B,) int32), or one
     scalar in :func:`lock_step`."""
     return torch.full(() if lock_step(cfg) else (batch,), pos, dtype=torch.int32, device=device)
-
-
-def _step_batch(tokens, device) -> dict:
-    """Per-slot next tokens ((B,) ints, on the host or the device) as a
-    one-token decode batch."""
-    return {"tokens": torch.as_tensor(tokens, device=device).to(torch.long).reshape(-1, 1)}
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +253,8 @@ class Request:
     rid: int
     prompt: np.ndarray  # (s,) int32
     gen: int
-    #: last sampled token, the next decode step's input
+    #: last sampled token (scalar, or (K,) for a codebook model), the next
+    #: decode step's input
     next_token: Optional[np.ndarray] = None
     emitted: list = dataclasses.field(default_factory=list)
 
@@ -288,6 +324,7 @@ class ServeSession:
         self._kind = mk.as_kind(kv_kind)
         # validate — and do every fallible init — before the engine thread
         # and the spill dirs exist: a failed constructor must not leak them
+        _check_servable(cfg)
         _check_expert_stream(expert_stream, param_kind)
         pager_cfg = KVPagerConfig(page_len=page_len, hot_pages=hot_pages, kind=self._kind,
                                   distance=distance)
@@ -451,6 +488,11 @@ class ServeSession:
         #: no cache
         self.param_step_fetches: list = []
 
+    def _tok_shape(self) -> tuple:
+        """A step's token array: one token a slot, or K for a codebook model."""
+        cb = self.cfg.n_codebooks
+        return (self.slots, cb) if cb else (self.slots,)
+
     # -- request lifecycle ---------------------------------------------------
     def submit(self, prompt, gen: int) -> Optional[int]:
         """Queue a request; returns its id.  A request that cannot fit
@@ -505,11 +547,11 @@ class ServeSession:
             padded = np.zeros((width,), np.int32)
             padded[:s] = req.prompt
             self._prefill_widths.add(width)
-            tokens = torch.as_tensor(padded[None, :], device=self.device).to(torch.long)
-            logits, cache = self._prefill(self.params, {"tokens": tokens}, s - 1)
-            tok = _greedy(logits).cpu().numpy()[0]
+            tokens = torch.as_tensor(padded[None, :], device=self.device)
+            logits, cache = self._prefill(self.params, _prompt_batch(self.cfg, tokens), s - 1)
+            tok = _greedy(logits).cpu().numpy()[0]  # scalar / (K,)
             req.next_token = tok
-            req.emitted.append(int(tok))
+            req.emitted.append(_emit(self.cfg, tok))
             emitted[rid] = req.emitted[-1]
             self._slot_of[rid] = slot
             self.pager.admit(rid, slot, cache, s, prefix_keys=self._prefix_keys(req))
@@ -571,9 +613,9 @@ class ServeSession:
         stream state is touched), so that the first timed step does not pay
         first-call costs such as the kernels' build and load."""
         view = tuple((self.pager._zero_page,) * self.pager.n_pages for _ in range(self.slots))
-        tokens = np.zeros((self.slots,), np.int32)
+        tokens = np.zeros(self._tok_shape(), np.int32)
         pos = torch.zeros((self.slots,), dtype=torch.int32, device=self.device)
-        logits, nc = self._step(self.params, view, _step_batch(tokens, self.device), pos)
+        logits, nc = self._step(self.params, view, _step_batch(self.cfg, tokens, self.device), pos)
         _greedy(logits)
         self.pager._page_of(nc, 0, 0)
         _sync(self.device)
@@ -587,7 +629,7 @@ class ServeSession:
         wait0 = self.stats.transfer_wait_s
         fetch0 = self.param_stats.unique_group_fetches
 
-        tokens = np.zeros((self.slots,), np.int32)
+        tokens = np.zeros(self._tok_shape(), np.int32)
         pos = np.zeros((self.slots,), np.int32)
         by_slot = {}
         for rid, slot in self._slot_of.items():
@@ -601,7 +643,8 @@ class ServeSession:
         # step — those transfers overlap the decode compute below
         view = self.pager.view(self.stats)
         self.pager.prefetch()
-        logits, new_cache = self._step(self.params, view, _step_batch(tokens, self.device),
+        logits, new_cache = self._step(self.params, view,
+                                       _step_batch(self.cfg, tokens, self.device),
                                        torch.as_tensor(pos, device=self.device))
         nxt = _greedy(logits).cpu().numpy()  # the step's one host sync
         self.pager.update_current(new_cache)
@@ -610,7 +653,7 @@ class ServeSession:
         emitted = {}
         for slot, req in by_slot.items():
             req.next_token = nxt[slot]
-            req.emitted.append(int(nxt[slot]))
+            req.emitted.append(_emit(self.cfg, nxt[slot]))
             emitted[req.rid] = req.emitted[-1]
             table = self.pager.tables[req.rid]
             table.pos += 1
@@ -702,6 +745,7 @@ def serve_loop(
     kind = mk.as_kind(kv_kind)
     if kind == mk.DISK_HOST:
         raise ValueError("the unpaged path has no disk home; use --kv-page-len > 0")
+    _check_servable(cfg)
     _check_expert_stream(expert_stream, param_kind)
     device_resident = kind == mk.DEVICE
     stats = StreamStats()
@@ -801,11 +845,12 @@ def _decode_loop(cfg, params, prompts_t: torch.Tensor, gen: int, *, device, warm
         # the timed loop does not include first-call costs such as the kernels'
         # build and load
         caches_w = st.clone_caches(caches)
-        decode_fn(params, caches_w, _step_batch(tokens, device), step_pos(cfg, batch, prompt_len, device))
+        decode_fn(params, caches_w, _step_batch(cfg, tokens, device),
+                  step_pos(cfg, batch, prompt_len, device))
         del caches_w
         _sync(device)
 
-    out_tokens = [tokens]
+    out_tokens = [_emitted(cfg, tokens)]
     step_waits = []
     step_fetches = []  # weight groups fetched over the link a decode step
     # the decode loop's own expert traffic (the warm-up step's excluded): what
@@ -824,9 +869,9 @@ def _decode_loop(cfg, params, prompts_t: torch.Tensor, gen: int, *, device, warm
             # through host memory synchronously every step
             caches = round_trip(caches)
         pos = step_pos(cfg, batch, prompt_len + i, device)
-        logits, caches = decode_fn(params, caches, _step_batch(tokens, device), pos)
+        logits, caches = decode_fn(params, caches, _step_batch(cfg, tokens, device), pos)
         tokens = _greedy(logits)
-        out_tokens.append(tokens)
+        out_tokens.append(_emitted(cfg, tokens))
         step_waits.append(stats.transfer_wait_s - w0)
         step_fetches.append(param_stats.unique_group_fetches - fetch0)
         step_walls.append(time.perf_counter() - ts)
@@ -908,7 +953,10 @@ def serve(
     package's, and so are the returned keys (``param_stats``,
     ``expert_stats`` and the others of the weight stream).  Prompts come from
     ``np.random.default_rng(seed + 1)`` on both paths, so a paged and an
-    unpaged run serve the same prompts.  Runs on the card unless
+    unpaged run serve the same prompts.  A codebook model's prompts are
+    replicated over its codebooks and its emitted stream is codebook 0's, as
+    in the JAX package; an M-RoPE config is refused with a ``ValueError``
+    (no 3-D positions are built for serving).  Runs on the card unless
     ``device="cpu"`` is passed.
     """
     device = resolve_device(device)
@@ -1167,6 +1215,10 @@ def main() -> int:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, attn_impl="pallas")  # the CUDA attention kernels
+    try:
+        _check_servable(cfg)
+    except ValueError as e:
+        ap.error(str(e))
     distance = args.distance if args.distance == AUTO else int(args.distance)
     if args.verify_schedule:
         _verify_schedule(args, cfg)

@@ -23,8 +23,10 @@ group under ``--device-budget-mb`` (the streamed-weight train step;
 ``--param-layers-per-group`` sizes the groups, ``--verify-schedule`` prints
 the static schedule analysis first; ``--expert-stream`` splits each MoE
 layer into its non-expert group and one group per expert).  Every
-placement gives the device run's bits.  ``--model-parallel`` above 1
-exits 2 (ROADMAP.md queue 1 item 5).
+placement gives the device run's bits.  Every ``--arch`` trains, the
+codebook (musicgen-medium) and vision-language (qwen2-vl-72b) configs on
+their synthetic ``codes`` and ``vision_embeds`` / ``positions_3d``
+batches.  ``--model-parallel`` above 1 exits 2 (ROADMAP.md queue 1 item 5).
 """
 from __future__ import annotations
 

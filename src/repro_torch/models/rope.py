@@ -1,12 +1,14 @@
-"""Rotary position embeddings: standard RoPE and sinusoidal.
+"""Rotary position embeddings: standard RoPE, Qwen2-VL M-RoPE, sinusoidal.
 
 Conventions as in the JAX package: rotate-half layout (x1 = x[..., :H/2],
 x2 = x[..., H/2:]), f32 angles, cos/sin cast to ``x.dtype`` before the
-rotation.  M-RoPE (Qwen2-VL) follows with the VLM family (ROADMAP.md).
+rotation.  M-RoPE (arXiv:2409.12191) splits the head_dim frequency bands
+into three sections (temporal, height, width) driven by 3-D position ids.
 """
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 
@@ -31,6 +33,25 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     h = x.shape[-1] // 2
     x1, x2 = x[..., :h], x[..., h:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def mrope_angles(positions_3d: torch.Tensor, head_dim: int, theta: float,
+                 sections: Sequence[int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: ``positions_3d`` (B, 3, S) int holds the
+    (temporal, height, width) ids; ``sections`` the number of frequency
+    *pairs* each plane drives (summing to head_dim/2; Qwen2-VL: (16, 24, 24)
+    for head_dim 128).  Returns (B, S, head_dim/2) f32 angles.
+
+    Each band takes its plane's angle by an index: the value of the JAX
+    package's one-hot einsum, whose other two terms are exact zeros."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"sections {tuple(sections)} must sum to head_dim/2={head_dim // 2}")
+    inv = rope_freqs(head_dim, theta, positions_3d.device)  # (H/2,)
+    plane = torch.repeat_interleave(
+        torch.arange(3, device=positions_3d.device),
+        torch.as_tensor(list(sections), device=positions_3d.device))  # (H/2,) in {0,1,2}
+    pos = positions_3d.float()[:, plane]  # (B, H/2, S): each band's plane
+    return pos.transpose(1, 2) * inv
 
 
 def sinusoidal_embedding(positions: torch.Tensor, d_model: int, max_scale: float = 10000.0) -> torch.Tensor:

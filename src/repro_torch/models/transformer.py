@@ -34,8 +34,13 @@ loss) over a whole sequence, the router-first dense top-k
 xLSTM block (``mlstm`` / ``slstm``) is its own token mixer and carries no
 MLP.
 
-Audio codebooks, the vision prefix, M-RoPE and sinusoidal positions are not
-ported yet (ROADMAP.md, queue 1 item 7).
+The modality front ends (:mod:`repro_torch.models.frontends`) enter at the
+embedding and the head: a codebook model (musicgen) sums its K codebooks'
+embeddings over ``batch["codes"]`` (B, K, S) and answers with K heads,
+(B, K, S, V) logits; a vision model (qwen2-vl) prepends its merged patch
+embeddings ``batch["vision_embeds"]`` to the text, its loss ignores that
+prefix, and its M-RoPE angles come from ``batch["positions_3d"]`` (B, 3, S)
+(per step in decode).  Sinusoidal positions are added at the embedding.
 """
 from __future__ import annotations
 
@@ -47,24 +52,21 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as tr
-from repro_torch.models import attention, layers, moe, rglru, rope, xlstm
+from repro_torch.models import attention, frontends, layers, moe, rglru, rope, xlstm
 from repro_torch.models.layers import ParamTree, Params
 
 
+#: the position schemes the model runs (the JAX package's ``_embed`` and
+#: ``_angles``)
+POS_TYPES = ("rope", "mrope", "sinusoidal", "none")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not run yet."""
-    todo = []
-    if cfg.n_codebooks:
-        todo.append("audio codebooks")
-    if cfg.vision_embed:
-        todo.append("the vision prefix")
-    if cfg.pos_type not in ("rope", "none"):
-        todo.append(f"{cfg.pos_type} positions")
-    if todo:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(todo)} not ported yet "
-            "(ROADMAP.md, queue 1 item 7: the other model families)"
-        )
+    """Raise ``NotImplementedError`` for a config this port does not run: a
+    position scheme outside :data:`POS_TYPES`."""
+    if cfg.pos_type not in POS_TYPES:
+        raise NotImplementedError(f"{cfg.name}: {cfg.pos_type!r} positions are not implemented "
+                                  f"(have {POS_TYPES})")
 
 
 def layer_slots(cfg: ModelConfig) -> Iterator[tuple[str, tuple, Optional[int]]]:
@@ -151,8 +153,9 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device=None) -> Par
     differ from the JAX package's for the same seed; the distributions do
     not).  ``device="meta"`` gives shapes only.
 
-    The draw order is fixed: the embedding, the untied head, then every
-    layer in layer order (:func:`layer_slots`).  The group-wise init below
+    The draw order is fixed: the embedding (a codebook model's codebooks,
+    then its heads), the untied head, the vision merger, then every layer in
+    layer order (:func:`layer_slots`).  The group-wise init below
     walks the same order, so it gives these bits."""
     params = init_model_shell(cfg, generator, device)
     params["blocks"] = _layer_tree(cfg, lambda kind: _init_block(cfg, kind, generator, device))
@@ -165,14 +168,21 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device=None) -> Par
 # layer group in layer order, and homes each group before drawing the next.
 
 def init_model_shell(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
-    """The non-``blocks`` leaves of :func:`init_model` (the embedding, the
-    untied head, ``ln_f``), drawn first, as it draws them.  Leaves
-    ``generator`` where layer 0's draws begin."""
+    """The non-``blocks`` leaves of :func:`init_model`, drawn first in the
+    JAX package's order: the embedding (a codebook model's codebooks and
+    heads, else the token table), the untied head, the vision merger, then
+    ``ln_f``.  Leaves ``generator`` where layer 0's draws begin."""
     check_supported(cfg)
     kw = dict(generator=generator, device=device)
-    params: dict = {"embed": layers.init_embed(cfg.vocab_size, cfg.d_model, **kw)}
-    if not cfg.tie_embeddings:
-        params["head"] = layers.init_head(cfg.d_model, cfg.vocab_size, **kw)
+    params: dict = {}
+    if cfg.n_codebooks:
+        params["embed"] = frontends.init_audio_embed(cfg, **kw)
+    else:
+        params["embed"] = layers.init_embed(cfg.vocab_size, cfg.d_model, **kw)
+        if not cfg.tie_embeddings:
+            params["head"] = layers.init_head(cfg.d_model, cfg.vocab_size, **kw)
+    if cfg.vision_embed:
+        params["vision"] = frontends.init_vision_merger(cfg, **kw)
     params["ln_f"] = layers.init_norm(cfg.d_model, cfg.norm_type, device)
     return params
 
@@ -248,16 +258,48 @@ def _at(tree, path: tuple, j: Optional[int]):
 # embedding / positions / head
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
+def batch_device(batch: dict) -> torch.device:
+    """The device of a batch: its token ids (``tokens``, or a codebook
+    model's ``codes``)."""
+    return (batch["codes"] if "codes" in batch else batch["tokens"]).device
+
+
+def _embed(cfg: ModelConfig, params: Params, batch: dict, pos=None) -> torch.Tensor:
+    """The first hidden states: the token (or summed codebook) embeddings,
+    behind the merged vision prefix when the batch carries one, plus the
+    sinusoidal positions.  ``pos`` is a decode step's absolute position (a
+    scalar, or a (B,) per-slot vector); a full sequence starts at 0."""
     dt = cfg.compute_dtype
-    x = layers.embed_apply(params["embed"], batch["tokens"], dt)
+    if cfg.n_codebooks:
+        x = frontends.audio_embed_apply(params["embed"], batch["codes"], dt)
+    else:
+        x = layers.embed_apply(params["embed"], batch["tokens"], dt)
+    if cfg.vision_embed and "vision_embeds" in batch:
+        vis = frontends.vision_merge_apply(params["vision"], batch["vision_embeds"].to(dt))
+        x = torch.cat([vis, x], dim=1)  # the vision prefix, then the text
+    if cfg.pos_type == "sinusoidal":
+        s = x.shape[1]
+        steps = torch.arange(s, device=x.device)
+        if pos is None:
+            positions = steps
+        else:
+            p = torch.as_tensor(pos, device=x.device).to(torch.int32)
+            positions = (p[:, None] if p.dim() == 1 else p) + steps - (s - 1)
+        emb = rope.sinusoidal_embedding(positions, cfg.d_model)
+        x = x + (emb[None] if emb.dim() == 2 else emb).to(dt)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     return x
 
 
-def _angles(cfg: ModelConfig, seq_len: int, pos=None, device=None) -> Optional[torch.Tensor]:
-    """RoPE angles for the whole sequence (prefill) or one step."""
+def _angles(cfg: ModelConfig, batch: dict, seq_len: int, pos=None,
+            device=None) -> Optional[torch.Tensor]:
+    """Rotary angles for the whole sequence (prefill) or one step: RoPE from
+    the positions, M-RoPE from ``batch["positions_3d"]`` (a decode batch
+    carries the step's ids); ``None`` for other position schemes."""
+    if cfg.pos_type == "mrope":
+        return rope.mrope_angles(batch["positions_3d"], cfg.head_dim, cfg.rope_theta,
+                                 cfg.mrope_sections)
     if cfg.pos_type != "rope":
         return None
     if pos is not None and torch.as_tensor(pos).dim() == 1:
@@ -270,8 +312,11 @@ def _angles(cfg: ModelConfig, seq_len: int, pos=None, device=None) -> Optional[t
 
 
 def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Logits (B, S, V), or (B, K, S, V) from a codebook model's K heads."""
     x = layers.norm_apply(params["ln_f"], x, cfg.norm_type)
-    if cfg.tie_embeddings:
+    if cfg.n_codebooks:
+        logits = frontends.audio_heads_apply(params["embed"], x)
+    elif cfg.tie_embeddings:
         logits = x @ params["embed"]["tok"].to(x.dtype).T
     else:
         logits = layers.head_apply(params["head"], x)
@@ -435,7 +480,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch
     check_supported(cfg)
     params = _plain(params)
     x = _embed(cfg, params, batch)
-    angles = _angles(cfg, x.shape[1], device=x.device)
+    angles = _angles(cfg, batch, x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     stacked: dict = {}
     for kind, path, j in layer_slots(cfg):
@@ -450,7 +495,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch
 
 
 def forward_train(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V), moe_aux_loss)."""
+    """Returns (logits (B, S, V), or (B, K, S, V) with codebooks;
+    moe_aux_loss).  A vision batch's S counts its prefix."""
     x, aux = forward_hidden(cfg, params, batch)
     return _head(cfg, _plain(params), x), aux
 
@@ -496,7 +542,7 @@ def prefill(cfg: ModelConfig, params: ParamTree, batch: dict, caches: dict,
     ``attn_impl="pallas"`` (the port's kernel path), else the plain scan."""
     check_supported(cfg)
     x = _embed(cfg, params, batch)
-    angles = _angles(cfg, x.shape[1], device=x.device)
+    angles = _angles(cfg, batch, x.shape[1], device=x.device)
     for kind, path, j in layer_slots(cfg):
         x = _layer_prefill(cfg, kind, _at(params["blocks"], path, j), _at(caches, path, j), x,
                            angles)
@@ -505,13 +551,15 @@ def prefill(cfg: ModelConfig, params: ParamTree, batch: dict, caches: dict,
 
 def decode_step(cfg: ModelConfig, params: ParamTree, batch: dict, caches: dict,
                 pos: Union[int, torch.Tensor]) -> tuple[torch.Tensor, dict]:
-    """One decode step.  ``batch["tokens"]`` holds the new token per slot;
-    ``pos`` is the absolute position being written (a scalar, or a (B,)
-    vector of per-slot positions — the serving path on full-attention
-    caches).  The caches are updated in place.  Returns (logits, caches)."""
+    """One decode step.  ``batch["tokens"]`` (a codebook model:
+    ``batch["codes"]`` (B, K, 1)) holds the new token per slot, and an
+    M-RoPE model's ``batch["positions_3d"]`` (B, 3, 1) its ids; ``pos`` is
+    the absolute position being written (a scalar, or a (B,) vector of
+    per-slot positions — the serving path on full-attention caches).  The
+    caches are updated in place.  Returns (logits, caches)."""
     check_supported(cfg)
-    x = _embed(cfg, params, batch)
-    angles = _angles(cfg, 1, pos=pos, device=x.device)
+    x = _embed(cfg, params, batch, pos=pos)
+    angles = _angles(cfg, batch, 1, pos=pos, device=x.device)
     for kind, path, j in layer_slots(cfg):
         x = _layer_decode(cfg, kind, _at(params["blocks"], path, j), _at(caches, path, j), x,
                           angles, pos)
@@ -553,13 +601,15 @@ def _n_layers(tree) -> int:
 
 def embed_stage(cfg: ModelConfig, group: Params, batch: dict, pos=None) -> torch.Tensor:
     """Embed-group forward: ``group`` holds the plan's embed leaves
-    (``{"embed": ...}``).  Returns the first hidden states."""
-    return _embed(cfg, group, batch)
+    (``{"embed": ...}``, and a vision model's ``"vision"``); ``pos`` is a
+    decode step's position.  Returns the first hidden states."""
+    return _embed(cfg, group, batch, pos=pos)
 
 
 def stage_angles(cfg: ModelConfig, batch: dict, seq_len: int, pos=None) -> Optional[torch.Tensor]:
-    """RoPE angles for the staged passes (``None`` without RoPE)."""
-    return _angles(cfg, seq_len, pos=pos, device=batch["tokens"].device)
+    """Rotary angles for the staged passes (``None`` without RoPE or
+    M-RoPE)."""
+    return _angles(cfg, batch, seq_len, pos=pos, device=batch_device(batch))
 
 
 def block_group_prefill(cfg: ModelConfig, blocks_slice: Params, cache_slice: dict,
@@ -613,14 +663,21 @@ def head_stage_loss(cfg: ModelConfig, group: Params, x: torch.Tensor, aux: torch
                     batch: dict) -> tuple[torch.Tensor, dict]:
     """``(loss, {"ce", "aux", "n_tokens"})`` from the trunk's hidden states:
     ``ln_f``, the head (``group`` holds ``ln_f`` and the head weights, or the
-    embed table of a tied head) and the CE, with ``aux`` carried in from the
-    layer stages.
+    embed tree of a tied or codebook head) and the CE, with ``aux`` carried
+    in from the layer stages.  A vision prefix carries no targets: they are
+    padded with ``IGNORE_INDEX`` over it.  A codebook model's targets are
+    (B, K, S) against its (B, K, S, V) logits.
 
     With ``cfg.loss_chunk`` dividing the sequence (and shorter than it) the
     CE runs chunk by chunk along the sequence, each chunk's head and CE
     under a checkpoint, so the (B, S, V) logits never exist whole: the JAX
     package's seq-chunked loss, its chunks summed in the same order."""
     targets = batch["targets"]
+    if cfg.vision_embed and "vision_embeds" in batch:
+        s_img = batch["vision_embeds"].shape[1]
+        pad = torch.full(targets.shape[:1] + (s_img,), IGNORE_INDEX, dtype=targets.dtype,
+                         device=targets.device)
+        targets = torch.cat([pad, targets], dim=1)
     s = targets.shape[-1]
     c = cfg.loss_chunk
     if not c or s <= c or s % c != 0:

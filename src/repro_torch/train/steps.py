@@ -133,7 +133,7 @@ def _to_host(x):
     """A numpy copy of a concrete tensor (a meta tensor, a restore template,
     passes through)."""
     if isinstance(x, torch.Tensor):
-        return x if x.is_meta else host_array(x.detach().cpu().clone())
+        return x if x.is_meta else host_array(x.detach().to("cpu", copy=True))
     return x
 
 
@@ -327,12 +327,12 @@ def make_prefill_step(
     """``(params, batch, last_pos=None) -> (logits, caches)``.
 
     Caches for a context of ``seq_len`` are created inside the step (zeros,
-    on the tokens' device) and filled in place by the prefill."""
+    on the batch's device) and filled in place by the prefill."""
 
     @torch.no_grad()
     def prefill_step(params: ParamTree, batch: dict, last_pos: Optional[int] = None):
         caches = transformer.init_caches(
-            cfg, batch_size, seq_len, cfg.compute_dtype, batch["tokens"].device
+            cfg, batch_size, seq_len, cfg.compute_dtype, transformer.batch_device(batch)
         )
         return transformer.prefill(cfg, params, batch, caches, last_pos=last_pos)
 
@@ -730,17 +730,25 @@ def init_weight_streamed_params(cfg: ModelConfig, plan: WeightStreamPlan, seed: 
 
 
 def init_weight_streamed_state(cfg: ModelConfig, plan: WeightStreamPlan, seed: int = 0,
-                               device: DeviceLike = None) -> dict:
+                               device: DeviceLike = None, store=None) -> dict:
     """``{"params": home, "opt": {"groups": ..., "step": 0}}`` with host
     numpy leaves (the ``pinned_host`` home; :func:`spill_weight_streamed_state`
     and :func:`device_weight_streamed_state` re-home it), initialized group
     by group as :func:`init_weight_streamed_params`.  The AdamW masters are
-    the f32 init values, as :func:`init_train_state`'s."""
+    the f32 init values, as :func:`init_train_state`'s.  With a ``store``
+    each group is spilled as it is drawn (the ``disk_host`` home of
+    :func:`spill_weight_streamed_state`), so the host holds one group at a
+    time."""
     p_groups, o_groups = {}, {}
     for g, f32 in _groupwise_f32(cfg, plan, seed, device):
         p_groups[g.key] = tr.tree_map(lambda p: _to_host(p.to(cfg.compute_dtype)), f32)
         o_groups[g.key] = host_opt_state(f32)["leaves"]
         del f32
+        if store is not None:
+            store.put(plan.spill_key(g), p_groups[g.key])
+            store.put(f"wopt/{g.key}", o_groups[g.key])
+            p_groups[g.key] = store.get(plan.spill_key(g))
+            o_groups[g.key] = store.get(f"wopt/{g.key}")
     return {"params": {"groups": p_groups},
             "opt": {"groups": o_groups, "step": np.zeros((), np.int32)}}
 
@@ -836,6 +844,7 @@ def make_weight_streamed_train_step(
     spill_store=None,
     param_kind: str = "pinned_host",
     residency: Optional[ResidencyCache] = None,
+    donate: bool = False,
     device: DeviceLike = None,
 ) -> Callable[[dict, dict], tuple[dict, dict]]:
     """``(state, batch) -> (state, metrics)`` with the weights homed off the
@@ -891,6 +900,19 @@ def make_weight_streamed_train_step(
     every cached group with its updated value in the optimizer pass, and is
     cleared when a step fails.  The step has ``close``, ``param_stats``,
     ``opt_stats``, ``engine`` and ``residency``.
+
+    ``donate=True`` hands the step its input state, for a home too large to
+    hold twice: the old parameter groups are dropped from ``state`` once the
+    backward has read them, and the optimizer pass runs one group at a time,
+    taking each old moment group (and its drained gradients) out of
+    ``state``, releasing the engine's pooled staging buffers once the group
+    has landed
+    (:meth:`~repro_torch.core.engine.TransferEngine.release_buffers`) and
+    re-homing its update as soon as it has drained.  The old and new homes
+    then overlap by one group, and the host holds one group's staging or
+    drains at a time.  The values and counters are the
+    same; a donated state is empty after the step, and unusable after a
+    failed one.
     """
     if param_kind not in PARAM_KINDS:
         raise ValueError(f"unknown param_kind {param_kind!r}; expected one of {PARAM_KINDS}")
@@ -1038,6 +1060,9 @@ def make_weight_streamed_train_step(
         return None, (dp[0] if len(dp) == 1 else {"ne": dp[0], "ex": dp[1:]})
 
     def apply_o(i, carry, group):
+        if donate:  # one group a run: its staging has landed, let it go first
+            engine.release_buffers()
+            i = box["o_base"]
         flat_g, treedef = tr.flatten(group["g"])
         flat_s = tr.flatten(group["s"], is_leaf=is_state_leaf)[0]
         out = [adamw_leaf_update(opt_cfg, box["glob"], gr, s) for gr, s in zip(flat_g, flat_s)]
@@ -1087,6 +1112,10 @@ def make_weight_streamed_train_step(
             bwd = [fwd[g.index] for g in bwd_order]
         _, grad_outs = ex_b.run(None, bwd, mode=mode, prefetch=pf, stats=stats,
                                 group_keys=[g.key for g in bwd_order])
+        if donate:  # no later pass reads the old parameters
+            del fwd, bwd
+            home["groups"].clear()
+            engine.release_buffers()
         step_no = int(np.asarray(opt["step"])) + 1
         sq = [s for chunk in box["sq"] for s in chunk]
         box["glob"] = adamw_globals_from_norm(opt_cfg, torch.sqrt(torch.sum(torch.stack(sq))),
@@ -1105,13 +1134,24 @@ def make_weight_streamed_train_step(
                 grads.update((plan.groups[gi].key, ex) for gi, ex in zip(u.gidx[1:], out["ex"]))
             else:
                 grads[g.key] = out
-        o_groups = [{"g": grads.pop(g.key), "s": opt["groups"][g.key]} for g in o_order]
-        _, o_outs = ex_o.run(None, o_groups, mode=mode, prefetch=pf, stats=opt_stats,
-                             group_keys=[g.key for g in o_order])
-        del o_groups
         new_home, new_opt = {}, {}
-        for g, out in zip(o_order, o_outs):
-            new_home[g.key], new_opt[g.key] = rehome(g, out)
+        if donate:  # one group a run: its old state out, its update re-homed
+            del grad_outs, out
+            for i, g in enumerate(o_order):
+                box["o_base"] = i
+                _, (out,) = ex_o.run(
+                    None, [{"g": grads.pop(g.key), "s": opt["groups"].pop(g.key)}], mode=mode,
+                    prefetch=pf, stats=opt_stats, group_keys=[g.key])
+                engine.release_buffers()
+                new_home[g.key], new_opt[g.key] = rehome(g, out)
+                del out
+        else:
+            o_groups = [{"g": grads.pop(g.key), "s": opt["groups"][g.key]} for g in o_order]
+            _, o_outs = ex_o.run(None, o_groups, mode=mode, prefetch=pf, stats=opt_stats,
+                                 group_keys=[g.key for g in o_order])
+            del o_groups
+            for g, out in zip(o_order, o_outs):
+                new_home[g.key], new_opt[g.key] = rehome(g, out)
         glob = box["glob"]
         metrics = {"loss": box["loss"], **box["metrics"], "grad_norm": glob["grad_norm"],
                    "lr": glob["lr"]}

@@ -194,16 +194,6 @@ def test_registry_matches_jax():
         get_config("gpt-5")
 
 
-# ---------------------------------------------------------------------------
-# what is not ported raises
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-vl-72b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        transformer.init_model(get_smoke_config(arch), torch.Generator(), "meta")
-
-
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b"])
 def test_moe_families_match_jax(arch):
     """The MoE families init with the JAX package's names and shapes, and

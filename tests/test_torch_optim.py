@@ -213,12 +213,6 @@ def test_synthetic_task_matches_jax():
     assert abs(repeats - 0.81) < 0.03 and abs(jrepeats - 0.81) < 0.03  # (0.9)^2 kept
 
 
-def test_synthetic_refuses_the_other_families():
-    cfg = get_smoke_config("musicgen-medium")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        synthetic_batch(cfg, SyntheticConfig(cfg.vocab_size, 8, 1), 0)
-
-
 def test_prefetch_loader_order_and_restart():
     cfg = get_smoke_config("smollm-360m")
     sc = SyntheticConfig(cfg.vocab_size, 16, 2, seed=0)
