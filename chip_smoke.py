@@ -167,9 +167,10 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    (e) through its driver's ``run()`` (checkpoints included), the others
    through the same trainer's state, loader and step: (a) the AdamW state
    on the card, 8 steps, twice from the same init (finite losses, the
-   second run bitwise the first); the step wall (median of steps 2-7), tokens/s, model FLOP/s
-   (6 N T) and its share of 989 TFLOP/s, ``max_memory_allocated``, and one
-   profiled step's device busy time, idle share, launches and top kernels;
+   second run bitwise the first); the step wall (median of steps 2-7),
+   tokens/s, model FLOP/s (``model_flops``: 6 N T) and its share of 989
+   TFLOP/s, ``max_memory_allocated``, and one profiled step's device busy
+   time, idle share, launches and top kernels;
    the same steps with ``torch.use_deterministic_algorithms`` on (the
    default path runs with it off); (b) bulk ``HOST_OPT`` (the state pinned
    between steps) and (c) ``--stream-opt`` (4 groups through the transfer
@@ -267,6 +268,29 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    on the card and is logged as found until ROADMAP queue 1 item 8, with its
    request counts held and the speedup above 0.9x, else fatal too.  Each
    table and line carries the card's name and power limit.
+
+8s. the sharding plan on one card (``repro_torch.parallel``,
+   ``repro_torch.launch.mesh``): a one-rank NCCL group over a
+   ``HashStore``, ``make_local_mesh()`` on ``cuda``; phase 2's weights
+   (smollm-360m, seed 0) placed as DTensors by the train plan's
+   ``param_specs``, every local shard bitwise its source;
+   ``sharding_report``'s per-device bytes equal to the tree's; the
+   Sharder's ``block`` (its gradient through autograd), ``acts`` and
+   ``grads`` over layer 0, values bitwise unchanged; the group destroyed.
+
+Every full-width step wall of phases 2, 2b, 2m (a), 2x, 2a (prefill a
+request, or the lock-step batch, and the mean decode step), 6 (a), 6x (a),
+6a (a) (the median train step) and 6v (a) (the kernel path's ``lm_loss``,
+no gradients) is read against the JAX package's analytic roofline on the
+port's ``H100`` (``roofline_line``): a ``roofline`` line with
+``model_flops`` (6 N T or 2 N T over the config's active parameters, its
+depth cut included), ``analytic_hbm_bytes`` on one device,
+``residual_inner_scan_flops``, the compute and memory terms (the compute
+term's FLOPs are the analytic ones plus the residual: no compiled step is
+counted yet), the dominant term, ``mfu`` (model FLOPs over 989 TFLOP/s and
+the wall) and ``bound_share`` (the dominant term over the wall; the bytes
+count the plain attention's (B, S, S) scores, which the flash kernel never
+writes, so a share above 1 is logged as found, not failed).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -749,7 +773,60 @@ def serving_kernels() -> dict:
             "rglru_scan": linear_recurrence}
 
 
-def phase_serve(cfg, prompt: int, phase: str, expect: tuple, params=None) -> tuple[dict, dict]:
+def roofline_line(phase: str, cfg, kind: str, seq: int, batch: int, wall_s: float,
+                  smi: str) -> float:
+    """Read one full-width step's measured wall against the JAX package's
+    analytic roofline on the port's ``H100`` (``repro_torch.roofline``):
+    ``model_flops``, ``analytic_hbm_bytes`` on one device and
+    ``residual_inner_scan_flops``; the terms of a ``RooflineResult`` whose
+    ``hlo_flops`` is the analytic model FLOPs (no compiled step is counted
+    yet: ROADMAP queue 1 item 5e) and whose ``hlo_bytes`` is 0, so the
+    memory term is the analytic bytes'; MFU against 989 TFLOP/s and the
+    dominant term's share of the wall.  ``cfg`` is the config that ran, its
+    depth cut included.  The analytic bytes count the (B, S, S) scores of
+    the plain attention, which the flash kernel never writes, so a step
+    through it can read a share above 1: logged as found.  Returns the
+    model FLOPs."""
+    from repro_torch.configs import get_config
+    from repro_torch.roofline import (H100, RooflineResult, analytic_hbm_bytes, model_flops,
+                                      residual_inner_scan_flops)
+
+    mf = model_flops(cfg, kind, seq, batch)
+    nbytes = analytic_hbm_bytes(cfg, kind, seq, batch, data=1, model=1, n_devices=1)
+    resid = residual_inner_scan_flops(cfg, kind, seq, batch, 1)
+    res = RooflineResult(arch=cfg.name, shape=f"B {batch} x S {seq}", mesh="1", step_kind=kind,
+                         n_devices=1, hlo_flops=mf, hlo_bytes=0.0, coll_bytes_by_class={},
+                         coll_bytes_weighted=0.0, residual_flops=resid, model_flops_global=mf,
+                         analytic_bytes=nbytes)
+    t = res.terms(H100)
+    mfu = mf / (H100.peak_flops_bf16 * wall_s)
+    share = t["t_dominant_s"] / wall_s
+    depth = get_config(cfg.name).n_layers
+    log(f"  roofline {phase} {cfg.name} {kind}, {cfg.n_layers} of {depth} layers, B {batch} x S "
+        f"{seq}: wall {wall_s * 1e3:.3f} ms; model_flops {mf:.6e}, analytic_hbm_bytes {nbytes:.6e} "
+        f"(one device), residual_inner_scan_flops {resid:.6e}; terms on {H100.name} (hlo_flops := "
+        f"model_flops, analytic, + the residual; no compiled step counted yet): compute "
+        f"{t['t_compute_s'] * 1e3:.3f} ms, memory {t['t_memory_s'] * 1e3:.3f} ms, dominant "
+        f"{t['dominant']} {t['t_dominant_s'] * 1e3:.3f} ms; mfu {mfu:.4f}, bound_share {share:.4f}"
+        f"{' (above 1: the analytic bytes over-count this step)' if share > 1 else ''} ({smi})")
+    return mf
+
+
+def serve_rooflines(phase: str, cfg, res: dict, prompt: int, smi: str) -> None:
+    """:func:`roofline_line` for a serve's prefill (a request, or the
+    lock-step batch) and its mean decode step (the mean context: the prompt
+    and half the generation)."""
+    from repro_torch.launch.serve import lock_step
+
+    batch, gen = res["generated"].shape[:2]
+    pb = batch if lock_step(cfg) else 1
+    roofline_line(phase, cfg, "prefill", prompt, pb, res["prefill_s"] * pb / batch, smi)
+    roofline_line(phase, cfg, "decode", prompt + gen // 2, batch,
+                  res["decode_s"] / max(res["n_steps"], 1), smi)
+
+
+def phase_serve(cfg, prompt: int, phase: str, expect: tuple, smi: str,
+                params=None) -> tuple[dict, dict]:
     """Serve ``cfg`` through the entry point (with ``params``, or weights
     from ``SEED``); every serving kernel's count is zeroed just before and
     read just after, and each of ``expect`` must have launched."""
@@ -774,6 +851,7 @@ def phase_serve(cfg, prompt: int, phase: str, expect: tuple, params=None) -> tup
     log(f"  launches during serve: {launches}")
     if min(launches[k] for k in expect) <= 0:
         raise SystemExit(f"a kernel of the path was not launched: {launches}")
+    serve_rooflines(phase, cfg, res, prompt, smi)
     return res, launches
 
 
@@ -1359,6 +1437,8 @@ def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
     if device == "cuda" and min(a["launches"][k] for k in ("flash_attention", "decode_attention")) <= 0:
         raise SystemExit(f"2m (a): a kernel of the path was not launched: {a['launches']}")
     log(f"  (a) first request {want[0, :8].tolist()}...")
+    if device == "cuda":
+        serve_rooflines("2m (a)", cfg, a, MOE_PROMPT, smi)
     prompts = np.random.default_rng(SEED + 1).integers(1, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
                                                       dtype=np.int32)  # serve()'s
     moe_logit_check(cfg, params, torch.from_numpy(prompts).long().to(device), device)
@@ -1749,7 +1829,7 @@ def median(xs) -> float:
     return xs[len(xs) // 2] if len(xs) % 2 else (xs[len(xs) // 2 - 1] + xs[len(xs) // 2]) / 2
 
 
-def phase_train(cfg) -> dict:
+def phase_train(cfg, smi: str) -> dict:
     """Phase 6: train full-width smollm-360m on the card through the
     launcher's driver, the AdamW state on the card, at pinned host (in bulk
     and streamed) and spilled to disk; restart after a failure; the training
@@ -1795,7 +1875,9 @@ def phase_train(cfg) -> dict:
     if a2["losses"] != a["losses"] or not same_bits(a2["state"]["params"], a["state"]["params"]):
         raise SystemExit("(a) a second run from the same init differs from the first")
     wall = median(a["walls"][2:])
-    flops = 6 * n_params * tokens  # model FLOPs a step (6 N T; the attention's not counted)
+    # model FLOPs a step: the JAX package's 6 N T over the config's parameter count
+    # (the attention's not counted)
+    flops = roofline_line("6 (a)", tcfg, "train", TRAIN_SEQ, TRAIN_BATCH, wall, smi)
     log(f"  (a) device: losses {[round(x, 4) for x in losses]}; a second run from the same init "
         f"bitwise equal (losses, parameters)")
     log(f"  (a) step wall {wall * 1e3:.3f} ms (median of steps 2-7; runs {[round(w * 1e3, 3) for w in a['walls']]} "
@@ -2338,6 +2420,8 @@ def phase_xlstm_serve(smi: str, device: str = "cuda", full=None) -> None:
     if not np.array_equal(gen, runs[1]["generated"]):
         raise SystemExit("2x: a second serve of the same weights and prompts gave other tokens")
     log(f"  tokens bitwise equal across the two runs; first request {gen[0, :8].tolist()}...")
+    if device == "cuda":
+        serve_rooflines("2x (run 2)", cfg, runs[1], XL_PROMPT, smi)
 
     # (b) prefill then decode against the longer prefill: the decode steps
     # carry the state across the last chunk of the prompt
@@ -2635,10 +2719,11 @@ def phase_xlstm_train(smi: str) -> None:
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"6x (a): losses not finite or not falling: {losses}")
     wall = median(a["walls"][1:])
+    flops = roofline_line("6x (a)", tcfg, "train", TRAIN_SEQ, TRAIN_BATCH, wall, smi)
     log(f"  (a) AdamW on the card, {XL_TRAIN_STEPS} steps: losses {[round(x, 4) for x in losses]}; "
         f"step walls {[round(w * 1e3, 1) for w in a['walls']]} ms, median of steps 1-"
         f"{XL_TRAIN_STEPS - 1} {wall * 1e3:.1f} ms = {tokens / wall:.1f} tok/s, model "
-        f"{6 * XL_PARAMS * tokens / wall / 1e12:.2f} TFLOP/s (6 N T); max_memory_allocated {peak} B "
+        f"{flops / wall / 1e12:.2f} TFLOP/s (model_flops: 6 N T); max_memory_allocated {peak} B "
         f"({lap():.1f} s)")
     del a
     gc.collect()
@@ -2819,6 +2904,8 @@ def phase_audio_serve(smi: str, device: str = "cuda", full=None) -> dict:
         raise SystemExit(f"2a (a): generated tokens malformed: shape {gen.shape}, range "
                          f"[{gen.min()}, {gen.max()}]")
     log(f"  (a) first request's codebook-0 stream {gen[0, :8].tolist()}...")
+    if on_card:
+        serve_rooflines("2a (a)", cfg, a, PROMPT, smi)
     # the kernel path against the plain path on request 0 (serve's prompts)
     prompts = np.random.default_rng(SEED + 1).integers(1, cfg.vocab_size, (BATCH, PROMPT),
                                                       dtype=np.int32)
@@ -2931,6 +3018,7 @@ def phase_audio_train(smi: str, device: str = "cuda", full=None) -> None:
     from repro_torch.core.weightstream import WeightStreamPlan
     from repro_torch.models import transformer
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline import model_flops
     from repro_torch.train import steps as st
 
     t_phase = time.perf_counter()
@@ -2964,10 +3052,13 @@ def phase_audio_train(smi: str, device: str = "cuda", full=None) -> None:
         idle = (f"device busy {r['device_busy_ms_per_unit']:.1f} ms of the {wall * 1e3:.1f} ms "
                 f"wall, idle share {r['device_idle_share']:.4f}, "
                 f"{r['kernel_launches_per_unit']:.0f} kernel launches")
+    flops = model_flops(tcfg, "train", TRAIN_SEQ, TRAIN_BATCH)
+    if device == "cuda":
+        roofline_line("6a (a)", tcfg, "train", TRAIN_SEQ, TRAIN_BATCH, wall, smi)
     log(f"  (a) AdamW on the card, {AU_TRAIN_STEPS} steps: losses {losses} (falling: "
         f"{losses[-1] < losses[0]}); step walls {[round(w * 1e3, 1) for w in walls]} ms, median "
         f"of steps 1-{AU_TRAIN_STEPS - 1} {wall * 1e3:.1f} ms = {tokens / wall:.1f} tok/s, model "
-        f"{6 * n_params * tokens / wall / 1e12:.2f} TFLOP/s (6 N T); {idle}; max_memory_allocated "
+        f"{flops / wall / 1e12:.2f} TFLOP/s (model_flops: 6 N T); {idle}; max_memory_allocated "
         f"{peak} B ({smi})")
     del params, opt, step_fn
     gc.collect()
@@ -3092,13 +3183,20 @@ def phase_vlm_train(smi: str, device: str = "cuda", full=None) -> None:
     batch = batch_for(c2)
     if tuple(batch["positions_3d"].shape) != (VL_BATCH, 3, VL_TEXT + s_img):
         raise SystemExit(f"6v: positions_3d of shape {tuple(batch['positions_3d'].shape)}")
-    out = {}
+    out, walls = {}, {}
     with torch.no_grad():
-        for impl in ("pallas", "xla"):
+        # the plain path first: the process's first lm_loss pays the caching
+        # allocator's first allocations (the chunked loss's f32 logits), so the
+        # kernel path's wall, read against its bound, is a warm one
+        for impl in ("xla", "pallas"):
             c = dataclasses.replace(c2, attn_impl=impl)
             flash_attention.launches = 0
             logits, _ = transformer.forward_train(c, params, batch)
+            sync(device)
+            t_loss = time.perf_counter()
             loss, aux = transformer.lm_loss(c, params, batch)
+            sync(device)
+            walls[impl] = time.perf_counter() - t_loss
             out[impl] = (logits[:, -VL_TEXT:].float(), float(loss), int(aux["n_tokens"]),
                          flash_attention.launches)
             del logits
@@ -3118,6 +3216,10 @@ def phase_vlm_train(smi: str, device: str = "cuda", full=None) -> None:
         f"launches {launches}; max_memory_allocated {peak_allocated(device)} B")
     if rel > LOGIT_RTOL or dloss > LOGIT_RTOL or out["pallas"][2] != VL_BATCH * VL_TEXT:
         raise SystemExit("6v (a): the kernel path disagrees with the plain path")
+    log(f"  (a) lm_loss wall (the forward and the loss, no gradients): kernel path "
+        f"{walls['pallas'] * 1e3:.3f} ms, plain path {walls['xla'] * 1e3:.3f} ms")
+    if device == "cuda":
+        roofline_line("6v (a)", c2, "prefill", VL_TEXT + s_img, VL_BATCH, walls["pallas"], smi)
     VL_RESULT.parent.mkdir(parents=True, exist_ok=True)
     VL_RESULT.write_text(json.dumps({"flash_attention": launches}))
     del params, out, lk, lp
@@ -3560,6 +3662,99 @@ def phase_tables(smi: str) -> None:
     log(f"  phase 7 done in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 8s: the sharding plan on one card (NCCL, DTensor)
+# ---------------------------------------------------------------------------
+
+def phase_sharding(cfg, smi: str, device: str = "cuda") -> None:
+    """Phase 8s: a one-rank process group (NCCL on the card, over a
+    ``HashStore``) and ``make_local_mesh``; ``cfg``'s parameters from
+    ``SEED`` placed as DTensors by the train plan's ``param_specs`` and each
+    local shard held bitwise against its source; ``sharding_report``'s
+    per-device bytes against the tree's; the Sharder's ``block`` (through
+    autograd: its backward redistributes the gradient to the FSDP
+    placements), ``acts`` and ``grads`` over one layer, values unchanged
+    bitwise.  The group is destroyed at the end."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.core import tree as tr
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.steps import init_params
+
+    t0 = time.perf_counter()
+    if dist.is_initialized():
+        raise SystemExit("8s: a process group is already open")
+    dist.init_process_group("nccl" if device == "cuda" else "gloo", store=dist.HashStore(),
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_local_mesh(device=device)
+        plan = sh.make_plan(mesh, "train")
+        params = init_params(cfg, SEED, device).as_dict()  # phase 2's weights
+        specs = sh.param_specs(plan, params)
+        placed = sh.distribute_tree(params, mesh, specs)
+        local_bytes = 0
+        for x, d in zip(tr.leaves(params), tr.leaves(placed)):
+            loc = d.to_local()
+            if loc.device != x.device or not torch.equal(bits(loc), bits(x)):
+                raise SystemExit(f"8s: a local shard of shape {tuple(loc.shape)} is not its source")
+            local_bytes += loc.numel() * loc.element_size()
+        tree_bytes = sum(x.numel() * x.element_size() for x in tr.leaves(params))
+        per_dev = sh.per_device_bytes(plan, params, specs)
+        report = sh.sharding_report(plan, params, specs)
+        header = report.splitlines()[0]
+        if not (per_dev == local_bytes == tree_bytes
+                and header == f"per-device param bytes: {tree_bytes / 2**30:.3f} GiB (train plan)"):
+            raise SystemExit(f"8s: per-device bytes {per_dev}, local shards {local_bytes}, the "
+                             f"tree {tree_bytes}; report {header!r}")
+        log(f"phase 8s the sharding plan on one card: a one-rank {dist.get_backend()} group, "
+            f"mesh {tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)} on {mesh.device_type}; "
+            f"{cfg.name}'s {len(tr.leaves(params))} leaves placed by the train plan's param_specs as "
+            f"DTensors, every local shard bitwise its source; sharding_report {header!r}: "
+            f"{per_dev} B a device = the local shards' = the tree's")
+        # one layer through the Sharder, with gradients
+        sharder = sh.make_sharder(plan, placed, BATCH, seq_len=PROMPT)
+        src = {k: {n: params["blocks"][k][n][0] for n in sub}
+               for k, sub in params["blocks"].items() if sub}
+        layer = {k: {n: distribute_tensor(v, mesh, sh.placements(mesh, sharder.fsdp_specs[k][n])
+                                          ).requires_grad_()
+                     for n, v in sub.items()} for k, sub in src.items()}
+        blk = sharder.block(layer)
+        leaves = [(k, n) for k in blk for n in blk[k]]
+        if not all(isinstance(blk[k][n], DTensor)
+                   and torch.equal(bits(blk[k][n].full_tensor()), bits(src[k][n]))
+                   for k, n in leaves):
+            raise SystemExit("8s: Sharder.block changed a value")
+        sum(blk[k][n].float().sum() for k, n in leaves).backward()
+        grads = {k: {n: layer[k][n].grad for n in layer[k]} for k in layer}
+        one = torch.ones((), dtype=torch.bfloat16, device=device)
+        if not all(tuple(grads[k][n].placements) == tuple(layer[k][n].placements)
+                   and torch.equal(bits(grads[k][n].full_tensor()),
+                                   bits(one.expand_as(src[k][n])))
+                   for k, n in leaves):
+            raise SystemExit("8s: the gradient through Sharder.block is not ones in the FSDP "
+                             "placements")
+        pinned = sharder.grads({"blocks": {k: {n: placed["blocks"][k][n] for n in sub}
+                                           for k, sub in placed["blocks"].items()}})
+        if not all(torch.equal(bits(a.full_tensor()), bits(b.full_tensor()))
+                   for a, b in zip(tr.leaves(pinned), tr.leaves(placed["blocks"]))):
+            raise SystemExit("8s: Sharder.grads changed a value")
+        g = torch.Generator(device=device).manual_seed(SEED)
+        x = torch.randn((BATCH, PROMPT, cfg.d_model), generator=g, device=device).to(torch.bfloat16)
+        a = sharder.acts(distribute_tensor(x, mesh, sh.placements(mesh, sh.P())))
+        if not torch.equal(bits(a.full_tensor()), bits(x)):
+            raise SystemExit("8s: Sharder.acts changed a value")
+        log(f"  Sharder over layer 0 ({len(leaves)} leaves): block, its gradient through "
+            f"autograd (ones, in the FSDP placements), grads over the blocks and acts on a "
+            f"({BATCH}, {PROMPT}, {cfg.d_model}) activation, all bitwise unchanged "
+            f"({time.perf_counter() - t0:.1f} s; {smi})")
+    finally:
+        dist.destroy_process_group()
+
+
 def isolated(phase: str, smi: str) -> None:
     """Run the phase function ``phase`` in a child process on the same card.
     Phases 6m and 6x hold tens of GB of host memory (numpy homes, pinned
@@ -3603,7 +3798,7 @@ def main() -> int:
     from repro_torch.train.steps import init_params
 
     params = init_params(cfg, SEED, "cuda")  # phases 2 and 2p share them
-    res, launches = phase_serve(cfg, PROMPT, "2", ("flash_attention", "decode_attention"),
+    res, launches = phase_serve(cfg, PROMPT, "2", ("flash_attention", "decode_attention"), smi,
                                 params=params)
     phase_paged(cfg, params, res, launches)
     phase_streamed(cfg, params, res, launches)
@@ -3612,16 +3807,17 @@ def main() -> int:
     phase_check(cfg, res, PROMPT, "3")
     del res
     hres, hlaunches = phase_serve(hcfg, HYB_PROMPT, "2b",
-                                  ("rglru_scan", "flash_attention", "decode_attention"))
+                                  ("rglru_scan", "flash_attention", "decode_attention"), smi)
     phase_check(hcfg, hres, HYB_PROMPT, "3b")
     del hres
     phase_xlstm_serve(smi)
     alaunches = phase_audio_serve(smi)
     launches["streamed_matmul"], sweep = phase_paper(cfg)
-    train = phase_train(cfg)
+    train = phase_train(cfg, smi)
     phase_train_streamed(cfg, train, smi)
     rows = phase_times(cfg, hcfg, errs, launches, hlaunches, mlaunches, alaunches, sweep, train)
     phase_tables(smi)
+    phase_sharding(cfg, smi)
     log(f"done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,18 +1,21 @@
-"""Architecture registry.
+"""Architecture registry + dry-run input specs.
 
 ``get_config(arch)`` / ``get_smoke_config(arch)`` return the full / reduced
-``ModelConfig``; ``vision_prefix_len`` the vision prefix of a VLM sequence.
-The JAX package's dry-run helpers (``input_specs``, ``cell_is_runnable``)
-are not ported yet: they serve the dry-run tooling.
+``ModelConfig``; ``vision_prefix_len`` the vision prefix of a VLM sequence;
+``input_specs(cfg, shape)`` returns meta-tensor stand-ins (shape and dtype,
+no allocation) for every model input of that (arch x shape) cell, and
+``cell_is_runnable`` says which cells run at all.
 """
 from __future__ import annotations
 
 import importlib
 
+import torch
+
 from repro_torch.configs.base import SHAPES, ModelConfig
 
-__all__ = ["ARCHS", "SHAPES", "ModelConfig", "get_config", "get_smoke_config",
-           "vision_prefix_len"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "cell_is_runnable", "get_config",
+           "get_smoke_config", "input_specs", "vision_prefix_len"]
 
 _MODULES = {
     "olmo-1b": "olmo_1b",
@@ -47,3 +50,55 @@ def get_smoke_config(arch: str) -> ModelConfig:
 def vision_prefix_len(cfg: ModelConfig, seq_len: int) -> int:
     """VLM cells dedicate 1/8 of the sequence to the (stub) vision prefix."""
     return seq_len // 8 if cfg.vision_embed else 0
+
+
+def _spec(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: str) -> dict:
+    """Batch stand-ins (meta tensors) for one (arch x shape) cell.
+
+    ``train``/``prefill`` shapes describe the full sequence; ``decode``
+    shapes describe ONE new token against a ``seq_len`` context (the KV
+    cache / recurrent state comes from ``train.steps.abstract_caches``).
+    """
+    if shape not in SHAPES:
+        raise ValueError(f"unknown shape {shape!r}; have {list(SHAPES)}")
+    seq, batch, step = SHAPES[shape]
+    i32 = torch.int32
+    f = cfg.compute_dtype
+
+    if step in ("train", "prefill"):
+        if cfg.n_codebooks:
+            return {
+                "codes": _spec((batch, cfg.n_codebooks, seq), i32),
+                "targets": _spec((batch, cfg.n_codebooks, seq), i32),
+            }
+        specs = {}
+        s_img = vision_prefix_len(cfg, seq)
+        specs["tokens"] = _spec((batch, seq - s_img), i32)
+        specs["targets"] = _spec((batch, seq - s_img), i32)
+        if cfg.vision_embed:
+            specs["vision_embeds"] = _spec((batch, s_img, cfg.d_model), f)
+        if cfg.pos_type == "mrope":
+            specs["positions_3d"] = _spec((batch, 3, seq), i32)
+        return specs
+
+    # decode: one new token
+    if cfg.n_codebooks:
+        return {"codes": _spec((batch, cfg.n_codebooks, 1), i32)}
+    specs = {"tokens": _spec((batch, 1), i32)}
+    if cfg.pos_type == "mrope":
+        specs["positions_3d"] = _spec((batch, 3, 1), i32)
+    return specs
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    """Assignment rules: long_500k only for sub-quadratic archs."""
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False, (
+            "pure full-attention arch: 500k-token decode needs sub-quadratic "
+            "attention (see DESIGN.md §5 skip list)"
+        )
+    return True, ""
