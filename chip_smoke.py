@@ -25,7 +25,7 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    ``(chunk_t, block_w)`` tilings; flash also at head_dim 128 with 1 and 8
    query heads per KV head and a window, and at mixtral-8x7b's prefill
    (batch 2, prompt 512, 32 heads over 8, window 4096) and decode (its
-   528-slot ring), at musicgen-medium's prefill and decode (24 heads over
+   520-slot ring), at musicgen-medium's prefill and decode (24 heads over
    24 KV heads, head_dim 64) and at qwen2-vl-72b's training forward (1152
    positions, 64 heads over 8, head_dim 128); the attention kernels also at the
    hybrid's head_dim 256 with 10 query heads over 1 KV head, on scores
@@ -48,10 +48,12 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    request per group, the device retaining less than the 89,128,960-byte
    cache; (c) the unpaged pinned-host round trip, tokens bitwise (a)'s, one
    H2D and one D2H request per cache leaf a step; (d) 8 requests on 4
-   slots sharing a 256-token prefix at pinned host, with and without
+   slots sharing a 256-token prefix at pinned host, gen 16 (32 until phase
+   8c), with and without
    copy-on-write sharing: the same tokens, shared hits, fewer H2D bytes;
    (e) the load generator's bursty trace (prompts 128/256/512, outputs
-   8/16/32, a 64-token shared prefix) through the SLO scheduler at pinned
+   4/8/16, a 64-token shared prefix, steady phases of 2 s; 8/16/32 and 4 s
+   until phase 8c) through the SLO scheduler at pinned
    host under the virtual clock, every offered request completed or
    rejected, then again over the trace cut to its first phase, whose
    requests must get the same stamps and tokens as in the whole run; then
@@ -67,12 +69,14 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    session at pinned-host pages and weights under 176 MB (the hot window's
    cut first): tokens bitwise, the schedule verified; (d) no budget, then
    ``param_cache_mb=0``, gen 8: 0 and all groups fetched each decode step;
-   (e) (a) under the hazard sanitizer, bitwise, and a 100 MB budget (under
+   (e) (a) under the hazard sanitizer, gen 8 (32 until phase 8c), bitwise,
+   and a 100 MB budget (under
    the distance-1 floor) refused before any thread exists;
 2m. serve full-width mixtral-8x7b (d_model 4096, 32 heads over 8, head_dim
    128, 8 experts of d_ff 14336 top-2, window 4096, bf16; random weights
    from seed 0) through ``serve`` with ``attn_impl="pallas"``: batch 2,
-   prompt 512, gen 16, unpaged, each run with the launch counts zeroed just
+   prompt 512, gen 8 (16 until phase 8c), unpaged, each run with the launch
+   counts zeroed just
    before and read just after and the decode routing recorded: (a) 4
    layers on the card (6.07 B parameters), the bitwise baseline; its
    prefill logits and first decode step within 5e-2 of the plain
@@ -81,16 +85,18 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    the plan's distance-1 floor of three MoE units, 8,707,620,864 bytes),
    routed, at distance 0 and 1 (``param_cache_mb=0``) and ``auto`` (the
    default cache, too small for an expert group); (c) all experts
-   (``route_experts=False``), auto; (d) disk, routed, gen 4, spilled under
-   ``build/spill-moe/`` (deleted after); (e) 8 layers (23.4 GB; all 32,
+   (``route_experts=False``), auto, gen 4 (8 until phase 8c); (d) disk,
+   routed, gen 4, spilled under
+   ``build/spill-moe/`` (deleted after); (e) 4 layers (12.1 GB; all 32,
    93.41 GB, more than the card, ran here until phases 2x, 6x and 6m took
-   their time, 16 until 2a, 6a and 6v), routed, gen 4, at pinned host,
+   their time, 16 until 2a, 6a and 6v, 8 until 8c), routed, gen 4, at
+   pinned host,
    initialized group by
    group, run after (f0) and before any spill, and refused before it starts
    unless the host's MemAvailable holds the home with 3 GB to spare; (f)
    the paged ``ServeSession`` at pinned-host pages with (b)'s weights and
    routed experts, against (f0), the same session with the weights on the
-   card (mixtral's ring does not page, and at 528 positions its window
+   card (mixtral's ring does not page, and at 520 positions its window
    never binds, so the session serves the same weights with full
    attention).  Gates: (b), (c), (d) tokens bitwise (a)'s, (f) (f0)'s; one
    H2D request a fetched group; every expert request and byte the recorded
@@ -128,8 +134,9 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    before and read just after: (a) unpaged, device caches, the baseline,
    its prefill logits (1, 4, 1, 2048) and first decode step within 5e-2
    of the plain attention path's and its first token that prefill's; (b)
-   the paged session at device, pinned-host and disk pages, tokens bitwise
-   (a)'s, one H2D request a fetched page group; (c) the weights homed at
+   the paged session at device, pinned-host and disk pages (gen 4; 32
+   until phase 8c), tokens bitwise (a)'s, one H2D request a fetched page
+   group; (c) the weights homed at
    pinned host, then disk (gen 4), streamed one pass a prefill or step
    under the one-layer plan's distance-1 floor rounded up to 100 MB with
    the residency cache off: tokens bitwise (a)'s, every request and byte
@@ -235,10 +242,10 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
 6a. train full-width musicgen-medium at phase 6's batch, sequence and AdamW
    settings: (a) the state on the card, 4 steps, finite losses, the step
    wall, tokens/s, model FLOP/s, one profiled step's idle share and
-   ``max_memory_allocated``; (b) the streamed-weight step cut to 24 layers
-   (26 groups, one layer each, under the distance-1 floor rounded up to
-   100 MB, the residency cache off) 2 steps at the device home and 2 at
-   pinned host: losses, parameters and moments bitwise, every request and
+   ``max_memory_allocated``; (b) the streamed-weight step cut to 12 layers
+   (24 until phase 8c; 14 groups, one layer each, under the distance-1
+   floor rounded up to 100 MB, the residency cache off) 1 step at the
+   device home and 1 at pinned host: losses, parameters and moments bitwise, every request and
    byte the plan's, the step-0 loss bitwise the monolithic ``lm_loss`` on
    the same weights.  Runs in a child process after 6x.
 6v. full-width qwen2-vl-72b (d_model 8192, 64 heads over 8, head_dim 128,
@@ -277,6 +284,28 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    ``sharding_report``'s per-device bytes equal to the tree's; the
    Sharder's ``block`` (its gradient through autograd), ``acts`` and
    ``grads`` over layer 0, values bitwise unchanged; the group destroyed.
+8c. the sharding plan's consumers on a one-rank NCCL mesh ``(data 1,
+   model 1)``, in a child process started as ``torchrun --standalone
+   --nproc-per-node 1`` (the launchers' ``init_from_env``,
+   ``elastic_local_mesh``), full-width smollm-360m from seed 0: (a) two
+   train steps at batch 8 x 1024 through ``build_trainer(mesh=...)``
+   (params and AdamW moments DTensors by the train plan, the Sharder in the
+   layer body) in lock-step with the same two steps without a mesh: losses,
+   parameters and moments bitwise after each step; the step-1 state
+   checkpointed (the mesh fingerprint in its meta) and restored, its step 2
+   bitwise; the step walls and the kernel launches of a step beside the
+   no-mesh ones; (b) one streamed-weight step at pinned host under 160 MB
+   (34 groups) with the train plan's ``param_shardings``: every group
+   staged through ``ShardedGroupLayout``, the loss phase 6w's bits, its
+   H2D requests 6w's (one a (rank, group)); (c) ``serve`` through the
+   paged ``ServeSession`` with the serve plan (pinned-host pages of 32,
+   batch 4, prompt 512, gen 8): the tokens phase 2p's pinned run's over the
+   same steps, ``flash_attention`` and ``decode_attention`` launched on the
+   local shards as often a step as there; (d) ``--model-parallel 2`` on
+   the one card, both launchers at smoke size in parallel processes
+   (started before the build, read after phase 1; both time nothing):
+   ``train`` degrades with the warning and exits 0, ``serve`` exits 2 with
+   the divisibility reason.
 
 Every full-width step wall of phases 2, 2b, 2m (a), 2x, 2a (prefill a
 request, or the lock-step batch, and the mean decode step), 6 (a), 6x (a),
@@ -341,7 +370,13 @@ BATCH, PROMPT, GEN, SEED = 4, 512, 32, 0
 # phase 2p: the JAX package's default page length, one hot page; 8 requests
 # sharing a 256-token prefix; the load generator's trace
 PAGE_LEN, HOT_PAGES, SHARED_PREFIX = 32, 1, 256
-LG_PROMPTS, LG_GENS, LG_SHARED = (128, 256, 512), (8, 16, 32), 64
+#: (d)'s generation (the session's 32 until phase 8c needed the time)
+SHARED_GEN = 16
+#: (e)'s trace: its output lengths the load generator's defaults, its phases
+#: (seconds, requests a second) steady, burst, steady ((8, 16, 32) and steady
+#: phases of 4 s until phase 8c needed the time)
+LG_PROMPTS, LG_GENS, LG_SHARED = (128, 256, 512), (4, 8, 16), 64
+LG_PHASES = ((2.0, 2.0), (1.0, 8.0), (2.0, 2.0))
 # phase 2w: the weights streamed under 160 MB (34 groups, 818,014,080 bytes a
 # pass: the tied head re-reads the embedding); the paged session's 176 MB
 # leaves the same ~160 MB once the hot window (15.7 MB) is cut; a budget under
@@ -352,28 +387,34 @@ W_GROUPS, W_PASS_BYTES, W_SHORT_GEN = 34, 818_014_080, 8
 # device-resident twin; the budget above the expert plan's distance-1 floor
 # (three MoE units, 8,707,620,864 bytes) with a residency cache (292 MB) that
 # holds no expert group (352,321,536 bytes); the disk run's and the whole
-# model's shorter generation; the deep run's depth (8 of 32 layers: the
-# whole model's 93.4 GB ran until phases 2x, 6x and 6m needed the time, 16
-# layers until phases 2a, 6a and 6v did) and
+# model's shorter generation; the deep run's depth (4 of 32 layers, drawn
+# and homed apart from (a)'s: the whole model's 93.4 GB ran until phases 2x,
+# 6x and 6m needed the time, 16 layers until phases 2a, 6a and 6v did, 8
+# until phase 8c did) and
 # the host memory it must leave free (the H100 host this was sized on:
-# MemTotal 105,906,176 kB, 80.2 GB of free disk)
-MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2, 512, 16
+# MemTotal 105,906,176 kB, 80.2 GB of free disk); the runs' generation (16
+# until phase 8c needed the time: the ring and the kernels' decode shape are
+# prompt + gen, 520 slots)
+MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2, 512, 8
 MOE_BUDGET_MB, MOE_DISK_GEN, MOE_FULL_GEN = 9000, 4, 4
-MOE_FULL_LAYERS, MOE_HOST_MARGIN = 8, 3_000_000_000
+MOE_FULL_LAYERS, MOE_HOST_MARGIN = 4, 3_000_000_000
 # the recurrentgemma-2b cell: a prompt longer than the 2048-token window
 HYB_PROMPT = 3072
 # phase 2x: full-width xlstm-1.3b served (a prompt of 4 mLSTM chunks); phase
 # 6x: trained at phase 6's batch and sequence (3 steps; 4 until phases 2a, 6a
-# and 6v needed the time), then streamed 1 step a home cut to 3 of its 6
-# periods (all 48 layers and 2 steps a home before then; at 2 periods the
-# budget of its floor would hold the whole model)
+# and 6v needed the time; at 24 layers its loss does not fall within 4), then
+# streamed 1 step a home cut to 3 of its 6 periods (all 48 layers and 2
+# steps a home before then; at 2 periods the budget of its floor would hold
+# the whole model)
 XL_BATCH, XL_PROMPT, XL_GEN, XL_PARAMS = 4, 512, 32, 1_741_275_472
 XL_TRAIN_STEPS, XL_W_LAYERS, XL_W_STEPS = 3, 24, 1
 # phase 2a: full-width musicgen-medium served at phase 2's batch, prompt and
 # gen (the disk-homed weights' run at a shorter gen); phase 6a: trained at
 # phase 6's batch and sequence, AdamW on the card for 4 steps, then the
-# streamed-weight step 2 steps a home, cut to 24 of its 48 layers
-AU_DISK_GEN, AU_TRAIN_STEPS, AU_W_LAYERS, AU_W_STEPS = 4, 4, 24, 2
+# streamed-weight step 1 step a home (2 until phase 8c needed the time), cut
+# to 12 of its 48 layers (24 until phase 8c needed the time); the disk-homed
+# pages' and weights' runs at a shorter gen
+AU_DISK_GEN, AU_TRAIN_STEPS, AU_W_LAYERS, AU_W_STEPS = 4, 4, 12, 1
 # phase 6v: full-width qwen2-vl-72b cut to 2 layers for the no-gradient
 # forward and to 1 for the streamed-weight step (whose home, 14 B a
 # parameter, is 48 GB); one sequence of 1024 text positions behind its
@@ -400,9 +441,34 @@ TRAIN_FAIL_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 4, 3, 2
 # under 160 MB, one layer a group (34 groups); the steps of each run (the disk
 # run's fsync'd writeback of ~5.8 GB costs ~10-20 s a step, so it takes one)
 W_TRAIN_BUDGET_MB, W_TRAIN_GROUPS, W_TRAIN_STEPS, W_TRAIN_DISK_STEPS = 160, 34, 2, 1
+# phase 8c: its gen and train steps; it reads what phases 2p and 6w wrote: the tokens and launches of the
+# pinned-host paged run, and 6w's first loss and step-0 request counts
+P2_RESULT = ROOT / "build" / "phase-2p.json"
+W6_RESULT = ROOT / "build" / "phase-6w.json"
+MESH_GEN, MESH_TRAIN_STEPS = 8, 2
+#: the torchrun environment a child must not inherit (its own launches open
+#: no group)
+TORCHRUN_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK",
+                 "ROLE_RANK", "ROLE_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                 "TORCHELASTIC_RUN_ID", "TORCHELASTIC_RESTART_COUNT",
+                 "TORCHELASTIC_MAX_RESTARTS", "TORCHELASTIC_USE_AGENT_STORE",
+                 "TORCHELASTIC_ERROR_FILE", "TORCH_NCCL_ASYNC_ERROR_HANDLING", "GROUP_WORLD_SIZE",
+                 "ROLE_NAME")
 # the JAX package's rglru_scan test shapes (tests/test_rglru_kernel.py)
 LRU_SHAPES = [(2, 128, 256), (1, 64, 128), (3, 100, 130), (2, 8, 512), (1, 256, 64)]
 LRU_TILINGS = [(8, 128), (64, 128), (128, 256)]
+
+
+def write_p2_result(res: dict, launches: dict) -> None:
+    """Phase 2p's pinned-host paged run, as phase 8c (c) reads it."""
+    P2_RESULT.write_text(json.dumps({
+        "generated": res["generated"].tolist(), "launches": launches,
+        "n_steps": res["n_steps"], "decode_step_ms": res["decode_s"] * 1e3 / res["n_steps"]}))
+
+
+def write_w6_result(loss: float, wall: float, groups: int, h2d: dict) -> None:
+    """Phase 6w's first pinned-host step, as phase 8c (b) reads it."""
+    W6_RESULT.write_text(json.dumps({"loss": loss, "wall": wall, "groups": groups, "h2d": h2d}))
 
 
 def log(msg: str) -> None:
@@ -894,7 +960,7 @@ def phase_paged(cfg, params, unpaged: dict, unpaged_launches: dict) -> None:
     import numpy as np
 
     from repro_torch.launch.serve import ServeSession
-    from repro_torch.serve import SLO, LoadGenConfig, SLOScheduler, generate
+    from repro_torch.serve import SLO, LoadGenConfig, Phase, SLOScheduler, generate
 
     log(f"phase 2p paged serve {cfg.name}: pages of {PAGE_LEN} tokens, {HOT_PAGES} hot page, "
         f"distance auto; batch {BATCH}, prompt {PROMPT}, gen {GEN}")
@@ -944,6 +1010,8 @@ def phase_paged(cfg, params, unpaged: dict, unpaged_launches: dict) -> None:
             raise SystemExit(f"(b) {kind}: the device retained the whole cache")
         if min(launches[k] for k in kernels) <= 0:
             raise SystemExit(f"(b) {kind}: a kernel of the path was not launched: {launches}")
+        if kind == "pinned_host":  # what phase 8c holds its mesh run against
+            write_p2_result(res, launches)
         log(f"  (b) {kind} done ({sub_s():.1f} s)")
 
     res, _ = paged_run(cfg, params, "(c) unpaged pinned_host round trip", kv_kind="pinned_host",
@@ -959,6 +1027,7 @@ def phase_paged(cfg, params, unpaged: dict, unpaged_launches: dict) -> None:
     for sharing in (True, False):
         runs[sharing], _ = paged_run(cfg, params, f"(d) {2 * BATCH} requests, {SHARED_PREFIX} shared tokens, sharing "
                                      f"{sharing}", kv_kind="pinned_host", n_requests=2 * BATCH,
+                                     gen=SHARED_GEN,
                                      shared_prefix_len=SHARED_PREFIX, prefix_sharing=sharing,
                                      **page)
     same("(d) shared vs unshared", runs[True]["generated"], runs[False]["generated"])
@@ -968,7 +1037,8 @@ def phase_paged(cfg, params, unpaged: dict, unpaged_launches: dict) -> None:
                          f"{on.bytes_h2d} against {off.bytes_h2d} B")
     log(f"  (d) done ({sub_s():.1f} s)")
 
-    trace = LoadGenConfig(seed=0, prompt_lens=LG_PROMPTS, prompt_mix=(1.0,) * len(LG_PROMPTS),
+    trace = LoadGenConfig(seed=0, phases=tuple(Phase(d, r) for d, r in LG_PHASES),
+                          prompt_lens=LG_PROMPTS, prompt_mix=(1.0,) * len(LG_PROMPTS),
                           gen_lens=LG_GENS, gen_mix=(1.0,) * len(LG_GENS),
                           shared_prefix_len=LG_SHARED, vocab_size=cfg.vocab_size)
     offered = generate(trace)
@@ -1153,11 +1223,12 @@ def phase_streamed(cfg, params, unpaged: dict, unpaged_launches: dict) -> None:
         engine = TransferEngine(EngineConfig(max_distance=plan.max_distance_for_budget()),
                                 device="cuda")
         with engine:
-            res, _ = streamed_run(cfg, params, "(e) sanitized", engine=engine, **stream)
+            res, _ = streamed_run(cfg, params, "(e) sanitized", engine=engine,
+                                  **dict(stream, gen=W_SHORT_GEN))
         checks = engine.sanitizer.checks
     finally:
         del os.environ["REPRO_SANITIZE"]
-    same("(e) sanitized", res["generated"], want)
+    same("(e) sanitized", res["generated"], want[:, :W_SHORT_GEN])
     if not checks:
         raise SystemExit("2w (e): the sanitizer checked nothing")
     n_threads = threading.active_count()
@@ -1524,12 +1595,13 @@ def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
                                                                  "decode_attention")):
             raise SystemExit(f"2m {name}: launches {res['launches']} differ from (a)'s")
         routed[dist] = expert_bytes_per_layer_step(res)
-    # (c) all-expert through the same path
-    c = moe_run(cfg, home, "(c) all experts, pinned host, distance auto", smi, gen=MOE_GEN,
-                expect=want, route_experts=False, **stream)
+    # (c) all-expert through the same path (every step fetches every expert:
+    # its bytes a layer a step need no more steps than the disk run's)
+    c = moe_run(cfg, home, "(c) all experts, pinned host, distance auto", smi, gen=MOE_DISK_GEN,
+                expect=want[:, :MOE_DISK_GEN], route_experts=False, **stream)
     all_e = expert_bytes_per_layer_step(c)
     ces = c["expert_stats"]
-    if (ces.unique_group_fetches != MOE_GEN * cfg.n_layers * cfg.n_experts  # + the warm-up step
+    if (ces.unique_group_fetches != MOE_DISK_GEN * cfg.n_layers * cfg.n_experts  # + warm-up
             or ces.per_tier()["h2d"]["requests_per_fetched_device_group"] != 1.0):
         raise SystemExit(f"2m (c): {ces.unique_group_fetches} expert groups fetched in "
                          f"{ces.h2d_requests} requests")
@@ -1557,7 +1629,7 @@ def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
 
     # (f) the paged session at pinned-host pages, the experts routed from the
     # pinned-host home.  A ring cache (mixtral's window) is not pageable; at
-    # 528 positions the 4096-token window never binds, so the session serves
+    # 520 positions the 4096-token window never binds, so the session serves
     # the same weights with full attention and must give (f0)'s tokens
     # the session's budget: (b)'s, plus the KV hot window it cuts first
     page_nbytes = sv._page_nbytes(st.abstract_caches(pcfg, 1, MOE_PROMPT + MOE_GEN), PAGE_LEN)
@@ -2330,6 +2402,9 @@ def phase_train_streamed(cfg, ref: dict, smi: str, device="cuda",
         steps = W_TRAIN_STEPS if dist == "auto" else 1
         r = run(f"(b) pinned_host d={dist}", "pinned_host", dist, steps, profile=dist == "auto")
         check(r, "pinned_host", dist, a["kept"][steps])
+        if dist == "auto":  # what phase 8c (b) holds its sharded step against
+            write_w6_result(r["losses"][0], r["walls"][0], n,
+                            {w: r["steps"][0][w]["h2d_requests"] for w in ("param", "opt")})
         del r
 
     # (c) disk, one step: the fsync'd writeback of every group
@@ -2942,12 +3017,12 @@ def phase_audio_serve(smi: str, device: str = "cuda", full=None) -> dict:
     # (b) the paged session at each page home
     spill = ROOT / "build" / "spill-audio"
     page = dict(kv_page_len=PAGE_LEN, hot_pages=HOT_PAGES, distance="auto")
-    for kind in ("device", "pinned_host", "disk_host"):
+    for kind, g in (("device", GEN), ("pinned_host", GEN), ("disk_host", AU_DISK_GEN)):
         shutil.rmtree(spill, ignore_errors=True)
-        res, launches = run(f"(b) paged, {kind} pages", kv_kind=kind,
+        res, launches = run(f"(b) paged, {kind} pages", kv_kind=kind, gen=g,
                             spill_dir=str(spill) if kind == "disk_host" else None, **page)
         shutil.rmtree(spill, ignore_errors=True)
-        same(f"(b) {kind}", res["generated"], gen)
+        same(f"(b) {kind}", res["generated"], gen[:, :g])
         st_ = res["stats"]
         if kind == "device":
             if st_.h2d_requests or st_.d2h_requests or launches != la:
@@ -3755,6 +3830,338 @@ def phase_sharding(cfg, smi: str, device: str = "cuda") -> None:
         dist.destroy_process_group()
 
 
+def kernel_launches(fn, device: str = "cuda") -> tuple[int, float]:
+    """``(kernel launches, wall s)`` of ``fn()`` under the profiler: the
+    card's kernels (copies and memsets excluded; 0 on the CPU)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA if device == "cuda"
+            else torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        wall = time.perf_counter() - t0
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset")))
+    return n, wall
+
+
+def phase_mesh(smi: str, device: str = "cuda", full=None) -> None:
+    """Phase 8c, in a ``torchrun --standalone --nproc-per-node 1`` child
+    (see the module docstring).  Joins the group torchrun describes, builds
+    the elastic mesh and destroys the group at the end.  ``full`` (a smoke
+    config) and ``device="cpu"`` rehearse it on the CPU under gloo, against
+    the files a rehearsal of phases 2p and 6w wrote."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as tr
+    from repro_torch.core.engine import ShardedGroupLayout
+    from repro_torch.core.refspec import PrefetchSpec
+    from repro_torch.core.weightstream import WeightStreamPlan
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.serve import serve
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.local import full_local
+    from repro_torch.runtime import elastic as el
+    from repro_torch.runtime.driver import DriverConfig
+    from repro_torch.train import steps as st
+
+    t_phase = t_sub = time.perf_counter()
+
+    def sub_s() -> float:
+        nonlocal t_sub
+        t, t_sub = t_sub, time.perf_counter()
+        return t_sub - t
+
+    started = time.time() - float(os.environ.get("CHIP_SMOKE_LAUNCHED", time.time()))
+    if not mesh_mod.init_from_env(device):
+        raise SystemExit("8c: no torchrun environment")
+    try:
+        mesh = el.elastic_local_mesh(model=1, device=device)
+        fp = el.mesh_fingerprint(mesh)
+        cfg = dataclasses.replace(full or get_config("smollm-360m"), attn_impl="pallas")
+        tcfg = train_cfg(cfg)
+        log(f"phase 8c the sharding plan's consumers on a one-rank {dist.get_backend()} mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} (torchrun, world "
+            f"{dist.get_world_size()}): {cfg.name} full width; the child ran {started:.1f} s "
+            f"after its launch, its group and mesh {sub_s():.1f} s later; {smi}")
+
+        # (a) two train steps with and without the mesh, in lock-step
+        ckpt_dir = ROOT / "build" / "ckpt-8c"
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+        def trainer(m):
+            return launch_train.build_trainer(
+                tcfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                opt_cfg=AdamWConfig(**TRAIN_OPT),
+                driver_cfg=DriverConfig(total_steps=MESH_TRAIN_STEPS, checkpoint_dir=str(ckpt_dir),
+                                        log_every=0),
+                seed=SEED, device=device, mesh=m)
+
+        plain, sharded = trainer(None), trainer(mesh)
+        laps = {"trainers": sub_s()}
+        states = {"plain": plain.init_state()}
+        laps["init"] = sub_s()
+        states["mesh"] = sharded.init_state()
+        laps["init on the mesh"] = sub_s()
+        if not all(type(x).__name__ == "DTensor" for x in tr.leaves(states["mesh"])):
+            raise SystemExit("8c (a): a leaf of the mesh state is not a DTensor")
+
+        def same_state(a, b) -> bool:
+            la, lb = tr.leaves(a), tr.leaves(b)
+            return len(la) == len(lb) and all(
+                torch.equal(bits(full_local(x)), bits(full_local(y))) for x, y in zip(la, lb))
+
+        walls, losses, counts = {"plain": [], "mesh": []}, {"plain": [], "mesh": []}, {}
+        ckpt = CheckpointManager(ckpt_dir, keep=1)
+        for k in range(MESH_TRAIN_STEPS):
+            for name, drv in (("plain", plain), ("mesh", sharded)):
+                batch = drv.make_batch(k)
+                out = {}
+
+                def one():
+                    out["s"], out["m"] = drv.step_fn(states[name], batch)
+
+                if k == MESH_TRAIN_STEPS - 1:  # the last step under the profiler
+                    counts[name], wall = kernel_launches(one, device)
+                else:
+                    sync(device)
+                    t0 = time.perf_counter()
+                    one()
+                    sync(device)
+                    wall = time.perf_counter() - t0
+                states[name] = out["s"]
+                walls[name].append(wall)
+                losses[name].append(float(out["m"]["loss"]))
+            if losses["mesh"] != losses["plain"] or not same_state(states["mesh"],
+                                                                   states["plain"]):
+                raise SystemExit(f"8c (a) step {k}: losses {losses['mesh']} against "
+                                 f"{losses['plain']}, or the parameters and moments differ")
+            if k == 0:  # the step-1 checkpoint, rank 0 writing while step 2 runs
+                laps["steps"] = sub_s()
+                ckpt.save(1, states["mesh"], extra_meta=sharded.run_meta)
+                laps["gather"] = sub_s()
+        laps["steps"] += sub_s()
+        del states["plain"], plain
+        ckpt.wait()
+        laps["write"] = sub_s()
+        if ckpt.load_meta(1)["extra"]["mesh"] != fp:
+            raise SystemExit(f"8c (a): the checkpoint's mesh {ckpt.load_meta(1)['extra']} is not "
+                             f"{fp}")
+        _, restored = ckpt.restore(sharded.template())
+        replay, m = sharded.step_fn(restored, sharded.make_batch(1))
+        if float(m["loss"]) != losses["mesh"][1] or not same_state(replay, states["mesh"]):
+            raise SystemExit("8c (a): the restart from the step-1 checkpoint does not replay "
+                             "step 2 bitwise")
+        del replay, restored, states
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        laps["restore and replay"] = sub_s()
+        log(f"  (a) train, params and AdamW moments as DTensors by the train plan, the Sharder "
+            f"in the layer body: losses {losses['mesh']} bitwise the no-mesh run's, parameters "
+            f"and moments too after each step; step walls {[round(w * 1e3, 1) for w in walls['mesh']]}"
+            f" ms against {[round(w * 1e3, 1) for w in walls['plain']]} ms without the mesh "
+            f"(step 2 under the profiler); kernel launches a step {counts['mesh']} against "
+            f"{counts['plain']}; the step-1 checkpoint carries the mesh {fp} and its restart "
+            f"replays step 2 bitwise (s: { {k: round(v, 1) for k, v in laps.items()} })")
+
+        # (b) one streamed-weight step, every group staged at the plan's layouts
+        w6 = json.loads(W6_RESULT.read_text())
+        plan = WeightStreamPlan(tcfg, st.abstract_params(tcfg), layers_per_group=1,
+                                device_budget_mb=W_TRAIN_BUDGET_MB)
+        _, _, p_sh, _, sharder = launch_train._train_layouts(tcfg, mesh, TRAIN_BATCH, TRAIN_SEQ)
+        state0 = st.init_weight_streamed_state(tcfg, plan, SEED, device)
+        t_init = sub_s()
+        step = st.make_weight_streamed_train_step(
+            tcfg, AdamWConfig(**TRAIN_OPT), plan=plan, param_kind="pinned_host",
+            prefetch=PrefetchSpec(buffer_size=plan.n_groups + 2, distance="auto"), device=device,
+            mesh=mesh, sharder=sharder, param_shardings=p_sh)
+        try:
+            sync(device)
+            t0 = time.perf_counter()
+            _, m = step(state0, train_batch(tcfg, 0, device))
+            sync(device)
+            wall = time.perf_counter() - t0
+            got = {"param": step.param_stats.h2d_requests, "opt": step.opt_stats.h2d_requests}
+            layouts = list(step.engine._layouts.values())
+        finally:
+            step.close()
+        del state0
+        if plan.n_groups != w6["groups"] or float(m["loss"]) != w6["loss"] or got != w6["h2d"]:
+            raise SystemExit(f"8c (b): {plan.n_groups} groups, loss {float(m['loss'])} against "
+                             f"6w's {w6['loss']}, H2D requests {got} against 6w's {w6['h2d']}")
+        if not layouts or not all(isinstance(lo, ShardedGroupLayout) for lo in layouts):
+            raise SystemExit("8c (b): a group staged outside ShardedGroupLayout")
+        log(f"  (b) streamed-weight step at pinned host under {W_TRAIN_BUDGET_MB} MB, "
+            f"{plan.n_groups} groups at the train plan's param_shardings ({len(layouts)} "
+            f"ShardedGroupLayouts): loss {float(m['loss'])} bitwise 6w's; H2D requests {got} = "
+            f"6w's, one a (rank, group); step wall {wall * 1e3:.1f} ms against 6w's "
+            f"{w6['wall'] * 1e3:.1f} ms; state built in {t_init:.1f} s ({sub_s():.1f} s)")
+
+        # (c) the paged session under the serve plan
+        p2 = json.loads(P2_RESULT.read_text())
+        params = st.init_params(cfg, SEED, device)  # phase 2's weights
+        wrappers = serving_kernels()
+        for w in wrappers.values():
+            w.launches = 0
+        res = serve(cfg, batch=BATCH, prompt_len=PROMPT, gen=MESH_GEN, seed=SEED,
+                    kv_kind="pinned_host", kv_page_len=PAGE_LEN, hot_pages=HOT_PAGES,
+                    distance="auto", params=params, device=device, mesh=mesh)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        del params
+        want = np.asarray(p2["generated"], np.int32)[:, :MESH_GEN]
+        if not np.array_equal(res["generated"], want):
+            raise SystemExit("8c (c): the tokens differ from phase 2p's pinned-host run")
+        steps = res["n_steps"] + 1  # and the warm-up step
+        if (launches["flash_attention"] != p2["launches"]["flash_attention"]
+                or launches["decode_attention"] * (p2["n_steps"] + 1)
+                != p2["launches"]["decode_attention"] * steps):
+            raise SystemExit(f"8c (c): launches {launches} over {steps} decode steps against "
+                             f"phase 2p's {p2['launches']} over {p2['n_steps'] + 1}")
+        st_ = res["stats"]
+        log(f"  (c) paged serve under the serve plan, pinned-host pages of {PAGE_LEN}: tokens "
+            f"{res['generated'].shape} bitwise phase 2p's first {MESH_GEN}; flash "
+            f"{launches['flash_attention']} and decode {launches['decode_attention']} launches on "
+            f"the local shards ({launches['decode_attention'] // steps} a step, as 2p's); prefill "
+            f"{res['prefill_s'] * 1e3:.3f} ms, decode {res['decode_s'] * 1e3 / res['n_steps']:.3f} "
+            f"ms a step against 2p's {p2['decode_step_ms']:.3f} ms; h2d {st_.h2d_requests} req "
+            f"over {st_.n_groups} page groups ({sub_s():.1f} s)")
+    finally:
+        dist.destroy_process_group()
+    log(f"  phase 8c (a)-(c) done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_mesh_cli():
+    """Phase 8c (d): ``--model-parallel 2`` on one card through both
+    launchers at smoke size, in parallel processes; a generator: started at
+    its first ``next``, checked at the second.  ``main`` starts them before
+    the build and reads them after phase 1, which time nothing, so that no
+    timed phase shares the card or the host with them (``train`` runs the
+    plain attention: it builds and launches no kernel)."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k not in TORCHRUN_VARS}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    (ROOT / "build").mkdir(exist_ok=True)  # they start before the build makes it
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        cmds = {
+            "train": [sys.executable, "-m", "repro_torch.launch.train", "--arch", "smollm-360m",
+                      "--smoke", "--steps", "1", "--batch", "2", "--seq", "16",
+                      "--checkpoint-dir", str(Path(tmp) / "ck"), "--model-parallel", "2"],
+            "serve": [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+                      "--model-parallel", "2"],
+        }
+        procs = {k: subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                 for k, c in cmds.items()}
+        try:
+            yield
+        except BaseException:
+            for q in procs.values():
+                q.kill()
+            raise
+        out = {}
+        for k, proc in procs.items():
+            try:
+                so, se = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                for q in procs.values():
+                    q.kill()
+                raise SystemExit(f"8c (d): {k} did not finish")
+            out[k] = (proc.returncode, so, se)
+    rc, so, se = out["train"]
+    if rc != 0 or "model axis 2 does not fit 1 device(s); degraded to 1" not in se:
+        raise SystemExit(f"8c (d) train: rc {rc}\n{se[-3000:]}")
+    rc2, _, se2 = out["serve"]
+    reason = "model axis 2 does not divide the world size 1"
+    if rc2 != 2 or reason not in se2:
+        raise SystemExit(f"8c (d) serve: rc {rc2}\n{se2[-3000:]}")
+    warn = next(line for line in se.splitlines() if "degraded" in line)
+    log(f"phase 8c (d) --model-parallel 2 on one card (beside phases 0 and 1): train exits 0 "
+        f"after {warn.strip()!r} "
+        f"({so.strip().splitlines()[-1]}); serve exits 2: {se2.strip().splitlines()[-1]!r} "
+        f"(read {time.perf_counter() - t0:.1f} s after their start)")
+    yield
+
+
+def phase_8c_alone() -> None:
+    """Phase 8c alone on the card (``python3 -c 'import chip_smoke as cs;
+    cs.phase_8c_alone()'``): the kernels built, the references it reads
+    written first (phase 2p's pinned-host paged run, phase 6w's first
+    pinned-host step), then (a)-(d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.refspec import PrefetchSpec
+    from repro_torch.core.weightstream import WeightStreamPlan
+    from repro_torch.device import resolve_device
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps as st
+
+    resolve_device("cuda")
+    t0 = time.perf_counter()
+    phase_build()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    cfg = dataclasses.replace(get_config("smollm-360m"), attn_impl="pallas")
+    params = st.init_params(cfg, SEED, "cuda")
+    page = dict(kv_kind="pinned_host", kv_page_len=PAGE_LEN, hot_pages=HOT_PAGES,
+                distance="auto")
+    res, launches = paged_run(cfg, params, "2p (b) pinned_host pages", **page)
+    write_p2_result(res, launches)
+    del params
+    tcfg = train_cfg(cfg)
+    plan = WeightStreamPlan(tcfg, st.abstract_params(tcfg), layers_per_group=1,
+                            device_budget_mb=W_TRAIN_BUDGET_MB)
+    step = st.make_weight_streamed_train_step(
+        tcfg, AdamWConfig(**TRAIN_OPT), plan=plan, param_kind="pinned_host",
+        prefetch=PrefetchSpec(buffer_size=plan.n_groups + 2, distance="auto"), device="cuda")
+    try:
+        state = st.init_weight_streamed_state(tcfg, plan, SEED, "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, m = step(state, train_batch(tcfg, 0))
+        torch.cuda.synchronize()
+        write_w6_result(float(m["loss"]), time.perf_counter() - t1, plan.n_groups,
+                        {"param": step.param_stats.h2d_requests,
+                         "opt": step.opt_stats.h2d_requests})
+    finally:
+        step.close()
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 8c's references written ({time.perf_counter() - t0:.1f} s)")
+    t8 = time.perf_counter()
+    cli = phase_mesh_cli()
+    next(cli)
+    next(cli)
+    torchrun_phase("phase_mesh", smi)
+    log(f"  phase 8c done in {time.perf_counter() - t8:.1f} s")
+
+
+def torchrun_phase(phase: str, smi: str) -> None:
+    """Run the phase function ``phase`` as a one-rank ``torchrun
+    --standalone`` job on the card (its own process group, NCCL)."""
+    import os
+
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+           str(ROOT / "chip_smoke.py"), "--phase", phase, smi]
+    env = dict(os.environ, CHIP_SMOKE_LAUNCHED=repr(time.time()))
+    rc = subprocess.run(cmd, cwd=ROOT, env=env).returncode
+    if rc:
+        raise SystemExit(f"{phase} failed in its torchrun child (rc {rc})")
+
+
 def isolated(phase: str, smi: str) -> None:
     """Run the phase function ``phase`` in a child process on the same card.
     Phases 6m and 6x hold tens of GB of host memory (numpy homes, pinned
@@ -3776,6 +4183,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--phase"]:  # a phase in a child process (torchrun_phase)
+        from repro_torch.device import resolve_device
+
+        resolve_device("cuda")
+        globals()[sys.argv[2]](sys.argv[3])
+        return 0
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
 
@@ -3783,41 +4196,70 @@ def main() -> int:
     cfg = dataclasses.replace(get_config("smollm-360m"), attn_impl="pallas")
     hcfg = dataclasses.replace(get_config("recurrentgemma-2b"), attn_impl="pallas")
     t0 = time.perf_counter()
+
+    def at(what: str) -> None:  # where the whole run's time goes
+        log(f"-- {time.perf_counter() - t0:.1f} s: {what}")
+
+    # phase 8c (d)'s two launcher processes (smoke size; plain attention, no
+    # kernel) run beside the build and phase 1, which time nothing, and are
+    # read before the first timed phase
+    cli = phase_mesh_cli()
+    next(cli)
     phase_build()
+    t1 = time.perf_counter()
     errs = phase_kernels(cfg, hcfg)
+    log(f"  phase 1 done in {time.perf_counter() - t1:.1f} s")
+    next(cli)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     # the two phases that hold tens of GB of host memory, first, each in a
     # child process: the later phases leave the host's memory low
-    isolated("phase_vlm_train", smi)
-    isolated("phase_moe_train", smi)
-    isolated("phase_xlstm_train", smi)
-    isolated("phase_audio_train", smi)
+    for phase in ("phase_vlm_train", "phase_moe_train", "phase_xlstm_train", "phase_audio_train"):
+        at(phase)
+        isolated(phase, smi)
+    at("phase 2")
     from repro_torch.train.steps import init_params
 
     params = init_params(cfg, SEED, "cuda")  # phases 2 and 2p share them
     res, launches = phase_serve(cfg, PROMPT, "2", ("flash_attention", "decode_attention"), smi,
                                 params=params)
+    at("phase 2p")
     phase_paged(cfg, params, res, launches)
+    at("phase 2w")
     phase_streamed(cfg, params, res, launches)
     del params
+    at("phase 2m")
     mlaunches = phase_moe(smi)
     phase_check(cfg, res, PROMPT, "3")
     del res
+    at("phase 2b")
     hres, hlaunches = phase_serve(hcfg, HYB_PROMPT, "2b",
                                   ("rglru_scan", "flash_attention", "decode_attention"), smi)
     phase_check(hcfg, hres, HYB_PROMPT, "3b")
     del hres
+    at("phase 2x")
     phase_xlstm_serve(smi)
+    at("phase 2a")
     alaunches = phase_audio_serve(smi)
+    at("phase 4")
     launches["streamed_matmul"], sweep = phase_paper(cfg)
+    at("phase 6")
     train = phase_train(cfg, smi)
+    at("phase 6w")
     phase_train_streamed(cfg, train, smi)
+    at("phase 5")
     rows = phase_times(cfg, hcfg, errs, launches, hlaunches, mlaunches, alaunches, sweep, train)
+    at("phase 7")
     phase_tables(smi)
+    at("phase 8s")
     phase_sharding(cfg, smi)
+    at("phase 8c")
+    t8 = time.perf_counter()
+    torchrun_phase("phase_mesh", smi)
+    log(f"  phase 8c (a)-(c) done in {time.perf_counter() - t8:.1f} s with the child's start "
+        f"(its (d) ran beside phases 0 and 1)")
     log(f"done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

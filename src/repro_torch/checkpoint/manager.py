@@ -40,6 +40,7 @@ import torch
 from repro_torch.core import tree as tr
 from repro_torch.core.arrays import BF16HostArray, dtype_name, host_array, host_tensor
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel.local import is_dtensor
 
 Pytree = Any
 
@@ -92,12 +93,27 @@ def _dtype(x: Any) -> str:
     return getattr(x, "spill_dtype", None) or str(np.asarray(x).dtype)
 
 
+def _in_group() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
 def _host_leaf(x: Any) -> Any:
     """A snapshot of one leaf for the writer thread.  Device tensors are
     copied to host now (the next step may reuse their memory); host leaves
     (CPU tensors, numpy arrays, spill-store views: the homes the steps
     replace, never mutate) are kept by reference, so a host- or disk-homed
-    state never materializes whole; anything else snapshots eagerly."""
+    state never materializes whole; anything else snapshots eagerly.  A
+    DTensor is gathered whole (``full_tensor``, a collective every rank
+    runs): checkpoints hold unsharded leaves, the reference's format."""
+    if is_dtensor(x):
+        return x.full_tensor().detach().cpu()
+    sharding = getattr(x, "sharding", None)
+    if sharding is not None and hasattr(x, "local"):  # a rank's host shard
+        from repro_torch.core.memkind import DEVICE
+
+        return _host_leaf(type(sharding)(sharding.mesh, sharding.placements, DEVICE).put(x))
     if isinstance(x, torch.Tensor):
         return x.detach() if x.device.type == "cpu" else x.detach().cpu()
     return x if isinstance(x, np.ndarray) else np.asarray(x)
@@ -137,6 +153,8 @@ class CheckpointManager:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        #: a sharded save's barrier, met by every rank at :meth:`wait`
+        self._barrier = False
         self._sweep_stale()
 
     def _sweep_stale(self) -> None:
@@ -166,9 +184,23 @@ class CheckpointManager:
         file I/O happens on a background thread unless ``blocking``.
 
         ``extra_meta`` is recorded verbatim under ``meta.json``'s ``extra``
-        key (the driver stores its run identity there)."""
+        key (the driver stores its run identity there).
+
+        Under a process group every rank saves together (the directory has
+        one writer): each DTensor leaf is gathered here, rank 0 writes, and
+        every rank meets the others at a barrier in :meth:`wait` (the next
+        save, or the driver's restore, calls it), so none reads the
+        directory before the step is committed."""
         self.wait()
         host = [(name, _host_leaf(x)) for name, x in _flatten(tree)]
+        if _in_group():
+            import torch.distributed as dist
+
+            self._barrier = True
+            if dist.get_rank() != 0:
+                if blocking:
+                    self.wait()
+                return
         meta = {
             "step": int(step),
             "treedef": repr(tr.structure(tree)),
@@ -198,7 +230,7 @@ class CheckpointManager:
 
         if blocking:
             write()
-            self._raise_pending()
+            self.wait()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
@@ -274,9 +306,16 @@ class CheckpointManager:
         self._commit(step, tmp)
 
     def wait(self) -> None:
+        """Join the in-flight write (and meet the other ranks after a
+        sharded save)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+
+            self._barrier = False
+            dist.barrier()
         self._raise_pending()
 
     def _raise_pending(self) -> None:
@@ -331,11 +370,15 @@ class CheckpointManager:
         *,
         step: Optional[int] = None,
         device: DeviceLike = None,
+        shardings: Optional[Pytree] = None,
     ) -> tuple[int, Pytree]:
         """Load into the structure of ``template`` (any tree of the state's
         structure: meta tensors will do).  Leaves come back as host numpy
         (bf16 as :class:`~repro_torch.core.arrays.BF16HostArray`), or as
-        tensors on ``device`` when one is given."""
+        tensors on ``device`` when one is given.  ``shardings`` (a matching
+        tree of :class:`~repro_torch.core.memkind.Sharding`, ``None`` entries
+        left as host numpy) re-places the full leaves under any mesh: each
+        rank takes its own shard (the elastic resume)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -348,4 +391,11 @@ class CheckpointManager:
         if device is not None:
             dev = resolve_device(device)
             leaves = [host_tensor(a).to(dev) for a in leaves]
-        return step, tr.unflatten(tr.structure(template), leaves)
+        tree = tr.unflatten(tr.structure(template), leaves)
+        if shardings is not None:
+            from repro_torch.core.memkind import Sharding
+
+            flat = tr.flatten(shardings, is_leaf=lambda x: x is None or isinstance(x, Sharding))[0]
+            tree = tr.unflatten(tr.structure(template),
+                                [a if sh is None else sh.put(a) for a, sh in zip(leaves, flat)])
+        return step, tree

@@ -1,4 +1,4 @@
-"""Asynchronous coalesced transfer engine — the paper's host service, on one card.
+"""Asynchronous coalesced transfer engine — the paper's host service.
 
 The paper's runtime (§4) is a host process that serves device channel
 requests; its performance result (§5.1, Table 2) is that the on-demand
@@ -51,8 +51,17 @@ The hazard sanitizer (``EngineConfig(sanitize=True)``, or ``REPRO_SANITIZE=1``
 when unset) checks every keyed transfer: a fetch whose key has a D2H
 writeback still in flight, and a staging buffer reacquired while its copy is
 in flight, raise :class:`~repro_torch.core.schedcheck.HazardError`.
-Multi-device layouts (``ShardedGroupLayout``) are not ported (ROADMAP.md,
-queue 1 item 5: multi-device and tooling).
+
+sharded groups (a mesh)
+    ``submit_group(device_shardings=...)`` stages a group at explicit
+    per-leaf layouts (:class:`~repro_torch.core.memkind.Sharding`).  A
+    DTensor program runs one process per rank, each addressing its own
+    card, so where the JAX package packs one buffer per addressable device,
+    each rank packs its own shard of every leaf into ONE staging buffer
+    (:class:`ShardedGroupLayout`): one H2D request per (rank, group), whose
+    sum over the ranks is the JAX package's count.  The leaves come back as
+    ``DTensor.from_local`` of the landed views, bitwise
+    ``distribute_tensor`` of the host leaf.
 """
 from __future__ import annotations
 
@@ -72,6 +81,7 @@ from repro_torch.core import tree as tr
 from repro_torch.core.arrays import canonical, dtype_name, dtype_of, host_tensor, nbytes
 from repro_torch.core.schedcheck import HazardError, HazardSanitizer, sanitize_enabled
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel.local import full_local, is_dtensor
 
 log = logging.getLogger("repro_torch.engine")
 
@@ -80,9 +90,11 @@ __all__ = [
     "PAPER_EPIPHANY_LINK",
     "EngineConfig",
     "GroupLayout",
+    "ShardedGroupLayout",
     "TransferFuture",
     "AdaptiveDistance",
     "TransferEngine",
+    "flatten_shardings",
     "group_signature",
     "static_auto_distance",
 ]
@@ -290,7 +302,8 @@ class AdaptiveDistance:
 
 
 def _resident(x: Any, device: Optional[torch.device]) -> bool:
-    """A leaf already at the engine's device passes through by reference."""
+    """A leaf already at the engine's device (a DTensor on its mesh too)
+    passes through by reference."""
     return device is not None and isinstance(x, torch.Tensor) and x.device == device
 
 
@@ -416,6 +429,85 @@ class GroupLayout:
         if self.metas:
             for (i, *_), leaf in zip(self.metas, self.views(flat)):
                 out[i] = leaf
+        for i in self.passthrough_idx:
+            out[i] = src_leaves[i]
+        return tr.unflatten(self.treedef, out)
+
+
+def flatten_shardings(device_shardings: Any, n_leaves: int) -> list:
+    """Flatten a shardings tree positionally against a group's leaf list.
+
+    ``None`` entries are kept as leaves (default placement for that
+    position); a single sharding broadcasts over every leaf."""
+    from repro_torch.core.memkind import Sharding
+
+    flat, _ = tr.flatten(device_shardings,
+                         is_leaf=lambda x: x is None or isinstance(x, Sharding))
+    if len(flat) == 1 and n_leaves != 1:
+        flat = flat * n_leaves
+    if len(flat) != n_leaves:
+        raise ValueError(
+            f"device_shardings has {len(flat)} leaves for a group of "
+            f"{n_leaves} leaves"
+        )
+    return flat
+
+
+class ShardedGroupLayout(GroupLayout):
+    """Per-(rank, group) pack/unpack plan for explicitly sharded groups.
+
+    Each host leaf's shard is the rank's index range of its sharding
+    (:meth:`~repro_torch.core.memkind.Sharding.local_slices`, the JAX
+    package's ``addressable_devices_indices_map`` entry); the rank packs
+    all of them into ONE staging buffer at 64-byte-aligned offsets (a
+    replicated leaf contributes a full copy on every rank: exactly the
+    bytes eager sharded placement moves), so a group costs one H2D request
+    a rank.  ``unpack`` views the landed buffer and assembles each leaf
+    with ``DTensor.from_local`` at its global shape and stride, bitwise
+    ``distribute_tensor(leaf, mesh, placements)``; a ``None`` sharding
+    lands the whole leaf as a plain tensor."""
+
+    def __init__(self, group: Pytree, shardings_flat: list, *,
+                 device: Optional[torch.device] = None) -> None:
+        leaves, self.treedef = tr.flatten(group)
+        self.device = device
+        self.n_leaves = len(leaves)
+        self.metas = []
+        self.passthrough_idx = []
+        #: per packed leaf: (global shape, its sharding or None, the rank's slices)
+        self.assembly: list[tuple] = []
+        off = 0
+        for i, (x, sh) in enumerate(zip(leaves, shardings_flat)):
+            if _resident(x, device):
+                self.passthrough_idx.append(i)
+                continue
+            dtype = canonical(dtype_of(x))
+            shape = tuple(x.shape)
+            idx = sh.local_slices(shape) if sh is not None else tuple(slice(0, n) for n in shape)
+            lshape = tuple(sl.stop - sl.start for sl in idx)
+            nb = int(np.prod(lshape, dtype=np.int64)) * torch.empty((), dtype=dtype).element_size()
+            self.metas.append((i, off, lshape, dtype, nb))
+            self.assembly.append((shape, sh, idx))
+            off = _align(off + nb)
+        self.staging_bytes = off
+        #: this rank's H2D payload (unpadded)
+        self.payload_bytes = sum(m[4] for m in self.metas)
+        self.n_packed = len(self.metas)
+
+    def pack_into(self, leaves: list, staging: torch.Tensor) -> torch.Tensor:
+        for (i, *_), (_, _, idx), dst in zip(self.metas, self.assembly, self.views(staging)):
+            dst.copy_(host_tensor(leaves[i])[idx])
+        return staging
+
+    def unpack(self, flat: Optional[torch.Tensor], src_leaves: list) -> Pytree:
+        from torch.distributed.tensor import DTensor
+
+        out: list = [None] * self.n_leaves
+        if self.metas:
+            for (i, *_), (shape, sh, _), leaf in zip(self.metas, self.assembly, self.views(flat)):
+                out[i] = leaf if sh is None else DTensor.from_local(
+                    leaf, sh.mesh, sh.placements, shape=torch.Size(shape),
+                    stride=torch.empty(shape, device="meta").stride(), run_check=False)
         for i in self.passthrough_idx:
             out[i] = src_leaves[i]
         return tr.unflatten(self.treedef, out)
@@ -704,11 +796,13 @@ class TransferEngine:
             pass
 
     # -- layout / staging ----------------------------------------------------
-    def _layout_for_sig(self, sig: tuple, group: Pytree) -> GroupLayout:
+    def _layout_for_sig(self, sig: tuple, group: Pytree, shardings: Optional[list] = None
+                        ) -> GroupLayout:
         """One layout + staging pool per signature."""
         lo = self._layouts.get(sig)
         if lo is None:
-            lo = GroupLayout(group, device=self.device)
+            lo = (GroupLayout(group, device=self.device) if shardings is None
+                  else ShardedGroupLayout(group, shardings, device=self.device))
             self._layouts[sig] = lo
             self._staging_free[sig] = []
         return lo
@@ -826,21 +920,34 @@ class TransferEngine:
         self._disk_tasks.put((ticket, disk_leaves))
         return ticket
 
-    def submit_group(self, index: int, group: Pytree, *, key=None) -> TransferFuture:
+    def submit_group(self, index: int, group: Pytree, *, device_shardings=None,
+                     key=None) -> TransferFuture:
         """Queue the H2D transfer of one group; returns immediately.  Groups
         holding spill-store views also enqueue a stage-1 fetch on the disk
         worker.
 
         ``key`` is the group's logical name (plan group key, KV page key):
         the hazard sanitizer refuses a fetch whose key has a D2H writeback
-        still in flight.  ``key=None`` transfers are unchecked."""
+        still in flight.  ``key=None`` transfers are unchecked.
+
+        ``device_shardings`` (a tree of
+        :class:`~repro_torch.core.memkind.Sharding` matching the group, or
+        one for every leaf; ``None`` entries land whole) stages the rank's
+        shard of each leaf through :class:`ShardedGroupLayout`: still one
+        request a group, and DTensors back.  Only
+        ``EngineConfig(coalesce=False)`` takes the per-leaf route, one
+        request per (leaf, local shard)."""
         if self.sanitizer is not None:
             self.sanitizer.on_fetch(key)
         leaves = tr.leaves(group)
+        sh_flat = (flatten_shardings(device_shardings, len(leaves))
+                   if device_shardings is not None else None)
         consumer = self._consumer_stream()
         if self.config.coalesce:
             sig = group_signature(group, self.device)
-            layout = self._layout_for_sig(sig, group)
+            if sh_flat is not None:
+                sig = ("sharded", sig, tuple(sh_flat))
+            layout = self._layout_for_sig(sig, group, sh_flat)
             fut = TransferFuture(index, layout, leaves, layout.n_requests, layout.payload_bytes,
                                  key=key)
             ticket = self._submit_disk_stage(sig, leaves, fut)
@@ -854,11 +961,18 @@ class TransferEngine:
         total = 0
         disk_files: set = set()
         disk_bytes = 0
-        for x in leaves:
+        for j, x in enumerate(leaves):
             if _resident(x, self.device):
                 continue
             n_host += 1
-            total += nbytes(x)
+            sh = sh_flat[j] if sh_flat is not None else None
+            if sh is None:
+                total += nbytes(x)
+            else:
+                # the host leaf's bytes of the rank's shard (the JAX package's)
+                lshape = [sl.stop - sl.start for sl in sh.local_slices(tuple(x.shape))]
+                total += int(np.prod(lshape, dtype=np.int64)) * \
+                    torch.empty((), dtype=dtype_of(x)).element_size()
             if _is_disk_leaf(x):
                 disk_files.add(getattr(x, "filename", None) or id(x))
                 disk_bytes += nbytes(x)
@@ -866,7 +980,7 @@ class TransferEngine:
         fut.disk_requests = len(disk_files)
         fut.disk_nbytes = disk_bytes
         self._ensure_worker()
-        self._tasks.put(("h2d", fut, group, False, None, None, consumer))
+        self._tasks.put(("h2d", fut, (group, sh_flat), False, None, None, consumer))
         return fut
 
     def submit_writeback(self, index: int, group_out: Pytree, *, key=None) -> _WritebackTicket:
@@ -874,8 +988,14 @@ class TransferEngine:
         immediately.  The copy waits, on the copy stream, for the work the
         calling stream has queued so far (the group's producer).  ``key``
         names the group for the hazard sanitizer: until the ticket drains, a
-        fetch of the same key is a RAW hazard."""
-        leaves = tr.leaves(group_out)
+        fetch of the same key is a RAW hazard.  A DTensor leaf is gathered
+        here, on the calling thread (a collective every rank issues in
+        group order), and drains as its full host value, the JAX package's
+        ``np.asarray`` of a sharded array."""
+        leaves, treedef = tr.flatten(group_out)
+        if any(map(is_dtensor, leaves)):  # a sharded group
+            leaves = [full_local(x) for x in leaves]
+            group_out = tr.unflatten(treedef, leaves)
         ticket = _WritebackTicket(index, len(leaves), sum(nbytes(x) for x in leaves), key=key)
         self._pending_wb.append(ticket)
         if self.sanitizer is not None:
@@ -938,7 +1058,7 @@ class TransferEngine:
                         self._h2d_coalesced(fut, sig, ticket, consumer, link)
                     else:
                         tree = self._retry_loop(
-                            lambda: self._put_per_leaf(group, consumer),
+                            lambda: self._put_per_leaf(*group, consumer),
                             fut, f"H2D per-leaf (group {fut.index})",
                         )
                         ready_at = self._emulate(link, fut.n_requests, fut.nbytes)
@@ -1004,25 +1124,42 @@ class TransferEngine:
             self._release_staging(sig, staging)
         return flat, event
 
-    def _put_per_leaf(self, group: Pytree, consumer):
-        """One attempt of the per-leaf H2D: one copy per host leaf, at the
-        canonical dtype (as ``jax.device_put``)."""
-        def put(x):
+    def _put_per_leaf(self, group: Pytree, shardings: Optional[list], consumer):
+        """One attempt of the per-leaf H2D: one copy per host leaf (its
+        rank's shard under ``shardings``), at the canonical dtype (as
+        ``jax.device_put``)."""
+        def put(x, sh=None):
             if _resident(x, self.device):
                 return x
             t = host_tensor(x)
-            return t.to(device=self.device, dtype=canonical(t.dtype), non_blocking=True, copy=True)
+            if sh is not None:
+                t = t[sh.local_slices(tuple(t.shape))]
+            out = t.to(device=self.device, dtype=canonical(t.dtype), non_blocking=True,
+                       copy=True)
+            if sh is None:
+                return out
+            from torch.distributed.tensor import DTensor
+
+            return DTensor.from_local(out, sh.mesh, sh.placements, shape=x.shape,
+                                      stride=torch.empty(tuple(x.shape), device="meta").stride(),
+                                      run_check=False)
+
+        def put_all():
+            if shardings is None:
+                return tr.tree_map(put, group)
+            leaves, treedef = tr.flatten(group)
+            return tr.unflatten(treedef, [put(x, sh) for x, sh in zip(leaves, shardings)])
 
         if self._copy_stream is None:
-            return tr.tree_map(put, group)
+            return put_all()
         with torch.cuda.stream(self._copy_stream):
-            tree = tr.tree_map(put, group)
+            tree = put_all()
             event = torch.cuda.Event()
             event.record(self._copy_stream)
         event.synchronize()
         for x, t in zip(tr.leaves(group), tr.leaves(tree)):
             if t is not x:
-                t.record_stream(consumer)
+                (t.to_local() if hasattr(t, "to_local") else t).record_stream(consumer)
         return tree
 
     def _get(self, group_out: Pytree, ready) -> Pytree:

@@ -231,7 +231,15 @@ class HostStreamExecutor:
     differ (the weight stream: embed, layer groups, head).  The engine is
     private (``EngineConfig()`` or ``engine_config``) unless one is passed;
     it stages onto ``device`` (the card unless ``"cpu"``).
+
+    ``device_shardings`` (a tree of
+    :class:`~repro_torch.core.memkind.Sharding`, broadcast over every
+    group) stages each group at explicit layouts under a mesh: still one
+    H2D request a (rank, group), the leaves DTensors.  Per-run
+    heterogeneous layouts pass ``group_shardings`` to :meth:`run` instead.
     """
+
+    _UNSET = object()
 
     def __init__(
         self,
@@ -242,10 +250,12 @@ class HostStreamExecutor:
         engine_config: Optional[EngineConfig] = None,
         device: DeviceLike = None,
         indexed: bool = False,
+        device_shardings: Optional[Pytree] = None,
     ) -> None:
         if engine is not None and device is not None and resolve_device(device) != engine.device:
             raise ValueError(f"device {device} differs from the engine's {engine.device}")
         self._apply = apply
+        self._shardings = device_shardings
         self._writeback = writeback
         self._indexed = indexed
         self._engine = engine or TransferEngine(engine_config, device=device)
@@ -271,6 +281,11 @@ class HostStreamExecutor:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    def _submit(self, index: int, group: Pytree, shardings: Any = _UNSET, key=None):
+        if shardings is self._UNSET:
+            shardings = self._shardings
+        return self._engine.submit_group(index, group, device_shardings=shardings, key=key)
+
     def run(
         self,
         carry: Pytree,
@@ -279,10 +294,15 @@ class HostStreamExecutor:
         prefetch: Optional[PrefetchSpec] = None,
         mode: str = "prefetch",
         stats: Optional[StreamStats] = None,
+        group_shardings: Optional[Sequence[Pytree]] = None,
         group_keys: Optional[Sequence[Optional[str]]] = None,
     ) -> tuple[Pytree, Optional[list]]:
         """Execute all groups under the given schedule.  Returns the final
         carry (+ the written-back host groups when ``writeback``).
+
+        ``group_shardings``: optional per-group shardings (one tree per
+        group, ``None`` for default placement), overriding the executor's
+        ``device_shardings`` run by run.
 
         ``group_keys``: optional logical names (one per group) passed to the
         engine's fetches and writebacks, so the hazard sanitizer chains the
@@ -296,6 +316,9 @@ class HostStreamExecutor:
         if mode == "prefetch" and prefetch is None:
             prefetch = PrefetchSpec()
         n = len(groups)
+        if group_shardings is not None and len(group_shardings) != n:
+            raise ValueError(
+                f"group_shardings has {len(group_shardings)} entries for {n} groups")
         if group_keys is not None and len(group_keys) != n:
             raise ValueError(f"group_keys has {len(group_keys)} entries for {n} groups")
         st = stats if stats is not None else StreamStats()
@@ -336,7 +359,10 @@ class HostStreamExecutor:
         def submit(i: int):
             nonlocal live_bytes
             group = groups[i]() if callable(groups[i]) else groups[i]
-            fut = self._engine.submit_group(i, group, key=key_of(i))
+            if group_shardings is None:
+                fut = self._submit(i, group, key=key_of(i))
+            else:  # the per-group override is authoritative (None = default)
+                fut = self._submit(i, group, group_shardings[i], key=key_of(i))
             st.n_transfers += 1
             st.h2d_requests += fut.n_requests
             st.bytes_h2d += fut.nbytes

@@ -272,8 +272,8 @@ class PageStream:
 
     Each fetch passes its key to the engine (``submit_group(key=...)``), so
     the hazard sanitizer refuses a fetch of a page whose demotion writeback
-    is still in flight; device shardings are not passed (one device:
-    ROADMAP.md, queue 1 item 5).
+    is still in flight, and the page shardings (``device_shardings``, under
+    a mesh), so a fetched page group costs one request a (rank, page).
     """
 
     def __init__(
@@ -281,8 +281,10 @@ class PageStream:
         engine: TransferEngine,
         *,
         distance: Union[int, str] = AUTO,
+        device_shardings: Optional[Pytree] = None,
     ) -> None:
         self._engine = engine
+        self._shardings = device_shardings
         self._auto = distance == AUTO
         self._static = None if self._auto else max(1, int(distance))
         self._controllers: dict[int, AdaptiveDistance] = {}
@@ -309,7 +311,7 @@ class PageStream:
         return ctl.distance
 
     def _submit(self, key: str, tree: Pytree):
-        fut = self._engine.submit_group(self._seq, tree, key=key)
+        fut = self._engine.submit_group(self._seq, tree, device_shardings=self._shardings, key=key)
         self._seq += 1
         self._inflight[key] = fut
         return fut
@@ -445,10 +447,15 @@ class KVPager:
         slots: int,
         engine: TransferEngine,
         store=None,
+        device_shardings: Optional[Pytree] = None,
     ) -> None:
         """``cache_template``: per-slot cache tree on the meta device (batch
         dim 1, context dim = the padded maximum length, a multiple of
-        ``page_len``).  Pages live on the engine's device."""
+        ``page_len``).  Pages live on the engine's device.
+        ``device_shardings``: under a mesh, a tree of
+        :class:`~repro_torch.core.memkind.Sharding` congruent with one page
+        (:func:`page_template`); cold pages are fetched at these layouts and
+        device pages are DTensors (each rank its own shard)."""
         if not paged_cache_supported(cache_template):
             raise ValueError(
                 "paged KV serving requires a full-attention k/v cache "
@@ -475,9 +482,13 @@ class KVPager:
         self._zero_page = tr.tree_map(
             lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device), page_shapes
         )
+        if device_shardings is not None:
+            self._zero_page = tr.tree_map(lambda z, sh: sh.put(z), self._zero_page,
+                                          device_shardings)
         self.tables: dict[int, PageTable] = {}
         self._by_slot: dict[int, PageTable] = {}
-        self.stream = PageStream(engine, distance=config.distance)
+        self.stream = PageStream(engine, distance=config.distance,
+                                 device_shardings=device_shardings)
         self._wb_seq = 0
         self._pending_demotions: list[tuple[PageTable, int]] = []
         self.demoted_groups = 0

@@ -1,4 +1,4 @@
-"""Memory kinds for hierarchical memory placement (paper §3.2) on one card.
+"""Memory kinds for hierarchical memory placement (paper §3.2).
 
 The paper's ``Host`` / ``Shared`` / ``Microcore`` *kind* objects declare where
 in the hierarchy a tensor lives; kernels receive references whatever the
@@ -36,7 +36,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import tree as tr
-from repro_torch.core.arrays import host_tensor
+from repro_torch.core.arrays import canonical, host_tensor
 from repro_torch.device import DeviceLike, resolve_device
 
 __all__ = [
@@ -209,12 +209,131 @@ def _place_leaf(x: Any, kind: MemKind, dev: torch.device) -> torch.Tensor:
     return out
 
 
-def place(tree: Any, kind: "MemKind | str" = DEVICE, device: DeviceLike = None) -> Any:
+def place(tree: Any, kind: Any = DEVICE, device: Any = None, mesh_kind: Any = None) -> Any:
     """Put every leaf of ``tree`` (tensors or numpy arrays) at a hierarchy
-    level for ``device``.  A leaf already there is returned as it is."""
+    level for ``device``.  A leaf already there is returned as it is.
+
+    ``place(tree, mesh, specs, kind)`` (the JAX package's form: a
+    ``DeviceMesh`` second) places under a mesh instead: ``specs`` is a
+    matching tree of :class:`~repro_torch.parallel.sharding.P` (or one spec
+    for every leaf) and each leaf goes to :func:`sharding_for` ``(mesh,
+    spec, kind)`` (:meth:`Sharding.put`)."""
+    if _is_mesh(kind):
+        from repro_torch.parallel.sharding import P
+
+        mesh, specs = kind, device
+        level = mesh_kind if mesh_kind is not None else DEVICE
+        if isinstance(specs, P):
+            return tr.tree_map(sharding_for(mesh, specs, level).put, tree)
+        flat, treedef = tr.flatten(specs, is_leaf=lambda s: isinstance(s, P))
+        shardings = tr.unflatten(treedef, [sharding_for(mesh, s, level) for s in flat])
+        return tr.tree_map(lambda x, s: s.put(x), tree, shardings)
     dev = resolve_device(device)
     kind = resolve_kind(kind, device=dev)
     return tr.tree_map(lambda x: _place_leaf(x, kind, dev), tree)
+
+
+# ---------------------------------------------------------------------------
+# Placement under a mesh
+# ---------------------------------------------------------------------------
+#
+# A DTensor program runs one process per rank, each addressing its own
+# device only, so a placement under a mesh is each rank's shard.  At the
+# device kind that is a DTensor.  At a host kind it is the rank's local
+# shard at that level with its placement (:class:`HostShard`): never a
+# DTensor, because ``DTensor.from_local`` moves a local tensor of another
+# device type onto the mesh's device.  Only the card's side (the engine,
+# ``Sharding.put`` at the device kind) makes the DTensor.
+
+
+def _is_mesh(x: Any) -> bool:
+    return hasattr(x, "mesh_dim_names") and hasattr(x, "device_type")
+
+
+@dataclasses.dataclass(frozen=True)
+class HostShard:
+    """The rank's shard of a ``shape``-shaped leaf held at a host level:
+    ``local`` (a CPU tensor, page-locked at ``PinnedHost``) laid out by
+    ``sharding``."""
+
+    local: torch.Tensor
+    sharding: "Sharding"
+    shape: tuple
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A leaf's layout under a mesh at a hierarchy level: the port's
+    ``NamedSharding(mesh, spec, memory_kind=...)``.  ``placements`` are the
+    DTensor placements of the spec on ``mesh``."""
+
+    mesh: Any
+    placements: tuple
+    kind: MemKind = DEVICE
+
+    def local_slices(self, shape) -> tuple:
+        """The rank's index range of a ``shape``-shaped leaf (its
+        ``addressable_devices_indices_map`` entry)."""
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        lshape, off = compute_local_shape_and_global_offset(tuple(shape), self.mesh,
+                                                            self.placements)
+        return tuple(slice(o, o + n) for o, n in zip(off, lshape))
+
+    def local_of(self, x: Any) -> torch.Tensor:
+        """The rank's shard of ``x`` (a full host or device value, a
+        DTensor, or a :class:`HostShard`) as a plain tensor, at this
+        layout."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, HostShard):
+            if tuple(x.sharding.placements) == tuple(self.placements):
+                return x.local
+            x = DTensor.from_local(x.local.to(self.mesh.device_type), x.sharding.mesh,
+                                   x.sharding.placements, shape=torch.Size(x.shape),
+                                   stride=torch.empty(x.shape, device="meta").stride(),
+                                   run_check=False)
+        if isinstance(x, DTensor):
+            if tuple(x.placements) != tuple(self.placements):
+                x = x.redistribute(self.mesh, self.placements)
+            return x.to_local()
+        t = host_tensor(x)
+        return t[self.local_slices(t.shape)]
+
+    def put(self, x: Any) -> Any:
+        """``x`` at this sharding: a DTensor at the device kind (the engine's
+        ``DTensor.from_local`` of the local shard), else a
+        :class:`HostShard` at the host level."""
+        from torch.distributed.tensor import DTensor
+
+        shape = tuple(x.shape)
+        part = self.local_of(x)
+        if self.kind.jax_kind == "device":
+            dev = torch.device(self.mesh.device_type, torch.cuda.current_device()) \
+                if self.mesh.device_type == "cuda" else torch.device(self.mesh.device_type)
+            t = part.to(device=dev, dtype=canonical(part.dtype)).contiguous()
+            return DTensor.from_local(t, self.mesh, self.placements, shape=torch.Size(shape),
+                                      stride=torch.empty(shape, device="meta").stride(),
+                                      run_check=False)
+        # page-locked memory needs a card: a CPU mesh keeps pageable shards
+        level = self.kind if self.mesh.device_type == "cuda" else UNPINNED_HOST
+        return HostShard(_place_leaf(part, level, torch.device("cpu")).contiguous(), self, shape)
+
+
+def sharding_for(mesh: Any, spec: Any, kind: "MemKind | str" = DEVICE) -> Sharding:
+    """The :class:`Sharding` of ``spec`` on ``mesh`` at level ``kind`` (a
+    ``DiskHost`` kind stages at its host kind, as the JAX package's
+    ``resolve_kind``)."""
+    from repro_torch.parallel.sharding import placements
+
+    kind = as_kind(kind)
+    if not kind.jax_addressable:
+        kind = as_kind(kind.staging_jax_kind)
+    return Sharding(mesh, placements(mesh, spec), kind)
 
 
 # ---------------------------------------------------------------------------

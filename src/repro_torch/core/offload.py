@@ -1,4 +1,4 @@
-"""The ``@offload`` decorator — paper Listings 1-3, on one card.
+"""The ``@offload`` decorator — paper Listings 1-3.
 
 Paper semantics: decorating a function with ``@offload`` makes calls
 execute on the accelerator; arguments are passed **by reference** and the
@@ -6,7 +6,8 @@ runtime moves data according to each argument's memory kind and optional
 prefetch annotation.
 
 Here "the accelerator" is one CUDA device (the CPU only when the caller
-passes ``device="cpu"``).  Each argument is placed at its declared level
+passes ``device="cpu"``), and an argument with a ``spec`` is placed on a
+mesh over the ranks (:meth:`OffloadedFunction.mesh`).  Each argument is placed at its declared level
 (:func:`repro_torch.core.memkind.place`); host-kind arguments annotated with
 a ``PrefetchSpec`` are streamed block-wise through the device
 (:func:`repro_torch.core.prefetch.stream_blocks`) instead of bulk-copied.
@@ -41,6 +42,18 @@ from repro_torch.device import DeviceLike, resolve_device
 __all__ = ["offload", "OffloadedFunction"]
 
 
+def _default_mesh(device: torch.device):
+    """A ``("data",)`` mesh over every rank (a one-rank group is opened
+    when there is none)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
+    return init_device_mesh(device.type, (dist.get_world_size(),), mesh_dim_names=("data",))
+
+
 class OffloadedFunction:
     """Callable produced by ``@offload``.  Keeps the paper's behaviours:
 
@@ -53,11 +66,12 @@ class OffloadedFunction:
     """
 
     def __init__(self, fn: Callable[..., Any], refs: Mapping[str, OffloadRef],
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None, mesh=None) -> None:
         functools.update_wrapper(self, fn)
         self._fn = fn
         self._refs = dict(refs)
         self._device = device
+        self._mesh = mesh
         self._signature = inspect.signature(fn)
         self._params = list(self._signature.parameters)
         unknown = set(refs) - set(self._params)
@@ -73,13 +87,32 @@ class OffloadedFunction:
     def device(self) -> torch.device:
         return resolve_device(self._device)
 
+    def mesh(self):
+        """The mesh the sharded (``spec``) arguments are placed on: the one
+        given, else a ``("data",)`` mesh over the ranks (the JAX package's
+        ``_default_mesh``)."""
+        if self._mesh is None:
+            self._mesh = _default_mesh(self.device())
+        return self._mesh
+
     def _ref(self, name: str) -> OffloadRef:
         return self._refs.get(name, OffloadRef())
 
+    def _sharded(self, name: str) -> bool:
+        return self._ref(name).spec is not None
+
+    def _sharding(self, name: str, kind) -> mk.Sharding:
+        from repro_torch.parallel.sharding import P
+
+        return mk.sharding_for(self.mesh(), P(*self._ref(name).spec), kind)
+
     def place(self, name: str, value: Any) -> Any:
-        """Put ``value`` at the argument's declared hierarchy level."""
+        """Put ``value`` at the argument's declared hierarchy level (a
+        sharded argument at its sharding: each rank's shard)."""
         if name not in self._params:
             raise ValueError(f"{name!r} is not an argument of {self._fn.__name__}")
+        if self._sharded(name):
+            return tr.tree_map(self._sharding(name, self._ref(name).kind).put, value)
         return mk.place(value, self._ref(name).kind, self.device())
 
     # -- invocation ----------------------------------------------------------
@@ -87,10 +120,15 @@ class OffloadedFunction:
         bound = self._signature.bind(*args, **kwargs)
         bound.apply_defaults()
         dev = self.device()
-        # materialize at home kinds (pass-by-reference: host args stay host)
-        placed = {n: self.place(n, v) for n, v in bound.arguments.items()}
         stream_names = [n for n in self._params if streamed and self._ref(n).streamed]
-        fixed = {n: pf.eager_transfer(v, dev) for n, v in placed.items() if n not in stream_names}
+        # materialize at home kinds (pass-by-reference: host args stay host);
+        # a streamed sharded argument stays whole at its home kind and
+        # lands chunk by chunk at its sharding
+        placed = {n: (mk.place(v, self._ref(n).kind, dev) if n in stream_names
+                      else self.place(n, v)) for n, v in bound.arguments.items()}
+        fixed = {n: (tr.tree_map(self._sharding(n, mk.DEVICE).put, v) if self._sharded(n)
+                     else pf.eager_transfer(v, dev))
+                 for n, v in placed.items() if n not in stream_names}
         if not stream_names:
             return self._fn(**fixed)
         # streamed refs are processed block-wise over their leading axis (all
@@ -100,8 +138,15 @@ class OffloadedFunction:
         def block_fn(*blocks):
             return self._fn(**fixed, **dict(zip(stream_names, blocks)))
 
+        rows = None
+        if any(self._sharded(n) for n in stream_names):
+            from repro_torch.parallel.sharding import P
+
+            # a chunk's layout: the spec's row part, the chunk axis unsharded
+            rows = [mk.sharding_for(self.mesh(), P(*self._ref(n).spec[1:]), mk.DEVICE)
+                    if self._sharded(n) else None for n in stream_names]
         return pf.stream_blocks(block_fn, tuple(placed[n] for n in stream_names),
-                                prefetch=spec, device=dev)
+                                prefetch=spec, device=dev, device_shardings=rows)
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
         return self._call(True, *args, **kwargs)
@@ -211,7 +256,7 @@ class OffloadedFunction:
     def lower(self, *args: Any, **kwargs: Any):
         raise NotImplementedError(
             "OffloadedFunction.lower is the dry-run's path; the dry-run is not ported "
-            "(ROADMAP.md, queue 1 item 5: multi-device and tooling)"
+            "(ROADMAP.md, queue 1 item 5e: the dry-run)"
         )
 
 
@@ -220,11 +265,14 @@ def offload(
     *,
     refs: Optional[Mapping[str, OffloadRef]] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> Any:
-    """Decorate a function for offload to ``device`` (the card by default)."""
+    """Decorate a function for offload to ``device`` (the card by default);
+    arguments with a ``spec`` are placed on ``mesh`` (default: a
+    ``("data",)`` mesh over the ranks)."""
 
     def wrap(f: Callable[..., Any]) -> OffloadedFunction:
-        return OffloadedFunction(f, refs or {}, device)
+        return OffloadedFunction(f, refs or {}, device, mesh)
 
     if fn is not None:
         return wrap(fn)

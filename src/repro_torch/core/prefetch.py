@@ -13,6 +13,11 @@ Chunk = ``elements_per_fetch`` consecutive rows (layers, blocks) of the
 streamed leading axis — the paper's chunked transfers.  The values never
 depend on ``(distance, elements_per_fetch)``: the same function runs on the
 same rows in the same order; only the copy schedule changes.
+
+Under a mesh, ``device_shardings`` gives each streamed row's layout (a
+tree of :class:`~repro_torch.core.memkind.Sharding`); a chunk lands at it
+with the chunk's leading axis unsharded (the JAX package's leading
+``None``), each rank copying its own shard.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from repro_torch.core.refspec import PrefetchSpec
 from repro_torch.device import DeviceLike, resolve_device
 
 __all__ = [
+    "chunk_shardings",
     "fetch_chunk",
     "eager_transfer",
     "streamed_scan",
@@ -42,12 +48,40 @@ def _to_device(x: Any, device: torch.device) -> torch.Tensor:
     return t if t.device == device else t.to(device, non_blocking=True)
 
 
-def fetch_chunk(stacked: Pytree, idx: "int | slice", device: DeviceLike = None) -> Pytree:
+def fetch_chunk(stacked: Pytree, idx: "int | slice", device: DeviceLike = None,
+                shardings: Optional[Pytree] = None) -> Pytree:
     """On-demand fetch of one chunk: host-side slice + explicit H2D copy
     (the paper's §4 "blocking calls, to copy data on or off the device").
-    Leaves already on ``device`` are only sliced."""
+    Leaves already on ``device`` are only sliced.  ``shardings`` (chunk
+    layouts, :func:`chunk_shardings`) land the rank's shard of each leaf as
+    a DTensor."""
     dev = resolve_device(device)
-    return tr.tree_map(lambda a: _to_device(host_tensor(a)[idx], dev), stacked)
+    if shardings is None:
+        return tr.tree_map(lambda a: _to_device(host_tensor(a)[idx], dev), stacked)
+    return tr.tree_map(lambda a, sh: _to_device(host_tensor(a)[idx], dev) if sh is None
+                       else sh.put(host_tensor(a)[idx]), stacked, shardings)
+
+
+def chunk_shardings(row_shardings: Optional[Pytree]) -> Optional[Pytree]:
+    """Each row layout with a leading unsharded chunk axis: every
+    ``Shard(d)`` becomes ``Shard(d + 1)`` (the JAX package's
+    ``PartitionSpec(None, *spec)``)."""
+    if row_shardings is None:
+        return None
+    import dataclasses
+
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.core.memkind import Sharding
+
+    def shift(sh):
+        if sh is None:
+            return None
+        return dataclasses.replace(sh, placements=tuple(
+            Shard(p.dim + 1) if isinstance(p, Shard) else p for p in sh.placements))
+
+    flat, treedef = tr.flatten(row_shardings, is_leaf=lambda x: x is None or isinstance(x, Sharding))
+    return tr.unflatten(treedef, [shift(x) for x in flat])
 
 
 def eager_transfer(stacked: Pytree, device: DeviceLike = None) -> Pytree:
@@ -72,7 +106,8 @@ def _ring(fetch: Callable[[int], Pytree], n_chunks: int, d: int,
             event = torch.cuda.Event()
             event.record(copy)
         for t in tr.leaves(chunk):
-            t.record_stream(compute)  # read there: no reuse before it is done
+            # read there: no reuse before it is done
+            (t.to_local() if hasattr(t, "to_local") else t).record_stream(compute)
         return chunk, event
 
     pending = deque(issue(c) for c in range(min(d, n_chunks)))
@@ -99,6 +134,7 @@ def streamed_scan(
     prefetch: PrefetchSpec,
     device: DeviceLike = None,
     length: Optional[int] = None,
+    device_shardings: Optional[Pytree] = None,
 ) -> tuple[Pytree, Pytree]:
     """A scan over stacked (leading-axis ``L``) parameters with streaming.
 
@@ -107,6 +143,8 @@ def streamed_scan(
     (``prefetch.elements_per_fetch`` layers per transfer) through a ring of
     ``distance`` chunks in flight.  Returns ``(final_carry, ys)`` with
     ``ys`` stacked on axis 0 (``None`` if the body returns no ``y``).
+    ``device_shardings``: each layer's layout under a mesh (the chunks land
+    at :func:`chunk_shardings` of it).
     """
     leaves = tr.leaves(stacked_params)
     if not leaves:
@@ -118,7 +156,8 @@ def streamed_scan(
     n_chunks = n_layers // g
     dev = resolve_device(device)
     carry, ys = init_carry, []
-    fetch = lambda c: fetch_chunk(stacked_params, slice(c * g, (c + 1) * g), dev)  # noqa: E731
+    csh = chunk_shardings(device_shardings)
+    fetch = lambda c: fetch_chunk(stacked_params, slice(c * g, (c + 1) * g), dev, csh)  # noqa: E731
     for chunk in _ring(fetch, n_chunks, _distance(prefetch, n_chunks), dev):
         for j in range(g):
             carry, y = body_fn(carry, tr.tree_map(lambda a: a[j], chunk))
@@ -134,9 +173,11 @@ def stream_blocks(
     *,
     prefetch: PrefetchSpec,
     device: DeviceLike = None,
+    device_shardings: Optional[Sequence[Pytree]] = None,
 ) -> Pytree:
     """Chunked map over the leading axis of host-resident arrays — the
     paper's Listing-2 pattern (kernels over data larger than the device).
+    ``device_shardings``: one row layout per argument under a mesh.
 
     ``fn(*blocks) -> out_block`` is applied to aligned blocks of
     ``prefetch.elements_per_fetch`` rows (fn sees the whole block); the
@@ -149,6 +190,8 @@ def stream_blocks(
         raise ValueError(f"leading axis {n} not divisible by elements_per_fetch={g}")
     n_chunks = n // g
     dev = resolve_device(device)
-    fetch = lambda c: fetch_chunk(tuple(args), slice(c * g, (c + 1) * g), dev)  # noqa: E731
+    csh = (tuple(chunk_shardings(s) for s in device_shardings)
+           if device_shardings is not None else None)
+    fetch = lambda c: fetch_chunk(tuple(args), slice(c * g, (c + 1) * g), dev, csh)  # noqa: E731
     outs = [fn(*block) for block in _ring(fetch, n_chunks, _distance(prefetch, n_chunks), dev)]
     return tr.tree_map(lambda *xs: torch.cat(xs), *outs)

@@ -96,9 +96,11 @@ class OffloadRef:
     The argument is passed to the device *by reference*: the kernel sees the
     data, but only chunk-sized pieces occupy device memory when ``kind`` is
     a host kind and ``prefetch`` streaming is active.  ``spec`` is the JAX
-    package's partition spec; the port places on one device, so only
-    ``None`` (the whole tensor) is taken — sharding is ROADMAP.md queue 1
-    item 5 (multi-device and tooling).
+    package's partition spec (a tuple of mesh axis names, as
+    :class:`~repro_torch.parallel.sharding.P`): the argument is placed by
+    :func:`~repro_torch.core.memkind.sharding_for` on the function's mesh,
+    each rank holding its shard; ``None`` places the whole tensor on the
+    function's device, without a mesh.
     """
 
     kind: mk.MemKind = mk.DEVICE
@@ -112,11 +114,6 @@ class OffloadRef:
             raise ValueError(
                 "prefetch streaming only applies to host-resident arguments; "
                 "device-kind arguments are already at the fast tier"
-            )
-        if self.spec is not None:
-            raise NotImplementedError(
-                "OffloadRef(spec=...) shards an argument; sharding is not ported "
-                "(ROADMAP.md, queue 1 item 5: multi-device and tooling)"
             )
 
     @property

@@ -49,8 +49,9 @@ Where the data lives never changes what is computed: the streamed steps run
 the model's own layer body on the landed groups, so streamed runs are
 bitwise the device-resident run's.
 
-Not ported here: per-group shardings need a mesh (ROADMAP.md, queue 1
-item 5).
+Under a mesh the plan maps a full-params tree of shardings onto its
+groups (:meth:`WeightStreamPlan.group_shardings`): the streamed steps stage
+each group at its layout, each rank its own shard.
 """
 from __future__ import annotations
 
@@ -84,10 +85,6 @@ _KEY_PREFIX = "wp"
 
 #: expert tensor names inside a block's ``moe`` subtree (``wg`` only when gated)
 _EXPERT_NAMES = ("wi", "wo", "wg")
-
-_SHARDINGS = ("per-group shardings need a mesh (ROADMAP.md, queue 1 item 5: "
-              "multi-device and tooling)")
-
 
 @dataclasses.dataclass(frozen=True)
 class WeightStreamSupport:
@@ -673,17 +670,59 @@ class WeightStreamPlan:
         return home, embed
 
     # ------------------------------------------------------------ shardings
+    @staticmethod
+    def _drop_expert_axis(sh):
+        """Sharding for an expert group's ``(1, d, f)`` leaves derived from
+        the stacked ``(L, E, d, f)`` leaf's: the expert axis (axis 1) leaves
+        the layout (a mesh dim that sharded it replicates), the later dims
+        move down by one."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        def drop(p):
+            if not isinstance(p, Shard):
+                return p
+            if p.dim == 1:
+                return Replicate()
+            return Shard(p.dim - 1) if p.dim > 1 else p
+
+        return dataclasses.replace(sh, placements=tuple(drop(p) for p in sh.placements))
+
+    def _group_sharding(self, g: WeightGroup, p_shardings, *, fetch: bool):
+        if g.kind == "embed":
+            return {k: p_shardings[k] for k in self.embed_keys}
+        if g.kind == "head":
+            tree = {k: p_shardings[k] for k in self.head_home_keys}
+            if fetch and self.head_reads_embed:
+                tree = dict(tree)
+                tree["embed"] = p_shardings["embed"]  # the tied head's borrowed table
+            return tree
+        if g.kind == "expert":
+            moe = p_shardings["blocks"]["moe"]
+            return {n: self._drop_expert_axis(moe[n]) for n in self.expert_names}
+        if g.kind == "period":
+            return p_shardings["blocks"]["periods"]
+        if g.kind == "block":
+            return {n: p_shardings["blocks"][n] for n in self.block_names(g)}
+        if self.expert_stream:
+            return self._strip_experts(p_shardings["blocks"])
+        return p_shardings["blocks"]
+
     def group_shardings(self, p_shardings: Optional[Pytree]):
-        """Per-fetch-group shardings: ``None`` on one device."""
+        """Per-fetch-group sharding trees from a full-params tree of
+        :class:`~repro_torch.core.memkind.Sharding` (``None`` without a
+        mesh).  Slicing a stacked leaf keeps its rank, so the blocks' layout
+        applies to every layer group unchanged; expert groups drop the
+        expert axis; the tied head's fetch group borrows ``embed``'s."""
         if p_shardings is None:
             return None
-        raise NotImplementedError(f"group_shardings: {_SHARDINGS}")
+        return [self._group_sharding(g, p_shardings, fetch=True) for g in self.groups]
 
     def home_group_shardings(self, p_shardings: Optional[Pytree]):
-        """Home-order shardings: ``None`` on one device."""
+        """Home-order sharding trees (no tied-embed aliasing): the layouts
+        the optimizer pass stages gradients and moments at."""
         if p_shardings is None:
             return None
-        raise NotImplementedError(f"home_group_shardings: {_SHARDINGS}")
+        return [self._group_sharding(g, p_shardings, fetch=False) for g in self.groups]
 
     # ------------------------------------------------------------- spilling
     def spill_key(self, g: WeightGroup) -> str:
@@ -717,16 +756,18 @@ class WeightStreamPlan:
                     device: DeviceLike = None) -> dict:
         """Every home group placed on ``device`` (the card unless ``"cpu"``):
         the ``param_kind="device"`` baseline, whose fetch groups pass through
-        the engine by reference."""
-        self.home_group_shardings(p_shardings)
+        the engine by reference.  With ``p_shardings`` each group lands as
+        DTensors at its home layout (each rank's shard)."""
+        shardings = self.home_group_shardings(p_shardings)
         dev = resolve_device(device)
-        return {
-            "groups": {
-                g.key: tr.tree_map(lambda x: host_tensor(x).to(dev, copy=True),
-                                   home["groups"][g.key])
-                for g in self.groups
-            }
-        }
+        groups = {}
+        for i, g in enumerate(self.groups):
+            tree = home["groups"][g.key]
+            if shardings is None:
+                groups[g.key] = tr.tree_map(lambda x: host_tensor(x).to(dev, copy=True), tree)
+            else:
+                groups[g.key] = tr.tree_map(lambda x, sh: sh.put(x), tree, shardings[i])
+        return {"groups": groups}
 
     def __repr__(self) -> str:  # pragma: no cover - trivial
         return (

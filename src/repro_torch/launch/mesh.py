@@ -11,15 +11,49 @@ already initialised, real or fake (``init_process_group("fake", ...)``
 gives shape-only ranks in one process, the counterpart of the JAX
 package's placeholder devices); :func:`make_local_mesh` spans the ranks
 that exist, opening a one-rank group over a ``HashStore`` when there is
-none.
+none.  :func:`init_from_env` joins the group ``torchrun`` describes, as the
+launchers do.
 """
 from __future__ import annotations
 
+import datetime
 import math
+import os
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
+
+#: how long a rank waits for the others at the rendezvous and at every
+#: collective before it fails (a hung peer fails the run, not the machine)
+GROUP_TIMEOUT_S = 60
+
+
+def init_from_env(device: DeviceLike = None, timeout_s: float = GROUP_TIMEOUT_S) -> bool:
+    """Join the process group that ``torchrun`` describes in the
+    environment (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``/``MASTER_PORT``;
+    ``torchrun --standalone`` on localhost): NCCL on the card, each rank on
+    its ``LOCAL_RANK`` card, gloo with ``device="cpu"``.  Returns False, and
+    opens nothing, when the environment names no group (a plain
+    ``python -m`` run); True when a group exists afterwards."""
+    if dist.is_initialized():
+        return True
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    device_type = torch.device("cuda" if device is None else device).type
+    if device_type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    resolve_device(device)
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo", init_method="env://",
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    return True
+
+
+def is_rank0() -> bool:
+    """True without a group and on rank 0 of one: the rank that writes
+    files and logs."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = None):

@@ -1,4 +1,4 @@
-"""Greedy-decode serving on one card: paged KV caches over memory kinds.
+"""Greedy-decode serving: paged KV caches over memory kinds.
 
 The counterpart of the JAX package's ``repro/launch/serve.py``.
 
@@ -84,7 +84,10 @@ from repro_torch.core.residency import ResidencyCache
 from repro_torch.core.spillstore import SpillStore
 from repro_torch.core.weightstream import PARAM_KINDS, WeightStreamPlan, weight_stream_support
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.layers import ParamTree
+from repro_torch.parallel import local
+from repro_torch.parallel import sharding as sh
 from repro_torch.train import steps as st
 
 KV_KINDS = ("device", "pinned_host", "disk_host")
@@ -169,8 +172,32 @@ def lock_step(cfg) -> bool:
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
     """The last position's greedy tokens: (B,) int32, or (B, K) from a
-    codebook model's (B, K, S, V) logits."""
-    return logits[..., -1, :].argmax(dim=-1).to(torch.int32)
+    codebook model's (B, K, S, V) logits (a mesh's DTensor logits are
+    gathered first: every rank emits the same tokens)."""
+    return local.full_local(logits[..., -1, :]).argmax(dim=-1).to(torch.int32)
+
+
+def _serve_layout(cfg, mesh, slots: int, params):
+    """``(plan, sharder, params)`` of the serve plan on ``mesh``: device
+    weights placed at its specs (each rank its own shard); a plan home, or
+    ``params=None``, passes.  ``(None, None, params)`` without a mesh."""
+    if mesh is None:
+        return None, None, params
+    plan = sh.make_plan(mesh, mode="serve")
+    sharder = sh.make_sharder(plan, st.abstract_params(cfg), slots)
+    if params is not None and "groups" not in params:
+        tree = params.as_dict() if isinstance(params, ParamTree) else params
+        params = tr.tree_map(lambda x, s: s.put(x), tree,
+                             sh.named_shardings(mesh, sh.param_specs(plan, tree)))
+    return plan, sharder, params
+
+
+def _stream_shardings(cfg, plan, mesh):
+    """Streamed weights stage at the serve plan's layouts above one rank
+    (the JAX package's ``mesh.devices.size > 1``)."""
+    if mesh is None or mesh.size() == 1:
+        return None
+    return sh.named_shardings(mesh, sh.param_specs(plan, st.abstract_params(cfg)))
 
 
 def _prompt_batch(cfg, tokens: torch.Tensor) -> dict:
@@ -289,6 +316,12 @@ class ServeSession:
     (with a streamed ``param_kind``) decodes router-first and fetches only
     the routed experts (all of them with ``route_experts=False``), counted
     in ``expert_stats``.
+
+    ``mesh`` (a ``DeviceMesh``, one process per rank) serves under the
+    serve plan: the weights at its specs, the Sharder in the layer body,
+    the pages at its cache specs (cold pages fetched at them, one request a
+    (rank, page)), streamed weights at its layouts above one rank; every
+    rank emits the same tokens.
     """
 
     def __init__(
@@ -314,6 +347,7 @@ class ServeSession:
         prefix_sharing: bool = True,
         params: Optional[ParamTree] = None,
         device: DeviceLike = None,
+        mesh=None,
     ) -> None:
         self.cfg = cfg
         self.slots = slots
@@ -433,6 +467,8 @@ class ServeSession:
             del params
         else:
             self.params = params if params is not None else st.init_params(cfg, seed, self.device)
+        self.mesh = mesh
+        self.plan, self.sharder, self.params = _serve_layout(cfg, mesh, slots, self.params)
 
         self._engine = engine or TransferEngine(engine_cfg, device=self.device)
         self._owns_engine = engine is None
@@ -443,22 +479,28 @@ class ServeSession:
                 if ephemeral:
                     spill_dir = tempfile.mkdtemp(prefix="repro-torch-serve-kv-")
                 self._store = SpillStore(spill_dir, ephemeral=ephemeral)
+            # cold pages stage at the serve plan's cache specs, derived on
+            # the page's shape
+            page_sh = None if mesh is None else sh.named_shardings(
+                mesh, sh.cache_specs_tree(self.plan, page_template(template, page_len), 1))
             self.pager = KVPager(template, pager_cfg, slots=slots, engine=self._engine,
-                                 store=self._store)
+                                 store=self._store, device_shardings=page_sh)
+            msh = dict(mesh=mesh, sharder=self.sharder)
             if self._wplan is not None:
                 # the decode step consumes the landed groups by reference:
                 # where the weights live never changes the tokens
                 param_pf = _param_prefetch(self._wplan, param_distance)
                 kw = dict(engine=self._engine, stats=self.param_stats, prefetch=param_pf,
-                          residency=self.param_residency)
+                          residency=self.param_residency, **msh,
+                          param_shardings=_stream_shardings(cfg, self.plan, mesh))
                 self._prefill = st.make_weight_streamed_prefill_step(
                     cfg, self._wplan, 1, self.max_len, **kw)
                 self._step = st.make_weight_streamed_decode_step(
                     cfg, self._wplan, paged=True, route_experts=route_experts, **kw)
                 self.expert_stats = self._step.expert_stats
             else:
-                self._prefill = st.make_prefill_step(cfg, 1, self.max_len)
-                self._step = st.make_paged_decode_step(cfg)
+                self._prefill = st.make_prefill_step(cfg, 1, self.max_len, **msh)
+                self._step = st.make_paged_decode_step(cfg, **msh)
         except BaseException:
             # the no-leak contract: anything that fails after the engine
             # thread / spill dir exist tears them down
@@ -717,6 +759,7 @@ def serve_loop(
     expert_stream: bool = False,
     route_experts: bool = True,
     spill_dir: Optional[str] = None,
+    mesh=None,
 ) -> dict:
     """Serve one greedy request per row of ``prompts`` ((B, S) int32) for
     ``gen`` tokens with ``params`` on ``device``, on the unpaged path.
@@ -741,6 +784,9 @@ def serve_loop(
     ``route_experts=False``); ``expert_stats`` counts their traffic, and
     ``expert_decode_bytes`` / ``expert_decode_fetches`` its part in the
     timed decode loop (the warm-up step's fetches excluded).
+
+    ``mesh``: the serve plan's layouts (:class:`ServeSession`); the caches
+    round-trip at its cache specs at every kind.
     """
     kind = mk.as_kind(kv_kind)
     if kind == mk.DISK_HOST:
@@ -780,7 +826,10 @@ def serve_loop(
             str(Path(spill_dir) / "params") if spill_dir is not None else None)
         residency = ResidencyCache(cache_cap)
         param_pf = _param_prefetch(wplan, param_distance)
-        kw = dict(engine=engine, stats=param_stats, prefetch=param_pf, residency=residency)
+        plan, sharder, _ = _serve_layout(cfg, mesh, batch, None)
+        kw = dict(engine=engine, stats=param_stats, prefetch=param_pf, residency=residency,
+                  mesh=mesh, sharder=sharder,
+                  param_shardings=_stream_shardings(cfg, plan, mesh))
         decode_fn = st.make_weight_streamed_decode_step(cfg, wplan, paged=False,
                                                         route_experts=route_experts, **kw)
 
@@ -789,14 +838,17 @@ def serve_loop(
     else:
         if params is None:
             params = st.init_params(cfg, seed, device)
-        decode_fn = st.make_decode_step(cfg)
-        make_prefill = None
+        plan, sharder, params = _serve_layout(cfg, mesh, batch, params)
+        decode_fn = st.make_decode_step(cfg, mesh, sharder)
+        make_prefill = None if mesh is None else (
+            lambda b: st.make_prefill_step(cfg, b, max_len, mesh, sharder))
     prompts_t = torch.tensor(np.asarray(prompts), dtype=torch.long, device=device)
     try:
         return _decode_loop(cfg, params, prompts_t, gen, device=device, warmup=warmup,
                             device_resident=device_resident, kind=kind, kv_engine=kv_engine,
                             stats=stats, decode_fn=decode_fn, make_prefill=make_prefill,
-                            param_stats=param_stats, wplan=wplan, residency=residency)
+                            param_stats=param_stats, wplan=wplan, residency=residency,
+                            plan=plan)
     finally:
         if own_engine is not None:
             own_engine.close()
@@ -808,8 +860,10 @@ def serve_loop(
 
 def _decode_loop(cfg, params, prompts_t: torch.Tensor, gen: int, *, device, warmup: bool,
                  device_resident: bool, kind, kv_engine, stats: StreamStats, decode_fn,
-                 make_prefill, param_stats: StreamStats, wplan, residency) -> dict:
-    """:func:`serve_loop`'s prefill and decode steps, timed."""
+                 make_prefill, param_stats: StreamStats, wplan, residency, plan=None) -> dict:
+    """:func:`serve_loop`'s prefill and decode steps, timed.  Under a mesh
+    (``plan``, the serve plan) the caches round-trip at its cache specs at
+    every kind, the JAX package's ``mk.place(c, mesh, specs, kind)``."""
     batch, prompt_len = prompts_t.shape
     t0 = time.perf_counter()
     tokens, caches = prefill_all(cfg, params, prompts_t, prompt_len + gen, make_prefill)
@@ -821,11 +875,16 @@ def _decode_loop(cfg, params, prompts_t: torch.Tensor, gen: int, *, device, warm
 
     def round_trip(c):
         t0 = time.perf_counter()
-        c = mk.place(c, kind, device)
+        if plan is not None:
+            specs = sh.cache_specs_tree(plan, c, batch)
+            c = mk.place(c, plan.mesh, specs, kind)
+        else:
+            c = mk.place(c, kind, device)
         _sync(device)
         if kv_engine is not None:
             kv_engine.emulate_blocking_transfer(n_leaves, cache_bytes)
-        c = mk.place(c, mk.DEVICE, device)
+        c = mk.place(c, plan.mesh, specs, mk.DEVICE) if plan is not None else \
+            mk.place(c, mk.DEVICE, device)
         _sync(device)
         if kv_engine is not None:
             kv_engine.emulate_blocking_transfer(n_leaves, cache_bytes)
@@ -935,6 +994,7 @@ def serve(
     shared_prefix_len: int = 0,
     params: Optional[ParamTree] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> dict:
     """Serve ``n_requests`` greedy requests (default: one per batch slot) of
     ``prompt_len`` random prompt tokens and ``gen`` generated tokens, with
@@ -957,7 +1017,8 @@ def serve(
     replicated over its codebooks and its emitted stream is codebook 0's, as
     in the JAX package; an M-RoPE config is refused with a ``ValueError``
     (no 3-D positions are built for serving).  Runs on the card unless
-    ``device="cpu"`` is passed.
+    ``device="cpu"`` is passed; ``mesh`` serves under the serve plan on
+    either path.
     """
     device = resolve_device(device)
     _check_expert_stream(expert_stream, param_kind)
@@ -972,7 +1033,8 @@ def serve(
         if n_requests != batch:
             raise ValueError("the unpaged path serves exactly one request per slot")
         return serve_loop(cfg, params, prompts, gen, device=device, seed=seed, warmup=warmup,
-                          kv_kind=kv_kind, engine=engine, spill_dir=spill_dir, **weights)
+                          kv_kind=kv_kind, engine=engine, spill_dir=spill_dir, mesh=mesh,
+                          **weights)
 
     if shared_prefix_len:
         shared = min(shared_prefix_len, prompt_len)
@@ -991,6 +1053,7 @@ def serve(
         prefix_sharing=prefix_sharing,
         params=params,
         device=device,
+        mesh=mesh,
         **weights,
     ) as session:
         rids = [session.submit(prompts[i], gen) for i in range(n_requests)]
@@ -1037,11 +1100,6 @@ def serve(
         }
 
 
-#: flags of the JAX entry point that this port does not serve yet, and where
-#: their port is queued; any value but the default exits
-_NOT_PORTED = {
-    "model_parallel": "model parallelism (ROADMAP.md, queue 1 item 5: multi-device and tooling)",
-}
 
 
 def _verify_schedule(args, cfg) -> None:
@@ -1202,10 +1260,6 @@ def main() -> int:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (the plain path)")
     args = ap.parse_args()
 
-    for dest, where in _NOT_PORTED.items():
-        if getattr(args, dest) != ap.get_default(dest):
-            ap.exit(2, f"--{dest.replace('_', '-')} is not ported yet: it needs {where}\n")
-
     if args.expert_stream and args.param_kind == "device":
         ap.error("--expert-stream streams routed experts from a weight home; it requires "
                  "--param-kind pinned_host or disk_host")
@@ -1226,6 +1280,29 @@ def main() -> int:
         if args.kv_page_len <= 0:
             ap.error("--loadgen drives the paged ServeSession; use --kv-page-len > 0")
         return _loadgen(args, cfg, distance)
+    # a mesh under torchrun or when a model axis is asked for; the serve
+    # plan's model axis must divide the ranks (the JAX package's
+    # make_local_mesh asserts it; serving does not degrade)
+    mesh = None
+    if mesh_mod.init_from_env(args.device) or args.model_parallel != 1:
+        try:
+            mesh = mesh_mod.make_local_mesh(model=args.model_parallel, device=args.device)
+        except ValueError as e:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+            ap.exit(2, f"--model-parallel {args.model_parallel}: {e}\n")
+    try:
+        return _serve_main(args, cfg, distance, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve_main(args, cfg, distance, mesh) -> int:
+    """:func:`main`'s serve run and its report (rank 0 prints)."""
     res = serve(
         cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
         n_requests=args.requests, kv_kind=args.kv_kind, kv_page_len=args.kv_page_len,
@@ -1233,15 +1310,18 @@ def main() -> int:
         param_kind=args.param_kind, device_budget_mb=args.device_budget_mb,
         param_cache_mb=args.param_cache_mb, expert_stream=args.expert_stream,
         prefix_sharing=not args.no_prefix_sharing, shared_prefix_len=args.shared_prefix_len,
-        device=args.device,
+        device=args.device, mesh=mesh,
     )
+    if not mesh_mod.is_rank0():
+        return 0
     stats = res["stats"]
     print(
         f"served {args.arch}: prefill {res['prefill_s']*1e3:.1f} ms, "
         f"decode {res['decode_s']*1e3:.1f} ms total, "
         f"{res['tokens_per_s']:.1f} tok/s "
         f"(kv_kind={args.kv_kind}, page_len={args.kv_page_len}, "
-        f"paged={res['paged']}, device={args.device})"
+        f"paged={res['paged']}, device={args.device}"
+        + (f", mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))})" if mesh is not None else ")")
     )
     print(
         f"transfers: h2d {stats.h2d_requests} req / {stats.bytes_h2d} B, "

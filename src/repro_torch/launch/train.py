@@ -1,8 +1,8 @@
 """End-to-end training launcher.
 
-Wires the port's layers together: config -> train step -> prefetching
-loader -> fault-tolerant driver with checkpointing, on one card (the JAX
-package's ``launch/train.py``; its mesh reduces to one device)::
+Wires the port's layers together: config -> mesh -> sharding plan -> train
+step -> prefetching loader -> fault-tolerant driver with checkpointing (the
+JAX package's ``launch/train.py``)::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --smoke \\
       --device cpu --steps 6 --batch 2 --seq 16 --checkpoint-dir /tmp/ckpt \\
@@ -26,7 +26,18 @@ layer into its non-expert group and one group per expert).  Every
 placement gives the device run's bits.  Every ``--arch`` trains, the
 codebook (musicgen-medium) and vision-language (qwen2-vl-72b) configs on
 their synthetic ``codes`` and ``vision_embeds`` / ``positions_3d``
-batches.  ``--model-parallel`` above 1 exits 2 (ROADMAP.md queue 1 item 5).
+batches.
+
+Under ``torchrun`` (``torchrun --standalone --nproc-per-node N -m
+repro_torch.launch.train ...``; NCCL on the card, gloo with ``--device
+cpu``), or with ``--model-parallel`` above 1, the run is one process per
+rank on a ``("data", "model")`` mesh (:func:`~repro_torch.runtime.elastic.elastic_local_mesh`:
+a model axis the ranks cannot host degrades, with a warning): the
+parameters and the AdamW state are DTensors by the train plan, the Sharder
+runs in the layer body, streamed weights stage at the plan's layouts when
+there is more than one rank, checkpoints carry the mesh fingerprint, and
+rank 0 alone writes the history and logs.  A plain run with
+``--model-parallel 1`` opens no process group: the one-device program.
 """
 from __future__ import annotations
 
@@ -49,14 +60,16 @@ from repro_torch.core.weightstream import PARAM_KINDS, WeightStreamPlan, weight_
 from repro_torch.data.loader import PrefetchLoader
 from repro_torch.data.synthetic import SyntheticConfig, synthetic_batch
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.parallel import local
+from repro_torch.parallel import sharding as sh
 from repro_torch.runtime import elastic as el
 from repro_torch.runtime.driver import DriverConfig, TrainDriver
 from repro_torch.train import steps as st
 
 log = logging.getLogger("repro_torch.train")
 
-_MODEL_PARALLEL = "model parallelism (ROADMAP.md, queue 1 item 5: multi-device and tooling)"
 #: the JAX package's refusal of ``--expert-stream`` without a weight home
 _EXPERTS_NEED_HOME = ("--expert-stream streams routed experts from a weight home; "
                       "it requires --param-kind pinned_host or disk_host")
@@ -84,6 +97,7 @@ def build_trainer(
     verify_schedule: bool = False,
     transfer_retries: int = 1,
     device: DeviceLike = None,
+    mesh=None,
 ) -> TrainDriver:
     """Assemble the :class:`TrainDriver` for ``cfg`` on ``device`` (the card
     unless ``"cpu"``).
@@ -108,7 +122,13 @@ def build_trainer(
     splits its MoE layers into expert groups and needs such a home.
 
     Each placement starts from the same f32 master, so every route gives
-    the device run's bits."""
+    the device run's bits.
+
+    ``mesh`` (a ``DeviceMesh``, one process per rank): the state is laid
+    out by the train plan and the Sharder runs in the layer body
+    (:func:`_build_on_mesh`); the streamed-weight route stages its groups at
+    the plan's layouts when the mesh has more than one rank, as the JAX
+    package's.  ``None`` is the one-device program."""
     dev = resolve_device(device)
     policy = policy or mk.ALL_DEVICE
     sc = SyntheticConfig(cfg.vocab_size, seq_len, global_batch, seed=seed)
@@ -127,7 +147,14 @@ def build_trainer(
             fail_at=fail_at, spill_dir=spill_dir, param_kind=param_kind,
             device_budget_mb=device_budget_mb, param_layers_per_group=param_layers_per_group,
             expert_stream=expert_stream, verify_schedule=verify_schedule,
-            transfer_retries=transfer_retries, device=dev)
+            transfer_retries=transfer_retries, device=dev, mesh=mesh, global_batch=global_batch,
+            seq_len=seq_len)
+    if mesh is not None:
+        return _build_on_mesh(
+            cfg, mesh, global_batch=global_batch, seq_len=seq_len, opt_cfg=opt_cfg,
+            driver_cfg=driver_cfg, loader=loader, seed=seed, fail_at=fail_at, policy=policy,
+            stream_opt=stream_opt, opt_stream_groups=opt_stream_groups, spill_dir=spill_dir,
+            host_budget_mb=host_budget_mb, transfer_retries=transfer_retries, device=dev)
     run_meta = {"mesh": el.mesh_fingerprint(), "param_kind": param_kind}
     p_abs, o_abs = st.abstract_train_state(cfg)
 
@@ -215,18 +242,118 @@ def build_trainer(
                        run_meta=run_meta, template=template)
 
 
+def _train_layouts(cfg: ModelConfig, mesh, global_batch: int, seq_len: int):
+    """``(param specs, opt specs, param shardings, opt shardings, sharder)``
+    of the train plan on ``mesh`` (the JAX package's ``build_trainer``)."""
+    plan = sh.make_plan(mesh, mode="train")
+    p_abs, o_abs = st.abstract_train_state(cfg)
+    p_specs = sh.param_specs(plan, p_abs)
+    o_specs = sh.opt_state_specs(plan, p_specs, p_abs)
+    sharder = sh.make_sharder(plan, p_abs, global_batch, seq_len=seq_len, seq_shard=True)
+    return (p_specs, o_specs, sh.named_shardings(mesh, p_specs),
+            sh.named_shardings(mesh, o_specs), sharder)
+
+
+def _placed(tree, shardings):
+    """``tree``'s leaves at ``shardings`` (a restore hands back host numpy;
+    leaves already placed pass)."""
+    return tr.tree_map(lambda x, s: x if local.is_dtensor(x) else s.put(x), tree, shardings)
+
+
+def _plain_metrics(metrics: dict) -> dict:
+    return {k: local.full_local(v) for k, v in metrics.items()}
+
+
+def _build_on_mesh(cfg: ModelConfig, mesh, *, global_batch: int, seq_len: int,
+                   opt_cfg: AdamWConfig, driver_cfg: DriverConfig, loader, seed: int, fail_at,
+                   policy: mk.PlacementPolicy, stream_opt: bool, opt_stream_groups: int,
+                   spill_dir, host_budget_mb: Optional[float], transfer_retries: int,
+                   device) -> TrainDriver:
+    """:func:`build_trainer`'s device-weights route under a mesh: params
+    and AdamW state as DTensors by the train plan, the Sharder in the layer
+    body; a host-kind optimizer policy keeps each rank's shards of the
+    moments at that kind between steps (``--stream-opt``: full host
+    moments streamed at the plan's layouts)."""
+    _, o_specs, p_sh, o_sh, sharder = _train_layouts(cfg, mesh, global_batch, seq_len)
+    run_meta = {"mesh": el.mesh_fingerprint(mesh), "param_kind": "device"}
+    p_abs, o_abs = st.abstract_train_state(cfg)
+
+    def template():
+        return {"params": p_abs, "opt": o_abs}
+
+    if stream_opt and policy.opt_state.jax_kind != "device":
+        engine = TransferEngine(EngineConfig(max_attempts=transfer_retries), device=device)
+        stream_stats = StreamStats()
+        spill_store = None
+        if not policy.opt_state.jax_addressable or (spill_dir is not None
+                                                    and host_budget_mb is not None):
+            ephemeral = spill_dir is None
+            base = spill_dir or tempfile.mkdtemp(prefix="repro-torch-spill-opt-")
+            # every rank homes the whole state: one store a rank
+            spill_store = SpillStore(f"{base}/rank{el.dist_rank()}", ephemeral=ephemeral)
+        streamed = st.make_streamed_train_step(
+            cfg, opt_cfg, n_groups=opt_stream_groups,
+            prefetch=PrefetchSpec(buffer_size=opt_stream_groups + 1, distance=AUTO),
+            engine=engine, stats=stream_stats, spill_store=spill_store, mesh=mesh,
+            sharder=sharder, state_shardings=o_sh["leaves"])
+        budget_bytes = int(host_budget_mb * 1e6) if host_budget_mb else 0
+
+        def spilled(opt):
+            return st.spill_opt_state(opt, spill_store, n_groups=opt_stream_groups,
+                                      host_budget_bytes=budget_bytes)
+
+        def init_state_streamed():
+            params, opt = st.init_train_state(cfg, seed, device, host_opt=True)
+            opt = spilled(opt) if spill_store is not None else opt
+            return {"params": _placed(params, p_sh), "opt": opt}
+
+        def step_streamed(state, batch):
+            opt = state["opt"]
+            if spill_store is not None and not any(is_disk_leaf(x) for x in tr.leaves(opt)):
+                opt = spilled(opt)
+            new, metrics = streamed({"params": _placed(state["params"], p_sh), "opt": opt},
+                                    batch)
+            return new, _plain_metrics(metrics)
+
+        return TrainDriver(driver_cfg, step_streamed, loader, init_state_streamed,
+                           fail_at=fail_at, engine=engine, stream_stats=stream_stats,
+                           spill_store=spill_store, run_meta=run_meta, template=template)
+
+    step_fn = st.make_train_step(cfg, opt_cfg, mesh, sharder)
+    host_opt = policy.opt_state.jax_kind != "device"
+
+    def opt_home(opt):
+        """The optimizer state at its policy kind: each rank's shards."""
+        return mk.place(opt, mesh, o_specs, policy.opt_state) if host_opt else opt
+
+    def init_state():
+        params, opt = st.init_train_state(cfg, seed, device)
+        return {"params": _placed(params, p_sh), "opt": opt_home(_placed(opt, o_sh))}
+
+    def wrapped_step(state, batch):
+        opt = (mk.place(state["opt"], mesh, o_specs, mk.DEVICE) if host_opt
+               else _placed(state["opt"], o_sh))
+        params, opt, metrics = step_fn(_placed(state["params"], p_sh), opt, batch)
+        return {"params": params, "opt": opt_home(opt)}, _plain_metrics(metrics)
+
+    return TrainDriver(driver_cfg, wrapped_step, loader, init_state, fail_at=fail_at,
+                       run_meta=run_meta, template=template)
+
+
 def _build_weight_streamed(cfg: ModelConfig, *, opt_cfg: AdamWConfig, driver_cfg: DriverConfig,
                            loader, seed: int, fail_at, spill_dir, param_kind: str,
                            device_budget_mb: Optional[float],
                            param_layers_per_group: Optional[int], expert_stream: bool,
                            verify_schedule: bool, transfer_retries: int,
-                           device) -> TrainDriver:
+                           device, mesh=None, global_batch: int = 1,
+                           seq_len: int = 1) -> TrainDriver:
     """:func:`build_trainer`'s streamed-weight route (the JAX package's
     ``build_trainer`` streamed branch): the plan, the residency cache sized
     to the budget's slack, the schedule analysis, the grouped checkpoint
     resharded to the plan and the stale spill chunks pruned before the
     restore, the group-wise initial state, and the disk home re-imposed
-    after a restore."""
+    after a restore.  Under a mesh the Sharder runs in the layer body, and
+    with more than one rank the groups stage at the train plan's layouts."""
     support = weight_stream_support(cfg)
     if not support:
         raise ValueError(f"--param-kind {param_kind}: {support.reason}")
@@ -258,9 +385,16 @@ def _build_weight_streamed(cfg: ModelConfig, *, opt_cfg: AdamWConfig, driver_cfg
             ephemeral = spill_dir is None
             if ephemeral:
                 spill_dir = tempfile.mkdtemp(prefix="repro-torch-spill-wp-")
+            if mesh is not None:  # every rank homes the whole model: one store a rank
+                spill_dir = f"{spill_dir}/rank{el.dist_rank()}"
             store = SpillStore(spill_dir, ephemeral=ephemeral)
-        run_meta = {"mesh": el.mesh_fingerprint(), "param_kind": param_kind,
+        run_meta = {"mesh": el.mesh_fingerprint(mesh), "param_kind": param_kind,
                     "weight_groups": plan.grouping()}
+        mesh_kw: dict = {}
+        if mesh is not None:
+            _, _, p_sh, _, sharder = _train_layouts(cfg, mesh, global_batch, seq_len)
+            mesh_kw = dict(mesh=mesh, sharder=sharder,
+                           param_shardings=p_sh if mesh.size() > 1 else None)
         # a checkpoint written under another grouping is repartitioned in
         # place before the driver restores it
         if el.ensure_plan_matches_checkpoint(driver_cfg.checkpoint_dir, plan,
@@ -268,7 +402,7 @@ def _build_weight_streamed(cfg: ModelConfig, *, opt_cfg: AdamWConfig, driver_cfg
             el.prune_stale_spill(store, plan)
         step = st.make_weight_streamed_train_step(
             cfg, opt_cfg, plan=plan, engine=engine, stats=param_stats, spill_store=store,
-            param_kind=param_kind, residency=residency)
+            param_kind=param_kind, residency=residency, **mesh_kw)
     except BaseException:
         engine.close()
         if store is not None:
@@ -299,13 +433,6 @@ def _build_weight_streamed(cfg: ModelConfig, *, opt_cfg: AdamWConfig, driver_cfg
                        engine=engine, stream_stats=param_stats, spill_store=store,
                        run_meta=run_meta, on_restart=on_restart,
                        template=lambda: st.abstract_weight_streamed_state(cfg, plan))
-
-
-#: flags of the JAX entry point whose port is queued, and where; any value
-#: but the default exits 2
-_NOT_PORTED = {
-    "model_parallel": _MODEL_PARALLEL,
-}
 
 
 def main() -> int:
@@ -361,15 +488,20 @@ def main() -> int:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (the plain path)")
     args = ap.parse_args()
 
-    for dest, where in _NOT_PORTED.items():
-        if getattr(args, dest) != ap.get_default(dest):
-            ap.exit(2, f"--{dest.replace('_', '-')} is not ported yet: it needs {where}\n")
     if args.expert_stream and args.param_kind == "device":
         ap.exit(2, f"{_EXPERTS_NEED_HOME}\n")
     if args.verify_schedule and args.param_kind == "device":
         ap.error("--verify-schedule requires a streamed --param-kind (pinned_host or disk_host)")
 
-    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
+    logging.basicConfig(level=logging.INFO if mesh_mod.is_rank0() else logging.WARNING,
+                        format="%(levelname)s %(message)s")
+    # a mesh under torchrun, or when a model axis is asked for: the model
+    # axis degrades to what the ranks can host (the JAX package's elastic
+    # mesh); a plain run opens no process group
+    mesh = None
+    if mesh_mod.init_from_env(args.device) or args.model_parallel != 1:
+        mesh = el.elastic_local_mesh(model=args.model_parallel, device=args.device)
+        logging.getLogger().setLevel(logging.INFO if mesh_mod.is_rank0() else logging.WARNING)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     opt_cfg = AdamWConfig(peak_lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                           total_steps=args.steps)
@@ -383,11 +515,20 @@ def main() -> int:
         param_kind=args.param_kind, device_budget_mb=args.device_budget_mb,
         param_layers_per_group=args.param_layers_per_group, expert_stream=args.expert_stream,
         verify_schedule=args.verify_schedule,
-        transfer_retries=args.transfer_retries, device=args.device,
+        transfer_retries=args.transfer_retries, device=args.device, mesh=mesh,
     )
+    rank0 = mesh_mod.is_rank0()
     t0 = time.time()
-    driver.run()
+    try:
+        driver.run()
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     dt = time.time() - t0
+    if not rank0:
+        return 0
     if args.history_out:
         import json
 
@@ -395,8 +536,10 @@ def main() -> int:
             json.dump(driver.history, f)
     losses = [h["loss"] for h in driver.history if "loss" in h]
     span = f"loss {losses[0]:.3f} -> {losses[-1]:.3f}" if losses else "no new steps"
+    where = args.device if mesh is None else (
+        f"{args.device} mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     print(f"trained {args.arch} ({'smoke' if args.smoke else 'full'}) {len(driver.history)} steps "
-          f"in {dt:.1f}s on {args.device}, {driver.restarts} restarts; {span}")
+          f"in {dt:.1f}s on {where}, {driver.restarts} restarts; {span}")
     return 0
 
 

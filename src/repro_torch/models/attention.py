@@ -25,6 +25,7 @@ query and runs the plain path.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -35,6 +36,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers, rope
 from repro_torch.models.layers import Params
+from repro_torch.parallel import local
 
 NEG_INF = -1e30
 
@@ -184,22 +186,25 @@ def attention_train(
     flash kernel, which is forward-only (the reference's cannot be
     differentiated either): with gradients on it raises."""
     q, k, v = _project_qkv(cfg, p, x)
+    out = _on_local(functools.partial(_train_core, cfg), q, k, v, angles)
+    return _out_proj(p, out, x.dtype)
+
+
+def _train_core(cfg: ModelConfig, q, k, v, angles, cache, pos) -> torch.Tensor:
     if angles is not None:
         q = rope.apply_rope(q, angles)
         k = rope.apply_rope(k, angles)
     window = cfg.window if cfg.attn_type == "swa" else 0
     if cfg.attn_impl == "chunked":
-        out = _gqa_attend_chunked(cfg, q, k, v, window=window)
-    elif cfg.attn_impl == "pallas" and window == 0:
+        return _gqa_attend_chunked(cfg, q, k, v, window=window)
+    if cfg.attn_impl == "pallas" and window == 0:
         if torch.is_grad_enabled() and q.requires_grad:
             raise NotImplementedError(
                 "attn_impl='pallas' runs the forward-only flash kernel; train with "
                 "attn_impl='xla' (the JAX package cannot differentiate its flash kernel either)"
             )
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
-    else:
-        out = _gqa_attend(cfg, q, k, v, causal_mask(x.shape[1], window, device=x.device))
-    return _out_proj(p, out, x.dtype)
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    return _gqa_attend(cfg, q, k, v, causal_mask(q.shape[1], window, device=q.device))
 
 
 def attention_prefill(
@@ -217,6 +222,11 @@ def attention_prefill(
     ``position % W``, matching ring-buffer decode.
     """
     q, k, v = _project_qkv(cfg, p, x)
+    out = _on_local(functools.partial(_prefill_core, cfg), q, k, v, angles, cache)
+    return _out_proj(p, out, x.dtype), cache
+
+
+def _prefill_core(cfg: ModelConfig, q, k, v, angles, cache, pos) -> torch.Tensor:
     if angles is not None:
         q = rope.apply_rope(q, angles)
         k = rope.apply_rope(k, angles)
@@ -227,13 +237,11 @@ def attention_prefill(
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
                               window=window)
     else:
-        out = _gqa_attend(cfg, q, k, v, causal_mask(x.shape[1], window, device=x.device))
-    out = _out_proj(p, out, x.dtype)
-
-    s, cache_len = x.shape[1], cache["k"].shape[1]
+        out = _gqa_attend(cfg, q, k, v, causal_mask(q.shape[1], window, device=q.device))
+    s, cache_len = q.shape[1], cache["k"].shape[1]
     take = min(s, cache_len)
     if "slot_pos" in cache:
-        positions = torch.arange(s - take, s, device=x.device)
+        positions = torch.arange(s - take, s, device=q.device)
         slots = positions % cache_len
         cache["k"][:, slots] = k[:, s - take:].to(cache["k"].dtype)
         cache["v"][:, slots] = v[:, s - take:].to(cache["v"].dtype)
@@ -241,7 +249,7 @@ def attention_prefill(
     else:
         cache["k"][:, :take] = k[:, :take].to(cache["k"].dtype)
         cache["v"][:, :take] = v[:, :take].to(cache["v"].dtype)
-    return out, cache
+    return out
 
 
 def attention_decode(
@@ -264,34 +272,35 @@ def attention_decode(
     1``, or ``min(pos + 1, W)`` over a ring.
     """
     q, k, v = _project_qkv(cfg, p, x)
+    out = _on_local(functools.partial(_decode_core, cfg), q, k, v, angles, cache, pos)
+    return _out_proj(p, out, x.dtype), cache
+
+
+def _decode_core(cfg: ModelConfig, q, k, v, angles, cache, pos) -> torch.Tensor:
     if angles is not None:
         q = rope.apply_rope(q, angles)
         k = rope.apply_rope(k, angles)
-
     b, cache_len = cache["k"].shape[:2]
-    pos = torch.as_tensor(pos, device=x.device)
+    pos = torch.as_tensor(pos, device=q.device)
     if "slot_pos" in cache:
         if pos.dim() == 1:
             raise NotImplementedError(
                 "per-slot decode positions require a full-attention cache "
                 "(ring slot_pos is shared across the batch)"
             )
-        return _ring_decode(cfg, p, q, k, v, cache, pos, x.dtype)
+        return _ring_decode(cfg, q, k, v, cache, pos)
     pos = pos.expand(b)  # a scalar: every slot's position
-    rows = torch.arange(b, device=x.device)
+    rows = torch.arange(b, device=q.device)
     cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
-
     if cfg.attn_impl == "pallas":
         lengths = (pos + 1).to(torch.int32).contiguous()
-        out = decode_attention(q[:, 0], cache["k"], cache["v"], lengths)[:, None]
-    else:
-        mask = (torch.arange(cache_len, device=x.device)[None, :] <= pos[:, None])[:, None, :]
-        out = _gqa_attend(cfg, q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask)
-    return _out_proj(p, out, x.dtype), cache
+        return decode_attention(q[:, 0], cache["k"], cache["v"], lengths)[:, None]
+    mask = (torch.arange(cache_len, device=q.device)[None, :] <= pos[:, None])[:, None, :]
+    return _gqa_attend(cfg, q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask)
 
 
-def _ring_decode(cfg: ModelConfig, p: Params, q, k, v, cache: dict, pos: torch.Tensor, dt):
+def _ring_decode(cfg: ModelConfig, q, k, v, cache: dict, pos: torch.Tensor) -> torch.Tensor:
     """Decode against a ring at the scalar position ``pos`` (a 0-d tensor):
     indexed by tensors, so no step waits on the device."""
     b, cache_len = cache["k"].shape[:2]
@@ -301,9 +310,45 @@ def _ring_decode(cfg: ModelConfig, p: Params, q, k, v, cache: dict, pos: torch.T
     cache["slot_pos"].index_copy_(0, slot, pos.reshape(1).to(torch.int32))
     if cfg.attn_impl == "pallas":
         lengths = torch.clamp(pos + 1, max=cache_len).to(torch.int32).expand(b).contiguous()
-        out = decode_attention(q[:, 0], cache["k"], cache["v"], lengths)[:, None]
-    else:
-        sp = cache["slot_pos"]
-        valid = (sp >= 0) & (sp >= pos - cache_len + 1) & (sp <= pos)
-        out = _gqa_attend(cfg, q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), valid[None])
-    return _out_proj(p, out, dt), cache
+        return decode_attention(q[:, 0], cache["k"], cache["v"], lengths)[:, None]
+    sp = cache["slot_pos"]
+    valid = (sp >= 0) & (sp >= pos - cache_len + 1) & (sp <= pos)
+    return _gqa_attend(cfg, q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), valid[None])
+
+
+def _on_local(core, q, k, v, angles, cache: Optional[dict] = None, pos=None) -> torch.Tensor:
+    """``core(q, k, v, angles, cache, pos) -> out (B, S, N, H)``: the rotary
+    rotation, the cache write and the attention.  On plain tensors it runs
+    as is.  On DTensors (a mesh) it runs on the rank's local shards at
+    :func:`~repro_torch.parallel.local.attention_placements` (the kernels
+    take raw pointers): the batch over the data axes, the heads over
+    ``model`` when they divide it, else replicated.  Per-row angles and
+    per-slot positions are cut to the rank's rows, the caches (``k``/``v``
+    at that layout, ``slot_pos`` replicated) are written back at their own
+    placements, and the output is rewrapped at that layout."""
+    if not local.is_dtensor(q):
+        return core(q, k, v, angles, cache, pos)
+    from torch.distributed.tensor import Replicate
+
+    mesh = q.device_mesh
+    pl = local.attention_placements(mesh, q.shape[0], q.shape[2], k.shape[2])
+    lo, n = local.local_range(mesh, pl, q.shape, 0)
+
+    def rows(t):
+        t = local.full_local(t)
+        if not isinstance(t, torch.Tensor) or t.dim() == 0 or t.shape[0] == 1:
+            return t
+        return t[lo:lo + n]
+
+    q_l, k_l, v_l = (local.to_local_at(t, pl) for t in (q, k, v))
+    ang = local.full_local(angles) if angles is not None and angles.dim() == 2 else rows(angles)
+    at = {}
+    if cache is not None:
+        for name, c in cache.items():
+            cpl = pl if c.dim() == 4 else (Replicate(),) * mesh.ndim
+            at[name] = (cpl, local.to_local_at(c, cpl))
+    out = core(q_l, k_l, v_l, ang, {name: t for name, (_, t) in at.items()} if cache else None,
+               rows(pos))
+    for name, (cpl, t) in at.items():
+        local.write_back(cache[name], t, cpl)
+    return local.rewrap(out, mesh, pl, q.shape)

@@ -54,6 +54,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree as tr
 from repro_torch.models import attention, frontends, layers, moe, rglru, rope, xlstm
 from repro_torch.models.layers import ParamTree, Params
+from repro_torch.parallel import local
 
 
 #: the position schemes the model runs (the JAX package's ``_embed`` and
@@ -254,6 +255,55 @@ def _at(tree, path: tuple, j: Optional[int]):
     return tree if j is None else _index(tree, j)
 
 
+def _mesh(mesh, sharder, params):
+    """The mesh the batch joins: the sharder's (or ``mesh``) when the
+    parameters are DTensors; none when they are plain tensors (one rank
+    without per-group shardings: the one-device program)."""
+    if isinstance(params, ParamTree):  # the first leaf: the tree is one layout
+        leaf = next(params.parameters(), None)
+    else:
+        leaf = params
+        while isinstance(leaf, dict) and leaf:
+            leaf = next(iter(leaf.values()))
+    if not local.is_dtensor(leaf):
+        return None
+    return sharder.mesh if sharder is not None else mesh
+
+
+def on_mesh(batch: dict, mesh) -> dict:
+    """``batch`` with its plain tensors as DTensors replicated over ``mesh``
+    (every rank holds the same global batch: the Sharder's ``acts`` then
+    keeps each rank's rows); unchanged without a mesh."""
+    if mesh is None:
+        return batch
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rep = [Replicate()] * mesh.ndim
+    return {k: DTensor.from_local(v, mesh, rep, run_check=False)
+            if isinstance(v, torch.Tensor) and not local.is_dtensor(v) else v
+            for k, v in batch.items()}
+
+
+def _acts(sharder, x):
+    return x if sharder is None else sharder.acts(x)
+
+
+def _like(x, t: torch.Tensor):
+    """``t`` replicated on ``x``'s mesh when ``x`` is a DTensor."""
+    if not local.is_dtensor(x) or local.is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, x.device_mesh, [Replicate()] * x.device_mesh.ndim,
+                              run_check=False)
+
+
+def _zero_like(x, dtype=torch.float32):
+    """A 0-d zero on ``x``'s device (replicated on its mesh)."""
+    dev = x.to_local().device if local.is_dtensor(x) else x.device
+    return _like(x, torch.zeros((), dtype=dtype, device=dev))
+
+
 # ---------------------------------------------------------------------------
 # embedding / positions / head
 # ---------------------------------------------------------------------------
@@ -283,10 +333,10 @@ def _embed(cfg: ModelConfig, params: Params, batch: dict, pos=None) -> torch.Ten
         if pos is None:
             positions = steps
         else:
-            p = torch.as_tensor(pos, device=x.device).to(torch.int32)
+            p = torch.as_tensor(local.full_local(pos), device=x.device).to(torch.int32)
             positions = (p[:, None] if p.dim() == 1 else p) + steps - (s - 1)
         emb = rope.sinusoidal_embedding(positions, cfg.d_model)
-        x = x + (emb[None] if emb.dim() == 2 else emb).to(dt)
+        x = x + _like(x, (emb[None] if emb.dim() == 2 else emb).to(dt))
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     return x
@@ -333,8 +383,8 @@ def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if "moe" in p:
         h = layers.norm_apply(p["ln2"], x, cfg.norm_type)
         if decode:
-            return x + moe.moe_decode(cfg, p["moe"], h), None
-        y, aux = moe.moe_dispatch(cfg, p["moe"], h)
+            return x + local.on_full(moe.moe_decode, cfg, p["moe"], h), None
+        y, aux = local.on_full(moe.moe_dispatch, cfg, p["moe"], h)
         return x + y, aux
     if "mlp" not in p:
         return x, None
@@ -368,30 +418,44 @@ _XLSTM_STEP = {"mlstm": xlstm.mlstm_block_step, "slstm": xlstm.slstm_block_step}
 
 
 def _layer_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-                 angles: Optional[torch.Tensor]) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+                 angles: Optional[torch.Tensor], sharder=None,
+                 path: tuple = ()) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer of the training forward (the JAX package's ``_block_train``
     / ``_hetero_block_train``): no cache; the recurrence starts from zero
     and runs the plain scan, as the JAX package's ``use_kernel=False``.
-    Returns ``(x, aux)`` as :func:`_mlp`."""
+    With a ``sharder`` the layer's parameters are gathered to their
+    TP-only layout first and the output pinned to the activation layout
+    (the JAX package's ``_block_train``).  Returns ``(x, aux)`` as
+    :func:`_mlp`."""
+    if sharder is not None:
+        p = sharder.block(p, path or None)
+        x, aux = _layer_train(cfg, kind, p, x, angles)
+        return sharder.acts(x), aux
     if kind == "rec":
-        return _layer(cfg, p, x, lambda h: rglru.rglru_block_train(cfg, p["rec"], h)[0])
+        return _layer(cfg, p, x, lambda h: local.on_full(rglru.rglru_block_train, cfg, p["rec"],
+                                                          h)[0])
     if kind in _XLSTM_TRAIN:
-        return _layer(cfg, p, x, lambda h: _XLSTM_TRAIN[kind](cfg, p[kind], h)[0])
+        return _layer(cfg, p, x, lambda h: local.on_full(_XLSTM_TRAIN[kind], cfg, p[kind], h)[0])
     return _layer(cfg, p, x, lambda h: attention.attention_train(cfg, p["attn"], h, angles))
 
 
 def _layer_prefill(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch.Tensor,
-                   angles: Optional[torch.Tensor]) -> torch.Tensor:
+                   angles: Optional[torch.Tensor], sharder=None, path: tuple = ()) -> torch.Tensor:
     """One layer's prefill: the body that :func:`prefill` and
-    :func:`block_group_prefill` share.  Fills ``cache`` in place."""
+    :func:`block_group_prefill` share.  Fills ``cache`` in place.  A
+    ``sharder`` gathers the layer's parameters and pins its output, as in
+    :func:`_layer_train`."""
+    if sharder is not None:
+        x = _layer_prefill(cfg, kind, sharder.block(p, path or None), cache, x, angles)
+        return sharder.acts(x)
     def mix(h):
         if kind == "rec":
-            h, state = rglru.rglru_block_train(cfg, p["rec"], h, cache,
-                                               use_kernel=cfg.attn_impl == "pallas")
+            h, state = local.on_full(rglru.rglru_block_train, cfg, p["rec"], h, cache,
+                                     use_kernel=cfg.attn_impl == "pallas")
             _store(cache, state)
             return h
         if kind in _XLSTM_TRAIN:
-            h, state = _XLSTM_TRAIN[kind](cfg, p[kind], h, cache)
+            h, state = local.on_full(_XLSTM_TRAIN[kind], cfg, p[kind], h, cache)
             _store(cache, state)
             return h
         return attention.attention_prefill(cfg, p["attn"], h, angles, cache)[0]
@@ -400,16 +464,22 @@ def _layer_prefill(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch
 
 
 def _layer_decode(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch.Tensor,
-                  angles: Optional[torch.Tensor], pos) -> torch.Tensor:
+                  angles: Optional[torch.Tensor], pos, sharder=None,
+                  path: tuple = ()) -> torch.Tensor:
     """One layer's decode step: the body that :func:`decode_step` and
-    :func:`block_group_decode` share.  Updates ``cache`` in place."""
+    :func:`block_group_decode` share.  Updates ``cache`` in place.  A
+    ``sharder`` gathers the layer's parameters and pins its output, as in
+    :func:`_layer_train`."""
+    if sharder is not None:
+        x = _layer_decode(cfg, kind, sharder.block(p, path or None), cache, x, angles, pos)
+        return sharder.acts(x)
     def mix(h):
         if kind == "rec":
-            h, state = rglru.rglru_block_step(cfg, p["rec"], h, cache)
+            h, state = local.on_full(rglru.rglru_block_step, cfg, p["rec"], h, cache)
             _store(cache, state)
             return h
         if kind in _XLSTM_STEP:
-            h, state = _XLSTM_STEP[kind](cfg, p[kind], h, cache)
+            h, state = local.on_full(_XLSTM_STEP[kind], cfg, p[kind], h, cache)
             _store(cache, state)
             return h
         return attention.attention_decode(cfg, p["attn"], h, angles, cache, pos)[0]
@@ -461,11 +531,15 @@ def _unbind(tree) -> list:
 
 
 def _train_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-                 angles: Optional[torch.Tensor], aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                 angles: Optional[torch.Tensor], aux: torch.Tensor, sharder=None,
+                 path: tuple = ()) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer of the training forward under the config's remat: the
     program :func:`forward_hidden` and the group stages share.  Returns
-    ``(x, aux)`` with a MoE layer's aux loss added to the carried ``aux``."""
-    x, a = _remat(cfg, functools.partial(_layer_train, cfg, kind))(p, x, angles)
+    ``(x, aux)`` with a MoE layer's aux loss added to the carried ``aux``.
+    The Sharder's gather runs inside the remat, so the backward gathers the
+    layer again (ZeRO-3)."""
+    x, a = _remat(cfg, functools.partial(_layer_train, cfg, kind, sharder=sharder,
+                                         path=path))(p, x, angles)
     return x, aux if a is None else aux + a
 
 
@@ -473,15 +547,19 @@ def _plain(params) -> dict:
     return params.as_dict() if isinstance(params, ParamTree) else params
 
 
-def forward_hidden(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def forward_hidden(cfg: ModelConfig, params: Params, batch: dict, mesh=None,
+                   sharder=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Trunk only: pre-head hidden states (B, S, D) and the MoE aux loss (a
     0-d f32 sum over the layers, zero without MoE layers).  Each layer runs
-    under :func:`_remat`."""
+    under :func:`_remat`.  Under a mesh (``mesh``, or the ``sharder``'s) the
+    parameters are DTensors, the batch is taken as every rank's same global
+    batch, and the ``sharder`` gathers each layer and pins the activations
+    at the JAX package's points; without, this is the one-device program."""
     check_supported(cfg)
     params = _plain(params)
-    x = _embed(cfg, params, batch)
+    x = _acts(sharder, _embed(cfg, params, on_mesh(batch, _mesh(mesh, sharder, params))))
     angles = _angles(cfg, batch, x.shape[1], device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _zero_like(x)
     stacked: dict = {}
     for kind, path, j in layer_slots(cfg):
         if j is None:
@@ -490,14 +568,15 @@ def forward_hidden(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch
             if path not in stacked:
                 stacked[path] = _unbind(_at(params["blocks"], path, None))
             p = stacked[path][j]
-        x, aux = _train_layer(cfg, kind, p, x, angles, aux)
+        x, aux = _train_layer(cfg, kind, p, x, angles, aux, sharder, path)
     return x, aux
 
 
-def forward_train(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def forward_train(cfg: ModelConfig, params: Params, batch: dict, mesh=None,
+                  sharder=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V), or (B, K, S, V) with codebooks;
     moe_aux_loss).  A vision batch's S counts its prefix."""
-    x, aux = forward_hidden(cfg, params, batch)
+    x, aux = forward_hidden(cfg, params, batch, mesh, sharder)
     return _head(cfg, _plain(params), x), aux
 
 
@@ -508,12 +587,27 @@ def cross_entropy_sum(logits: torch.Tensor, targets: torch.Tensor) -> tuple[torc
     """Sum-form CE over non-ignored targets (for chunked accumulation):
     (f32 sum of the NLL, int32 count of valid targets).  The gold logit is a
     gather, the value of the JAX package's iota-compare masked sum."""
-    lf = logits.to(torch.float32)
+    lf = _full_last_dim(logits.to(torch.float32))
     valid = targets != IGNORE_INDEX
     tgt = torch.where(valid, targets, 0).to(torch.int64)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, tgt[..., None])[..., 0]
     return torch.sum((lse - gold) * valid), torch.sum(valid).to(torch.int32)
+
+
+def _full_last_dim(x):
+    """A DTensor sharded along its last dim (vocab-sharded logits) or
+    pending a sum, gathered or reduced: the gold logit's gather has no
+    sharding strategy over a sharded vocab, so the CE runs on full vocab
+    rows."""
+    if not local.is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    last = x.dim() - 1
+    pl = [Replicate() if p.is_partial() or getattr(p, "dim", None) in (last, -1) else p
+          for p in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -523,46 +617,50 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> tuple[torch.Te
     return total / n, n
 
 
-def lm_loss(cfg: ModelConfig, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+def lm_loss(cfg: ModelConfig, params: Params, batch: dict, mesh=None,
+            sharder=None) -> tuple[torch.Tensor, dict]:
     """``(loss, {"ce", "aux", "n_tokens"})`` of next-token prediction: the
     trunk, then :func:`head_stage_loss` on the whole tree."""
     params = _plain(params)
-    x, aux = forward_hidden(cfg, params, batch)
+    x, aux = forward_hidden(cfg, params, batch, mesh, sharder)
     return head_stage_loss(cfg, params, x, aux, batch)
 
 
 def prefill(cfg: ModelConfig, params: ParamTree, batch: dict, caches: dict,
-            last_pos: Optional[int] = None) -> tuple[torch.Tensor, dict]:
+            last_pos: Optional[int] = None, mesh=None, sharder=None) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward that also fills the caches (in place).
     Returns (logits at one position, caches).
 
     ``last_pos``: position whose logits to return — the last *real* prompt
     token when the prompt is right-padded.  ``None`` takes the last
     position.  Recurrences run through the ``rglru_scan`` kernel under
-    ``attn_impl="pallas"`` (the port's kernel path), else the plain scan."""
+    ``attn_impl="pallas"`` (the port's kernel path), else the plain scan.
+    ``mesh`` and ``sharder`` as in :func:`forward_hidden`; the caches are
+    then DTensors too."""
     check_supported(cfg)
-    x = _embed(cfg, params, batch)
+    x = _acts(sharder, _embed(cfg, params, on_mesh(batch, _mesh(mesh, sharder, params))))
     angles = _angles(cfg, batch, x.shape[1], device=x.device)
     for kind, path, j in layer_slots(cfg):
         x = _layer_prefill(cfg, kind, _at(params["blocks"], path, j), _at(caches, path, j), x,
-                           angles)
+                           angles, sharder, path)
     return _head(cfg, params, _last(x, last_pos)), caches
 
 
 def decode_step(cfg: ModelConfig, params: ParamTree, batch: dict, caches: dict,
-                pos: Union[int, torch.Tensor]) -> tuple[torch.Tensor, dict]:
+                pos: Union[int, torch.Tensor], mesh=None, sharder=None) -> tuple[torch.Tensor, dict]:
     """One decode step.  ``batch["tokens"]`` (a codebook model:
     ``batch["codes"]`` (B, K, 1)) holds the new token per slot, and an
     M-RoPE model's ``batch["positions_3d"]`` (B, 3, 1) its ids; ``pos`` is
     the absolute position being written (a scalar, or a (B,) vector of
     per-slot positions — the serving path on full-attention caches).  The
-    caches are updated in place.  Returns (logits, caches)."""
+    caches are updated in place.  Returns (logits, caches).  ``mesh`` and
+    ``sharder`` as in :func:`prefill`."""
     check_supported(cfg)
-    x = _embed(cfg, params, batch, pos=pos)
+    x = _acts(sharder, _embed(cfg, params, on_mesh(batch, _mesh(mesh, sharder, params)), pos=pos))
     angles = _angles(cfg, batch, 1, pos=pos, device=x.device)
     for kind, path, j in layer_slots(cfg):
         x = _layer_decode(cfg, kind, _at(params["blocks"], path, j), _at(caches, path, j), x,
-                          angles, pos)
+                          angles, pos, sharder, path)
     return _head(cfg, params, x), caches
 
 
@@ -599,11 +697,14 @@ def _n_layers(tree) -> int:
     return tree.shape[0]
 
 
-def embed_stage(cfg: ModelConfig, group: Params, batch: dict, pos=None) -> torch.Tensor:
+def embed_stage(cfg: ModelConfig, group: Params, batch: dict, pos=None, mesh=None,
+                sharder=None) -> torch.Tensor:
     """Embed-group forward: ``group`` holds the plan's embed leaves
     (``{"embed": ...}``, and a vision model's ``"vision"``); ``pos`` is a
-    decode step's position.  Returns the first hidden states."""
-    return _embed(cfg, group, batch, pos=pos)
+    decode step's position.  Returns the first hidden states (pinned to the
+    activation layout by a ``sharder``)."""
+    return _acts(sharder, _embed(cfg, group, on_mesh(batch, _mesh(mesh, sharder, group)),
+                                 pos=pos))
 
 
 def stage_angles(cfg: ModelConfig, batch: dict, seq_len: int, pos=None) -> Optional[torch.Tensor]:
@@ -613,23 +714,26 @@ def stage_angles(cfg: ModelConfig, batch: dict, seq_len: int, pos=None) -> Optio
 
 
 def block_group_prefill(cfg: ModelConfig, blocks_slice: Params, cache_slice: dict,
-                        x: torch.Tensor, angles: Optional[torch.Tensor]) -> tuple[torch.Tensor, dict]:
+                        x: torch.Tensor, angles: Optional[torch.Tensor],
+                        sharder=None) -> tuple[torch.Tensor, dict]:
     """Prefill over one stacked layer-group slice ``(Lg, ...)`` of a uniform
     stack: fills ``cache_slice`` (``(Lg, ...)``, e.g. a view of the dense
     cache) in place.  Returns ``(x, cache_slice)``."""
     for j in range(_n_layers(blocks_slice)):
-        x = _layer_prefill(cfg, "attn", _index(blocks_slice, j), _index(cache_slice, j), x, angles)
+        x = _layer_prefill(cfg, "attn", _index(blocks_slice, j), _index(cache_slice, j), x, angles,
+                           sharder)
     return x, cache_slice
 
 
 def block_group_decode(cfg: ModelConfig, blocks_slice: Params, cache_slice: dict,
-                       x: torch.Tensor, angles: Optional[torch.Tensor], pos) -> tuple[torch.Tensor, dict]:
+                       x: torch.Tensor, angles: Optional[torch.Tensor], pos,
+                       sharder=None) -> tuple[torch.Tensor, dict]:
     """One decode step over one stacked layer-group slice, the same layer
     body as :func:`decode_step`'s.  Updates ``cache_slice`` in place.
     Returns ``(x, cache_slice)``."""
     for j in range(_n_layers(blocks_slice)):
         x = _layer_decode(cfg, "attn", _index(blocks_slice, j), _index(cache_slice, j), x, angles,
-                          pos)
+                          pos, sharder)
     return x, cache_slice
 
 
@@ -671,7 +775,10 @@ def head_stage_loss(cfg: ModelConfig, group: Params, x: torch.Tensor, aux: torch
     With ``cfg.loss_chunk`` dividing the sequence (and shorter than it) the
     CE runs chunk by chunk along the sequence, each chunk's head and CE
     under a checkpoint, so the (B, S, V) logits never exist whole: the JAX
-    package's seq-chunked loss, its chunks summed in the same order."""
+    package's seq-chunked loss, its chunks summed in the same order.  On a
+    DTensor stream the targets join the mesh as the global batch."""
+    if local.is_dtensor(x):
+        batch = on_mesh(batch, x.device_mesh)
     targets = batch["targets"]
     if cfg.vision_embed and "vision_embeds" in batch:
         s_img = batch["vision_embeds"].shape[1]
@@ -687,8 +794,8 @@ def head_stage_loss(cfg: ModelConfig, group: Params, x: torch.Tensor, aux: torch
     def chunk(xc, tc):
         return cross_entropy_sum(_head(cfg, group, xc), tc)
 
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    n = torch.zeros((), dtype=torch.int32, device=x.device)
+    tot = _zero_like(x)
+    n = _zero_like(x, torch.int32)
     for i in range(s // c):
         nll, nv = ckpt.checkpoint(chunk, x[:, i * c:(i + 1) * c], targets[..., i * c:(i + 1) * c],
                                   use_reentrant=False, preserve_rng_state=False)
@@ -700,28 +807,29 @@ def head_stage_loss(cfg: ModelConfig, group: Params, x: torch.Tensor, aux: torch
 
 
 def block_group_train(cfg: ModelConfig, blocks_slice: Params, x: torch.Tensor, aux: torch.Tensor,
-                      angles: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+                      angles: Optional[torch.Tensor],
+                      sharder=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Training forward over one stacked layer-group slice ``(Lg, ...)`` of a
     uniform stack: :func:`forward_hidden`'s layer program entered mid-stack.
     ``aux`` is the MoE aux-loss carry.  Returns ``(x, aux)``."""
     for p in _unbind(blocks_slice):
-        x, aux = _train_layer(cfg, "attn", p, x, angles, aux)
+        x, aux = _train_layer(cfg, "attn", p, x, angles, aux, sharder)
     return x, aux
 
 
 def hetero_group_train(cfg: ModelConfig, kinds, group: Params, x: torch.Tensor,
-                       aux: torch.Tensor, angles: Optional[torch.Tensor]
+                       aux: torch.Tensor, angles: Optional[torch.Tensor], sharder=None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Training forward over one named-block group (the unrolled layout, a
     period-scanned stack's tail): ``kinds`` is the ``(name, block kind)``
     sequence in layer order.  Returns ``(x, aux)``."""
     for name, kind in kinds:
-        x, aux = _train_layer(cfg, kind, group[name], x, angles, aux)
+        x, aux = _train_layer(cfg, kind, group[name], x, angles, aux, sharder, (name,))
     return x, aux
 
 
 def period_group_train(cfg: ModelConfig, periods_slice: Params, x: torch.Tensor,
-                       aux: torch.Tensor, angles: Optional[torch.Tensor]
+                       aux: torch.Tensor, angles: Optional[torch.Tensor], sharder=None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Training forward over a slice of stacked period units
     (``{"pos_k": (U, ...)}``), each unit's positions in order.  Returns
@@ -730,7 +838,8 @@ def period_group_train(cfg: ModelConfig, periods_slice: Params, x: torch.Tensor,
     cols = [_unbind(periods_slice[f"pos_{k}"]) for k in range(period)]
     for j in range(len(cols[0])):
         for k in range(period):
-            x, aux = _train_layer(cfg, cfg.block_kind(k), cols[k][j], x, angles, aux)
+            x, aux = _train_layer(cfg, cfg.block_kind(k), cols[k][j], x, angles, aux, sharder,
+                                  ("periods", f"pos_{k}"))
     return x, aux
 
 

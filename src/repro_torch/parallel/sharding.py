@@ -26,8 +26,9 @@ replicated), so *any* architecture gets a plan on *any* mesh.
 
 A plan's mesh is a ``DeviceMesh`` or any object with the reference's
 shape-only interface (``shape`` a dict of axis sizes, ``axis_names``).
-No model code calls the :class:`Sharder` yet, and no streaming consumer
-takes the specs: that is ROADMAP.md queue 1 item 5c.
+The model's layer body calls the :class:`Sharder`
+(``models/transformer.py``); the engine, the pager and the streamed steps
+take :func:`named_shardings` of the specs.
 """
 from __future__ import annotations
 
@@ -123,7 +124,13 @@ def placements(mesh, spec: P) -> tuple:
         if order != sorted(order):
             raise ValueError(f"{spec} orders {axes} against the mesh's {names}: "
                              f"DTensor would lay the shards out in another order")
-    return tuple(Shard(owner[n]) if n in owner else Replicate() for n in names)
+    sizes = getattr(mesh, "shape", None)
+    sizes = tuple(sizes) if sizes is not None and not isinstance(sizes, Mapping) else (0,) * len(names)
+    # a dim split over a mesh dim of one rank is whole there: Replicate is
+    # the same layout, and DTensor's view ops refuse some reshapes of a
+    # dim "sharded" one way
+    return tuple(Shard(owner[n]) if n in owner and size != 1 else Replicate()
+                 for n, size in zip(names, sizes))
 
 
 # ---------------------------------------------------------------------------
@@ -396,18 +403,26 @@ def opt_state_specs(
     return {"leaves": leaves_specs, "step": P()}
 
 
-def named_shardings(mesh, specs: Pytree) -> Pytree:
-    """A tree of ``(mesh, placements)`` (what ``distribute_tensor`` and
-    ``redistribute`` take) from a spec tree."""
-    return _map_specs(lambda s: (mesh, placements(mesh, s)), specs)
+def named_shardings(mesh, specs: Pytree, kind="device") -> Pytree:
+    """A tree of :class:`~repro_torch.core.memkind.Sharding` records (mesh,
+    placements, level) from a spec tree: the JAX package's
+    ``NamedSharding`` tree, which the engine, the pager and the streamed
+    steps take."""
+    from repro_torch.core.memkind import sharding_for
+
+    return _map_specs(lambda s: sharding_for(mesh, s, kind), specs)
 
 
-def distribute_tree(tree: Pytree, mesh, specs: Pytree) -> Pytree:
+def distribute_tree(tree: Pytree, mesh, specs: Pytree, *, src_data_rank: Optional[int] = 0
+                    ) -> Pytree:
     """``tree``'s tensors as DTensors laid out by ``specs`` on ``mesh`` (the
-    port's ``jax.device_put(tree, named_shardings(mesh, specs))``)."""
+    port's ``jax.device_put(tree, named_shardings(mesh, specs))``).
+    ``src_data_rank=None``: every rank holds the same values and cuts its
+    own shard (no broadcast)."""
     from torch.distributed.tensor import distribute_tensor
 
-    return _map_with_path(lambda _, x, s: distribute_tensor(x, mesh, placements(mesh, s)),
+    return _map_with_path(lambda _, x, s: distribute_tensor(x, mesh, placements(mesh, s),
+                                                            src_data_rank=src_data_rank),
                           tree, specs)
 
 
@@ -562,8 +577,8 @@ class Sharder:
     * ``grads(g)`` pins gradients to the params' (FSDP) layout.
 
     On a plain tensor each is the identity; on a mesh of one rank the
-    values pass unchanged.  No model code calls it yet (ROADMAP.md queue 1
-    item 5c).
+    values pass unchanged.  The layer body calls it
+    (``models/transformer.py``, the JAX package's points).
     """
 
     mesh: Any
@@ -587,7 +602,12 @@ class Sharder:
 
     def acts(self, x):
         nd = len(x.shape)
-        spec = P(*self.act_spec, *([None] * (nd - len(self.act_spec))))
+        sizes = _axis_sizes(self.mesh)
+        # a batch the data axes do not divide (a one-request prefill under a
+        # session's batch-wide spec) stays replicated over them
+        act = [None if ax is not None and x.shape[d] % int(np.prod(
+            [sizes[a] for a in _spec_axes(ax)])) else ax for d, ax in enumerate(self.act_spec)]
+        spec = P(*act, *([None] * (nd - len(self.act_spec))))
         return self._to(x, spec)
 
     def block(self, p, name=None):

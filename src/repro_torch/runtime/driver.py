@@ -16,10 +16,12 @@ The driver owns everything a pod-scale job needs around the compiled step:
     completes (or finally fails) — followed by the ``DiskHost`` spill
     store, so no in-flight disk fetch outlives its chunk files.
 
-The JAX package's ``runtime/driver.py`` on one card: a restart restores into
-the structure of ``template()`` (the launcher passes the state on the meta
+The JAX package's ``runtime/driver.py``: a restart restores into the
+structure of ``template()`` (the launcher passes the state on the meta
 device, the counterpart of ``jax.eval_shape(init_state)``); the restored
-leaves are host numpy, which the step places.
+leaves are host numpy, which the step places (under a mesh, at the plan's
+layouts).  Every rank of a process group runs the same loop; rank 0 writes
+the checkpoints.
 """
 from __future__ import annotations
 

@@ -1,26 +1,26 @@
-"""Elastic re-meshing, reduced to what one card uses.
+"""Elastic re-meshing: resume a job on a different rank count.
 
-The JAX package's ``runtime/elastic.py`` resumes a job on a different device
-count: it fingerprints the mesh into every checkpoint, re-derives the mesh
-on restart, and re-partitions grouped (weight-streamed) checkpoints by
-streaming.  The port runs on one card, so its mesh is always
-``(data=1, model=1)``: :func:`mesh_fingerprint` gives that identity under
-the JAX package's keys, and :func:`check_restart_mesh` refuses to resume a
-run fingerprinted on another device count.  The 2 <-> 1-device re-mesh
-needs multi-device support (ROADMAP.md, queue 1 item 5) and raises.  The grouped
-checkpoint reshard runs as in the JAX package: when the weight grouping of a
-streamed-weight run changes (another budget or group size), its grouped
-checkpoint is repartitioned in place by streaming, one output leaf in memory
-at a time, and the spill chunks of the old grouping are pruned.
+The JAX package's ``runtime/elastic.py``: the launchers fingerprint the mesh
+into every checkpoint (:func:`mesh_fingerprint`), build the mesh over the
+ranks that exist now with the model axis degraded to what they can host
+(:func:`elastic_local_mesh`), and the driver's restart loop raises
+:class:`RemeshRequired` when the live rank count moved under a running job
+(:func:`check_restart_mesh`); a relaunch re-derives the mesh and the
+shardings.  Checkpoints hold full (unsharded) leaves, so a 2 <-> 1-rank
+resume re-places them under the new mesh.  The live rank count is the
+process group's world size (``torchrun``'s ranks), 1 without a group.
+
+The grouped checkpoint reshard runs as in the JAX package: when the weight
+grouping of a streamed-weight run changes (another budget or group size),
+its grouped checkpoint is repartitioned in place by streaming, one output
+leaf in memory at a time, and the spill chunks of the old grouping are
+pruned.
 """
 from __future__ import annotations
 
 import logging
 import re
 from typing import Optional
-
-#: where the parts this module refuses are queued
-MULTI_DEVICE = "multi-device re-meshing (ROADMAP.md, queue 1 item 5: multi-device and tooling)"
 
 log = logging.getLogger("repro_torch.elastic")
 
@@ -62,31 +62,94 @@ def elastic_mesh_shape(
     return (rest, model), ("data", "model")
 
 
-def mesh_fingerprint(n_devices: int = 1) -> dict:
-    """JSON-serializable identity of the run's mesh (checkpoint and run
-    metadata), under the JAX package's keys: the elastic mesh over
-    ``n_devices`` with a model axis of 1 — the port's one card by default."""
-    if n_devices != 1:
-        raise NotImplementedError(f"a mesh over {n_devices} devices needs {MULTI_DEVICE}")
-    shape, axes = elastic_mesh_shape(n_devices, model=1, prefer_pods=False)
-    return {"n_devices": n_devices, "shape": list(shape), "axes": list(axes)}
+def mesh_fingerprint(mesh=None) -> dict:
+    """JSON-serializable identity of a mesh (checkpoint and run metadata),
+    under the JAX package's keys; a changed fingerprint on resume means the
+    shardings were re-derived.  ``mesh`` is a ``DeviceMesh``; ``None`` is the
+    one-device run without a process group, the ``(data=1, model=1)`` mesh
+    the JAX package builds over one device."""
+    if mesh is None:
+        shape, axes = elastic_mesh_shape(1, model=1, prefer_pods=False)
+        return {"n_devices": 1, "shape": list(shape), "axes": list(axes)}
+    return {"n_devices": int(mesh.size()), "shape": [int(s) for s in mesh.shape],
+            "axes": [str(a) for a in mesh.mesh_dim_names]}
+
+
+def live_world_size() -> int:
+    """The ranks that exist now: the process group's world size, 1 without
+    a group."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def dist_rank() -> int:
+    """This process's rank, 0 without a group."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _degraded_model(model: int, n: int) -> int:
+    m = max(1, min(model, n))
+    while n % m:
+        m -= 1
+    return m
+
+
+def elastic_local_mesh(model: int = 1, device=None):
+    """A ``("data", "model")`` mesh over the ranks that exist now, via
+    :func:`elastic_mesh_shape`.  Unlike
+    :func:`~repro_torch.launch.mesh.make_local_mesh` (which refuses an
+    indivisible model axis), the model axis degrades to the largest degree
+    the live rank count can host, with the JAX package's warning: the
+    2-rank -> 1-rank resume keeps working.  Without a process group a
+    one-rank group is opened (NCCL on the card, gloo on the CPU)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.device import resolve_device
+
+    device_type = resolve_device(device).type
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
+    n = live_world_size()
+    m = _degraded_model(model, n)
+    if m != model:
+        log.warning("elastic mesh: model axis %d does not fit %d device(s); degraded to %d",
+                    model, n, m)
+    shape, axes = elastic_mesh_shape(n, model=m, prefer_pods=False)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 class RemeshRequired(RuntimeError):
-    """The run's device count no longer matches the mesh its checkpoints
-    were written on."""
+    """The live rank count no longer matches the mesh this process built.
+    In-process restart cannot recover (layouts are built for the old mesh);
+    relaunching re-derives everything, and the resume re-places the
+    checkpoint's full leaves under the new mesh."""
 
 
-def check_restart_mesh(expected: dict, n_devices: int = 1) -> None:
-    """Called by the driver's restart loop: raise :class:`RemeshRequired`
-    when ``expected`` (a :func:`mesh_fingerprint`) names another device
-    count than the run's ``n_devices`` (the port's one card)."""
-    if expected.get("n_devices") == n_devices:
+def check_restart_mesh(expected: dict) -> None:
+    """Called by the driver's restart loop: re-derive the elastic mesh for
+    the live rank count and raise :class:`RemeshRequired` if it changed
+    since ``expected`` (a :func:`mesh_fingerprint`)."""
+    n = live_world_size()
+    if n == expected.get("n_devices"):
         return
+    model = 1
+    axes = expected.get("axes") or []
+    shape = expected.get("shape") or []
+    if "model" in axes:
+        model = int(shape[axes.index("model")])
+    new_shape, new_axes = elastic_mesh_shape(n, model=_degraded_model(model, n),
+                                             prefer_pods=False)
     raise RemeshRequired(
-        f"checkpoints were written on {expected.get('n_devices')} devices "
-        f"{tuple(expected.get('shape') or ())}, this run has {n_devices}: resuming across "
-        f"device counts needs {MULTI_DEVICE}"
+        f"device count changed under a live job: compiled for "
+        f"{expected.get('n_devices')} devices {tuple(shape)}, now {n}; "
+        f"relaunch to re-mesh as {new_shape} {new_axes} — resume will "
+        f"re-derive shardings and re-partition host/disk-homed state by "
+        f"streaming"
     )
 
 
@@ -237,15 +300,25 @@ def reshard_grouped_checkpoint(ckpt, plan, *, step: Optional[int] = None,
 
 
 def ensure_plan_matches_checkpoint(checkpoint_dir, plan, *,
-                                   run_meta: Optional[dict] = None) -> bool:
+                                   run_meta: Optional[dict] = None,
+                                   _one_rank: bool = False) -> bool:
     """The launcher's resume check: when the latest checkpoint's weight
     grouping differs from ``plan``'s (another budget or group size),
     repartition it in place before the driver restores.  Returns True when
-    it resharded."""
+    it resharded.  Under a group of several ranks rank 0 repartitions and
+    the others wait for its answer."""
     from pathlib import Path
 
     from repro_torch.checkpoint.manager import CheckpointManager
 
+    if live_world_size() > 1 and not _one_rank:
+        # one writer: rank 0 repartitions, every rank learns whether it did
+        import torch.distributed as dist
+
+        flag = [dist_rank() == 0 and ensure_plan_matches_checkpoint(
+            checkpoint_dir, plan, run_meta=run_meta, _one_rank=True)]
+        dist.broadcast_object_list(flag, src=0)
+        return bool(flag[0])
     if not Path(checkpoint_dir).exists():
         return False
     ckpt = CheckpointManager(checkpoint_dir, keep=0)  # keep=0: never prunes

@@ -53,6 +53,7 @@ from repro_torch.optim.adamw import (
     adamw_update,
     is_state_leaf,
 )
+from repro_torch.parallel import local
 
 Pytree = Any
 
@@ -62,42 +63,62 @@ Pytree = Any
 # ---------------------------------------------------------------------------
 
 
-def _value_and_grad(cfg: ModelConfig, params: Pytree, batch: dict):
+def _value_and_grad(cfg: ModelConfig, params: Pytree, batch: dict, mesh=None, sharder=None):
     """``(loss, aux, grads)`` of ``transformer.lm_loss`` at ``params`` (the
     JAX package's ``jax.value_and_grad(lm_loss, argnums=1, has_aux=True)``):
     the leaves are detached and differentiated as fresh leaves, so the
-    caller's tensors never carry autograd state."""
+    caller's tensors never carry autograd state.  Under a mesh the leaves
+    are DTensors and so are the gradients, at the leaves' placements."""
     flat, treedef = tr.flatten(params.as_dict() if isinstance(params, ParamTree) else params)
     leaves = [p.detach().requires_grad_(True) for p in flat]
     with torch.enable_grad():
-        loss, aux = transformer.lm_loss(cfg, tr.unflatten(treedef, leaves), batch)
+        loss, aux = transformer.lm_loss(cfg, tr.unflatten(treedef, leaves), batch, mesh, sharder)
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     aux = {k: v.detach() for k, v in aux.items()}
-    return loss.detach(), aux, tr.unflatten(treedef, list(grads))
+    # under a mesh the gradients are pinned to the parameters' layouts (the
+    # JAX package's ``Sharder.grads``)
+    grads = [_placed_like(g, p) for g, p in zip(grads, leaves)]
+    return loss.detach(), aux, tr.unflatten(treedef, grads)
 
 
-def make_grad_step(cfg: ModelConfig) -> Callable[[Pytree, dict], tuple[torch.Tensor, dict, Pytree]]:
+def _placed_like(x, like):
+    """``x`` at DTensor ``like``'s placements (the identity off a mesh)."""
+    if not local.is_dtensor(like) or tuple(x.placements) == tuple(like.placements):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
+def make_grad_step(cfg: ModelConfig, mesh=None,
+                   sharder=None) -> Callable[[Pytree, dict], tuple[torch.Tensor, dict, Pytree]]:
     """``(params, batch) -> (loss, aux, grads)`` — the forward/backward half
     of the train step, split out so the optimizer half can run through the
-    host-streaming engine."""
+    host-streaming engine.  ``mesh`` and ``sharder``: the parameters are
+    DTensors and the Sharder runs in the layer body
+    (:func:`repro_torch.models.transformer.forward_hidden`)."""
 
     def grad_step(params, batch):
-        return _value_and_grad(cfg, params, batch)
+        return _value_and_grad(cfg, params, batch, mesh, sharder)
 
     return grad_step
 
 
 def make_train_step(
-    cfg: ModelConfig, opt_cfg: AdamWConfig
+    cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None, sharder=None
 ) -> Callable[[Pytree, dict, dict], tuple[Pytree, dict, dict]]:
-    """``(params, opt_state, batch) -> (params, opt_state, metrics)``."""
-    grad_step = make_grad_step(cfg)
+    """``(params, opt_state, batch) -> (params, opt_state, metrics)``; under
+    a mesh the parameters and the AdamW state are DTensors (the train plan's
+    layouts) and every leaf's update runs on its local shard."""
+    grad_step = make_grad_step(cfg, mesh, sharder)
 
     def train_step(params, opt_state, batch):
         loss, aux, grads = grad_step(params, batch)
         new_params, new_opt, om = adamw_update(
             opt_cfg, grads, opt_state, compute_dtype=cfg.compute_dtype
         )
+        if mesh is not None or sharder is not None:
+            # the step's out-shardings: the state keeps its layouts
+            new_params = tr.tree_map(_placed_like, new_params, params)
+            new_opt = tr.tree_map(_placed_like, new_opt, opt_state)
         return new_params, new_opt, {"loss": loss, **aux, **om}
 
     return train_step
@@ -203,6 +224,7 @@ def make_streamed_opt_updater(
     engine: Optional[TransferEngine] = None,
     spill_store=None,
     device: DeviceLike = None,
+    state_shardings: Optional[Pytree] = None,
 ) -> Callable[..., tuple[Pytree, dict, dict]]:
     """Build ``update(grads, host_state, stats=None) -> (new_params,
     new_host_state, metrics)`` with host-resident optimizer state.
@@ -222,6 +244,13 @@ def make_streamed_opt_updater(
     their updated moments are written back to ``spill_store`` after the
     drain.  The engine stages onto ``device`` (the card unless ``"cpu"``)
     unless one is passed.
+
+    Under a mesh the gradients are DTensors (they pass through) and
+    ``state_shardings`` (a tree of
+    :class:`~repro_torch.core.memkind.Sharding` shaped as
+    ``host_state["leaves"]``) stages each rank's shard of the moments at
+    the train plan's layouts; the updated moments drain whole (gathered at
+    the writeback) and the new parameters stay DTensors.
     """
     prefetch = prefetch or PrefetchSpec(buffer_size=n_groups, distance=1)
     executor_box: list = []  # built at the first update
@@ -254,8 +283,18 @@ def make_streamed_opt_updater(
              "s": tuple(flat_s[bounds[i] : bounds[i + 1]])}
             for i in range(len(bounds) - 1)
         ]
+        group_sh = None
+        if state_shardings is not None:
+            from repro_torch.core.memkind import Sharding
+
+            flat_sh = tr.flatten(state_shardings, is_leaf=lambda x: isinstance(x, Sharding))[0]
+            per_leaf = [dict(zip(("m", "master", "v"), flat_sh[3 * j:3 * j + 3]))
+                        for j in range(len(flat_g))]
+            group_sh = [{"g": (None,) * (bounds[i + 1] - bounds[i]),
+                         "s": tuple(per_leaf[bounds[i]:bounds[i + 1]])}
+                        for i in range(len(bounds) - 1)]
         _, state_outs = ex.run(
-            glob, groups, mode=mode, prefetch=prefetch, stats=stats,
+            glob, groups, mode=mode, prefetch=prefetch, stats=stats, group_shardings=group_sh,
             group_keys=[f"opt/{i}" for i in range(len(groups))],
         )
         state_outs = [tr.tree_map(host_array, out) for out in state_outs]
@@ -292,6 +331,9 @@ def make_streamed_train_step(
     stats: Optional[StreamStats] = None,
     spill_store=None,
     device: DeviceLike = None,
+    mesh=None,
+    sharder=None,
+    state_shardings: Optional[Pytree] = None,
 ) -> Callable[[dict, dict], tuple[dict, dict]]:
     """``(state, batch) -> (state, metrics)`` with a host-resident optimizer.
 
@@ -300,11 +342,13 @@ def make_streamed_train_step(
     host-kind moments through the transfer engine
     (:func:`make_streamed_opt_updater`).  With ``spill_store``, moment
     groups spilled to the ``DiskHost`` tier (:func:`spill_opt_state`) stream
-    disk -> host -> device and write back to disk."""
-    grad_fn = make_grad_step(cfg)
+    disk -> host -> device and write back to disk.  Under a mesh the
+    parameters are DTensors, the ``sharder`` runs in the layer body and
+    ``state_shardings`` lays the moments out (:func:`make_streamed_opt_updater`)."""
+    grad_fn = make_grad_step(cfg, mesh, sharder)
     updater = make_streamed_opt_updater(
         opt_cfg, compute_dtype=cfg.compute_dtype, n_groups=n_groups, prefetch=prefetch,
-        engine=engine, spill_store=spill_store, device=device,
+        engine=engine, spill_store=spill_store, device=device, state_shardings=state_shardings,
     )
 
     def step_fn(state, batch):
@@ -322,35 +366,52 @@ def make_streamed_train_step(
 
 
 def make_prefill_step(
-    cfg: ModelConfig, batch_size: int, seq_len: int
+    cfg: ModelConfig, batch_size: int, seq_len: int, mesh=None, sharder=None
 ) -> Callable[..., tuple[torch.Tensor, dict]]:
     """``(params, batch, last_pos=None) -> (logits, caches)``.
 
     Caches for a context of ``seq_len`` are created inside the step (zeros,
-    on the batch's device) and filled in place by the prefill."""
+    on the batch's device) and filled in place by the prefill.  With a
+    ``sharder`` they are DTensors at its plan's cache specs (each rank
+    makes its own shard) and the Sharder runs in the layer body."""
 
     @torch.no_grad()
     def prefill_step(params: ParamTree, batch: dict, last_pos: Optional[int] = None):
         caches = transformer.init_caches(
             cfg, batch_size, seq_len, cfg.compute_dtype, transformer.batch_device(batch)
         )
-        return transformer.prefill(cfg, params, batch, caches, last_pos=last_pos)
+        if sharder is not None:
+            caches = place_caches(sharder.plan, caches, batch_size)
+        return transformer.prefill(cfg, params, batch, caches, last_pos=last_pos, mesh=mesh,
+                                   sharder=sharder)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig) -> Callable[..., tuple[torch.Tensor, dict]]:
+def place_caches(plan, caches: dict, batch_size: int) -> dict:
+    """Caches as DTensors at ``plan``'s cache specs, each rank cutting its
+    own shard of the same values (no broadcast)."""
+    from repro_torch.parallel import sharding as sh
+
+    specs = sh.cache_specs_tree(plan, caches, batch_size)
+    return sh.distribute_tree(caches, plan.mesh, specs, src_data_rank=None)
+
+
+def make_decode_step(cfg: ModelConfig, mesh=None,
+                     sharder=None) -> Callable[..., tuple[torch.Tensor, dict]]:
     """``(params, caches, batch, pos) -> (logits, caches)`` — one new token
-    against populated caches, which are updated in place."""
+    against populated caches, which are updated in place (DTensors, with a
+    ``sharder`` in the layer body, under a mesh)."""
 
     @torch.no_grad()
     def decode_step(params: ParamTree, caches: dict, batch: dict, pos):
-        return transformer.decode_step(cfg, params, batch, caches, pos)
+        return transformer.decode_step(cfg, params, batch, caches, pos, mesh=mesh, sharder=sharder)
 
     return decode_step
 
 
-def make_paged_decode_step(cfg: ModelConfig) -> Callable[..., tuple[torch.Tensor, dict]]:
+def make_paged_decode_step(cfg: ModelConfig, mesh=None,
+                           sharder=None) -> Callable[..., tuple[torch.Tensor, dict]]:
     """``(params, view, batch, pos) -> (logits, caches)`` over a paged KV
     cache (see :mod:`repro_torch.core.kvpager`).
 
@@ -360,8 +421,9 @@ def make_paged_decode_step(cfg: ModelConfig) -> Callable[..., tuple[torch.Tensor
     runs on it, so paged and unpaged decode run the same code on the same
     values.  The returned caches are that assembled view, updated in place.
     The assembly runs inside a ``record_function`` span, which a profiler
-    reads."""
-    decode_fn = make_decode_step(cfg)
+    reads.  Under a mesh the pages are DTensors at the pager's page
+    shardings, and so is the assembled cache."""
+    decode_fn = make_decode_step(cfg, mesh, sharder)
 
     def paged_decode_step(params: ParamTree, view, batch: dict, pos):
         with record_function("assemble_view"):
@@ -435,6 +497,9 @@ def make_weight_streamed_prefill_step(
     prefetch: Optional[PrefetchSpec] = None,
     stats: Optional[StreamStats] = None,
     residency: Optional[ResidencyCache] = None,
+    mesh=None,
+    sharder=None,
+    param_shardings: Optional[Pytree] = None,
 ) -> Callable[..., tuple[torch.Tensor, dict]]:
     """``(home, batch, last_pos=None) -> (logits, caches)`` with the
     parameters streamed group by group from ``home`` (a plan home) through
@@ -450,9 +515,16 @@ def make_weight_streamed_prefill_step(
     ``residency`` keeps landed groups on the device across calls: serve
     parameters never change, so a resident group passes through the engine
     at zero requests on every later prefill or decode step until the LRU
-    evicts it.  The step has ``close`` (the executor's) and ``residency``."""
+    evicts it.  The step has ``close`` (the executor's) and ``residency``.
+
+    Under a mesh, ``param_shardings`` stages each group at its layout
+    (:meth:`WeightStreamPlan.group_shardings`), the caches are DTensors at
+    the ``sharder``'s plan's cache specs, and the Sharder runs in the layer
+    body."""
     pf, mode = _stream_mode(plan, prefetch)
     head_idx = plan.n_groups - 1
+    msh = dict(mesh=mesh, sharder=sharder)
+    sh_fwd = plan.group_shardings(param_shardings)
     #: group index -> (its unit, whether it is the unit's last group)
     unit_of = {gi: (u, j == len(u.gidx) - 1) for u in plan.units for j, gi in enumerate(u.gidx)}
     box: dict = {}
@@ -461,11 +533,13 @@ def make_weight_streamed_prefill_step(
         g = plan.groups[i]
         _cache_put(residency, plan, g, group)
         if i == 0:
-            x = transformer.embed_stage(cfg, group, box["batch"])
+            x = transformer.embed_stage(cfg, group, box["batch"], **msh)
             box["x"] = x
             box["angles"] = transformer.stage_angles(cfg, box["batch"], x.shape[1])
             box["caches"] = transformer.init_caches(cfg, batch_size, seq_len, cfg.compute_dtype,
-                                                    x.device)
+                                                    transformer.batch_device(box["batch"]))
+            if sharder is not None:
+                box["caches"] = place_caches(sharder.plan, box["caches"], batch_size)
             return None
         if i == head_idx:
             xl = transformer._last(box["x"], box["last_pos"])
@@ -478,7 +552,8 @@ def make_weight_streamed_prefill_step(
         parts = box.pop("parts")
         sl = parts[0] if u.kind != "moe" else merge_expert_slice(parts[0], parts[1:])
         box["x"], _ = transformer.block_group_prefill(
-            cfg, sl, _layer_view(box["caches"], u.lo, u.hi), box["x"], box["angles"])
+            cfg, sl, _layer_view(box["caches"], u.lo, u.hi), box["x"], box["angles"],
+            sharder=sharder)
         return None
 
     ex = HostStreamExecutor(apply, indexed=True, engine=engine)
@@ -491,7 +566,7 @@ def make_weight_streamed_prefill_step(
         groups = (plan.fetch_thunks_forward(home, residency) if residency is not None
                   else plan.fetch_groups_forward(home))
         try:
-            ex.run(None, groups, mode=mode, prefetch=pf, stats=stats,
+            ex.run(None, groups, mode=mode, prefetch=pf, stats=stats, group_shardings=sh_fwd,
                    group_keys=[g.key for g in plan.groups])
             return box["logits"], box["caches"]
         finally:
@@ -513,6 +588,9 @@ def make_weight_streamed_decode_step(
     residency: Optional[ResidencyCache] = None,
     route_experts: bool = True,
     expert_stats: Optional[StreamStats] = None,
+    mesh=None,
+    sharder=None,
+    param_shardings: Optional[Pytree] = None,
 ) -> Callable[..., tuple[torch.Tensor, dict]]:
     """Streamed-parameter decode step.
 
@@ -538,15 +616,19 @@ def make_weight_streamed_decode_step(
     gives the all-expert and device-resident runs' bits.  The routed set is
     read on the host: one device sync a MoE layer.
 
-    Per-group shardings (``param_shardings``) need a mesh (ROADMAP.md, queue
-    1 item 5)."""
+    Under a mesh, ``param_shardings`` stages each pipeline group (and each
+    routed expert group) at its layout, and the ``sharder`` runs in the
+    layer body on the DTensor caches."""
     pf, mode = _stream_mode(plan, prefetch)
+    msh = dict(mesh=mesh, sharder=sharder)
+    sh_all = plan.group_shardings(param_shardings)
     if plan.expert_stream and expert_stats is None:
         expert_stats = StreamStats()
     # the pipeline program: each unit's first group (experts are fetched on
     # demand, after the router has run)
     prog = [plan.groups[0]] + [plan.groups[u.gidx[0]] for u in plan.units] + [plan.groups[-1]]
     head_pos = len(prog) - 1
+    sh_prog = [sh_all[g.index] for g in prog] if sh_all is not None else None
     box: dict = {}
 
     def fetch_experts(home: dict, gs) -> list:
@@ -562,7 +644,9 @@ def make_weight_streamed_decode_step(
                 residency.sanitize_home(g.key, home["groups"][g.key], hit=tree is not None)
             if tree is None:
                 tree = home["groups"][g.key]
-            fut = engine.submit_group(g.index, tree, key=g.key)
+            fut = engine.submit_group(
+                g.index, tree, key=g.key,
+                device_shardings=sh_all[g.index] if sh_all is not None else None)
             est.n_transfers += 1
             est.n_groups += 1
             est.h2d_requests += fut.n_requests
@@ -617,7 +701,7 @@ def make_weight_streamed_decode_step(
         g = prog[i]
         _cache_put(residency, plan, g, group)
         if i == 0:
-            box["x"] = transformer.embed_stage(cfg, group, box["batch"], pos=box["pos"])
+            box["x"] = transformer.embed_stage(cfg, group, box["batch"], pos=box["pos"], **msh)
             box["angles"] = transformer.stage_angles(cfg, box["batch"], 1, pos=box["pos"])
             return None
         if i == head_pos:
@@ -629,7 +713,7 @@ def make_weight_streamed_decode_step(
             return None
         box["x"], _ = transformer.block_group_decode(
             cfg, group, _layer_view(box["caches"], g.lo, g.hi), box["x"], box["angles"],
-            box["pos"])
+            box["pos"], sharder=sharder)
         return None
 
     ex = HostStreamExecutor(apply, indexed=True, engine=engine)
@@ -643,7 +727,7 @@ def make_weight_streamed_decode_step(
         else:
             groups = [plan.fetch_group(home, g) for g in prog]
         try:
-            ex.run(None, groups, mode=mode, prefetch=pf, stats=stats,
+            ex.run(None, groups, mode=mode, prefetch=pf, stats=stats, group_shardings=sh_prog,
                    group_keys=[g.key for g in prog])
             return box["logits"], caches
         finally:
@@ -803,6 +887,15 @@ def device_weight_streamed_state(plan: WeightStreamPlan, state: dict,
     }
 
 
+def _state_shardings(shardings: Pytree) -> Pytree:
+    """The AdamW state's layouts from its parameters' (``master``, ``m`` and
+    ``v`` share the parameter leaf's)."""
+    from repro_torch.core.memkind import Sharding
+
+    flat, treedef = tr.flatten(shardings, is_leaf=lambda x: isinstance(x, Sharding))
+    return tr.unflatten(treedef, [{"master": s, "m": s, "v": s} for s in flat])
+
+
 def _leaf_sqsums(tree: Pytree) -> tuple:
     """Per-leaf f32 squared sums, in the tree's leaf order: the partial terms
     of the global gradient norm, taken group by group so the whole gradient
@@ -829,7 +922,8 @@ def _vjp(fn: Callable, group: Pytree, xs: tuple = (), ct: Optional[torch.Tensor]
             outs.append(out[1])
             cts.append(torch.ones_like(out[1]))
         grads = torch.autograd.grad(outs, leaves + ins, grad_outputs=cts, materialize_grads=True)
-    return out, tr.unflatten(treedef, list(grads[:len(leaves)])), grads[len(leaves):]
+    grads = [_placed_like(g, x) for g, x in zip(grads, leaves + ins)]
+    return out, tr.unflatten(treedef, grads[:len(leaves)]), tuple(grads[len(leaves):])
 
 
 def make_weight_streamed_train_step(
@@ -846,6 +940,9 @@ def make_weight_streamed_train_step(
     residency: Optional[ResidencyCache] = None,
     donate: bool = False,
     device: DeviceLike = None,
+    mesh=None,
+    sharder=None,
+    param_shardings: Optional[Pytree] = None,
 ) -> Callable[[dict, dict], tuple[dict, dict]]:
     """``(state, batch) -> (state, metrics)`` with the weights homed off the
     card (the JAX package's ``make_weight_streamed_train_step``).
@@ -913,6 +1010,16 @@ def make_weight_streamed_train_step(
     drains at a time.  The values and counters are the
     same; a donated state is empty after the step, and unusable after a
     failed one.
+
+    ``param_shardings`` (a full-params tree of
+    :class:`~repro_torch.core.memkind.Sharding`, under a mesh) stages every
+    group at its layout (:meth:`WeightStreamPlan.group_shardings`): the
+    forward and backward fetches at the fetch groups' layouts, the
+    optimizer pass's gradients and moments at the home groups'.  Each rank
+    moves its own shards (one H2D request a (rank, group)); the layer body
+    runs on DTensors with ``sharder``; the gradients and updates drain as
+    full host values (gathered at the writeback), so the home stays the
+    one-device home.
     """
     if param_kind not in PARAM_KINDS:
         raise ValueError(f"unknown param_kind {param_kind!r}; expected one of {PARAM_KINDS}")
@@ -955,21 +1062,23 @@ def make_weight_streamed_train_step(
     #: unit's groups (the layer's non-expert group, then its experts) merge
     #: into the unsplit slice on the card first
     stages: list = []
+    msh = dict(mesh=mesh, sharder=sharder)
     for u in units:
         g = plan.groups[u.gidx[0]]
         if u.kind == "moe":
             stages.append(lambda ps, x, a, ang: transformer.block_group_train(
-                cfg, merge_expert_slice(ps[0], ps[1:]), x, a, ang))
+                cfg, merge_expert_slice(ps[0], ps[1:]), x, a, ang, sharder=sharder))
         elif u.kind == "layers":
-            stages.append(lambda ps, x, a, ang: transformer.block_group_train(cfg, ps[0], x, a, ang))
+            stages.append(lambda ps, x, a, ang: transformer.block_group_train(
+                cfg, ps[0], x, a, ang, sharder=sharder))
         elif u.kind == "period":
             stages.append(lambda ps, x, a, ang: transformer.period_group_train(
-                cfg, ps[0], x, a, ang))
+                cfg, ps[0], x, a, ang, sharder=sharder))
         else:
             kinds = tuple((name, cfg.block_kind(layer))
                           for name, layer in zip(plan.block_names(g), range(g.lo, g.hi)))
             stages.append(lambda ps, x, a, ang, kinds=kinds: transformer.hetero_group_train(
-                cfg, kinds, ps[0], x, a, ang))
+                cfg, kinds, ps[0], x, a, ang, sharder=sharder))
     #: middle group index -> (unit position, True when the group completes
     #: its unit in forward fetch order)
     unit_pos: dict = {}
@@ -1008,14 +1117,14 @@ def make_weight_streamed_train_step(
         store(g, group, pinned=g.key in pin_keys)
         batch = box["batch"]
         if i == 0:
-            x = transformer.embed_stage(cfg, group, batch)
+            x = transformer.embed_stage(cfg, group, batch, **msh)
             box.update(x=x, angles=transformer.stage_angles(cfg, batch, x.shape[1]),
-                       aux=torch.zeros((), dtype=f32, device=x.device), acts={}, parts=[])
+                       aux=transformer._zero_like(x), acts={}, parts=[])
             return None
         if i == head_idx:
             (loss, metrics), dp, (dx,) = _vjp(
-                lambda p, x: transformer.head_stage_loss(cfg, p, x, box["aux"], batch), group,
-                (box["x"],))
+                lambda p, x: transformer.head_stage_loss(cfg, p, x, box["aux"], batch),
+                group, (box["x"],))
             dp_home, dp_embed = plan.split_head_grads(dp)
             box.update(loss=loss.detach(), metrics={k: v.detach() for k, v in metrics.items()},
                        dp_head=dp_home, dp_head_embed=dp_embed, ct=dx,
@@ -1035,7 +1144,8 @@ def make_weight_streamed_train_step(
         store(g, group)
         batch = box["batch"]
         if g.kind == "embed":
-            _, dp, _ = _vjp(lambda p: transformer.embed_stage(cfg, p, batch), group, ct=box["ct"])
+            _, dp, _ = _vjp(lambda p: transformer.embed_stage(cfg, p, batch, **msh), group,
+                            ct=box["ct"])
             if box["dp_head_embed"] is not None:
                 # a tied head: the table's gradient is the gather path's plus
                 # the head path's, added in this order on every home
@@ -1049,7 +1159,7 @@ def make_weight_streamed_train_step(
             # a moe unit's experts land (reversed) before its non-expert
             # group; their gradients drain at that group's position, and a
             # placeholder keeps the writeback stream one output a group
-            return None, torch.zeros((), dtype=f32, device=box["ct"].device)
+            return None, transformer._zero_like(box["ct"])
         parts = box["parts"][::-1]  # fetch order: non-expert group, experts
         box["parts"] = []
         fn = stages[u_i]
@@ -1081,6 +1191,15 @@ def make_weight_streamed_train_step(
     ex_b = HostStreamExecutor(apply_b, indexed=True, writeback=True, engine=engine)
     ex_o = HostStreamExecutor(apply_o, indexed=True, writeback=True, engine=engine)
 
+    # the layouts of each pass's groups under a mesh (None: one device)
+    sh_fwd = plan.group_shardings(param_shardings)
+    sh_home = plan.home_group_shardings(param_shardings)
+    sh_bwd = sh_o = None
+    if param_shardings is not None:
+        sh_bwd = [sh_fwd[g.index] for g in bwd_order]
+        home_of = {g.key: h for g, h in zip(plan.groups, sh_home)}
+        sh_o = [{"g": home_of[g.key], "s": _state_shardings(home_of[g.key])} for g in o_order]
+
     def rehome(g, out):
         p_new = tr.tree_map(host_array, out["p"])
         s_new = tr.tree_map(host_array, out["s"])
@@ -1089,6 +1208,10 @@ def make_weight_streamed_train_step(
             spill_store.put(f"wopt/{g.key}", s_new)
             return spill_store.get(plan.spill_key(g)), spill_store.get(f"wopt/{g.key}")
         if param_kind == "device":
+            if sh_home is not None:  # back to the group's home layout
+                hs = sh_home[g.index]
+                return (tr.tree_map(lambda x, sh: sh.put(x), p_new, hs),
+                        tr.tree_map(lambda x, sh: sh.put(x), s_new, _state_shardings(hs)))
             return (tr.tree_map(lambda x: host_tensor(x).to(dev), p_new),
                     tr.tree_map(lambda x: host_tensor(x).to(dev), s_new))
         return p_new, s_new  # pinned_host: the drained host arrays are the home
@@ -1102,16 +1225,16 @@ def make_weight_streamed_train_step(
         # time, so each sees the cache as it is when its transfer goes out
         fwd = (plan.fetch_thunks_forward(home, cache) if cache is not None
                else plan.fetch_groups_forward(home))
-        ex_f.run(None, fwd, mode=mode, prefetch=pf, stats=stats,
+        ex_f.run(None, fwd, mode=mode, prefetch=pf, stats=stats, group_shardings=sh_fwd,
                  group_keys=[g.key for g in plan.groups])
         # phase B: reverse order; the gradients drain D2H
-        box["aux0"] = torch.zeros((), dtype=f32, device=box["ct"].device)
+        box["aux0"] = transformer._zero_like(box["ct"])
         if cache is not None:
             bwd = [(lambda g=g: plan.fetch_group(home, g, cache)) for g in bwd_order]
         else:
             bwd = [fwd[g.index] for g in bwd_order]
         _, grad_outs = ex_b.run(None, bwd, mode=mode, prefetch=pf, stats=stats,
-                                group_keys=[g.key for g in bwd_order])
+                                group_shardings=sh_bwd, group_keys=[g.key for g in bwd_order])
         if donate:  # no later pass reads the old parameters
             del fwd, bwd
             home["groups"].clear()
@@ -1141,20 +1264,22 @@ def make_weight_streamed_train_step(
                 box["o_base"] = i
                 _, (out,) = ex_o.run(
                     None, [{"g": grads.pop(g.key), "s": opt["groups"].pop(g.key)}], mode=mode,
-                    prefetch=pf, stats=opt_stats, group_keys=[g.key])
+                    prefetch=pf, stats=opt_stats, group_keys=[g.key],
+                    group_shardings=[sh_o[i]] if sh_o is not None else None)
                 engine.release_buffers()
                 new_home[g.key], new_opt[g.key] = rehome(g, out)
                 del out
         else:
             o_groups = [{"g": grads.pop(g.key), "s": opt["groups"][g.key]} for g in o_order]
             _, o_outs = ex_o.run(None, o_groups, mode=mode, prefetch=pf, stats=opt_stats,
-                                 group_keys=[g.key for g in o_order])
+                                 group_shardings=sh_o, group_keys=[g.key for g in o_order])
             del o_groups
             for g, out in zip(o_order, o_outs):
                 new_home[g.key], new_opt[g.key] = rehome(g, out)
         glob = box["glob"]
-        metrics = {"loss": box["loss"], **box["metrics"], "grad_norm": glob["grad_norm"],
-                   "lr": glob["lr"]}
+        metrics = {k: local.full_local(v) for k, v in
+                   {"loss": box["loss"], **box["metrics"], "grad_norm": glob["grad_norm"],
+                    "lr": glob["lr"]}.items()}
         # the step's device scratch (activations, cotangents) must not outlive
         # it into the checkpoint and data gap
         box.clear()

@@ -101,12 +101,46 @@ def test_offload_ref_rejects_what_jax_rejects():
     with pytest.raises(ValueError) as perr:
         OffloadRef(kind=mk.DEVICE, prefetch=PrefetchSpec())
     assert str(perr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        OffloadRef(kind=mk.PINNED_HOST, spec=("data",))
+    # a spec is taken, as the JAX package takes it (its placement under a
+    # mesh: test_offload_ref_spec_places_each_ranks_shard)
+    assert OffloadRef(kind=mk.PINNED_HOST, spec=("data",)).spec == tuple(
+        JaxOffloadRef(kind=jmk.PINNED_HOST, spec=jax.sharding.PartitionSpec("data")).spec)
     r, j = OffloadRef(kind=mk.PINNED_HOST, prefetch=PrefetchSpec()), JaxOffloadRef(
         kind=jmk.PINNED_HOST, prefetch=JaxPrefetchSpec())
     assert r.streamed == j.streamed is True
     assert OffloadRef().streamed == JaxOffloadRef().streamed is False
+
+
+def test_offload_ref_spec_places_each_ranks_shard():
+    """``OffloadRef(spec=...)`` places by ``sharding_for`` on the function's
+    mesh (the default: a ``("data",)`` mesh over the ranks, one here): the
+    kernel sees a DTensor of the value, the host home keeps the rank's shard
+    and its placement."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.local import full_local
+
+    if dist.is_initialized():
+        pytest.skip("this process holds a group")
+    a = np.arange(24, dtype=np.float32).reshape(6, 4)
+    b = np.ones((6, 4), np.float32)
+
+    def add(x, y):
+        return x + y
+
+    streamed = PrefetchSpec(buffer_size=2, elements_per_fetch=2)
+    refs = dict(x=OffloadRef(kind=mk.UNPINNED_HOST, spec=("data",), prefetch=streamed),
+                y=OffloadRef(kind=mk.UNPINNED_HOST, spec=("data",), prefetch=streamed))
+    f = offload(add, refs=refs, device="cpu")
+    try:
+        assert tuple(f.mesh().mesh_dim_names) == ("data",)
+        home = f.place("x", a)
+        assert isinstance(home, mk.HostShard) and home.shape == (6, 4)
+        out = f(a, b)
+        np.testing.assert_array_equal(np.asarray(full_local(out)), a + b)
+        np.testing.assert_array_equal(np.asarray(full_local(f.eager(a, b))), a + b)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -396,7 +396,8 @@ def test_paged_serve_through_the_kernels_on_card(cuda, kv_kind):
 
 @pytest.mark.parametrize("flags, item", [(["--expert-stream"], "--expert-stream streams routed"),
                                          (["--verify-schedule"], "--verify-schedule requires"),
-                                         (["--model-parallel", "2"], "queue 1 item 5")])
+                                         (["--model-parallel", "2"],
+                                          "model axis 2 does not divide the world size 1")])
 def test_cli_names_the_item_a_flag_waits_for(monkeypatch, capsys, flags, item):
     monkeypatch.setattr(sys, "argv", ["serve", "--smoke", "--device", "cpu", *flags])
     with pytest.raises(SystemExit) as exc:

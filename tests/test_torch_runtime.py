@@ -273,7 +273,7 @@ def test_driver_closes_the_engine_then_the_spill_store_and_drops_writebacks(tmp_
 def test_driver_refuses_a_checkpoint_of_another_mesh_on_restart(tmp_path):
     two = {"n_devices": 2, "shape": [2, 1], "axes": ["data", "model"]}
     d = _cheap_driver(tmp_path, fail_at={3}, run_meta={"mesh": two})
-    with pytest.raises(el.RemeshRequired, match="queue 1 item 5"):
+    with pytest.raises(el.RemeshRequired, match="compiled for 2 devices .* now 1; relaunch"):
         d.run()
 
 
@@ -299,14 +299,29 @@ def test_elastic_mesh_shape_matches_jax(n, model, pods, pod_size):
 
 def test_mesh_fingerprint_is_the_jax_one_device_mesh():
     assert el.mesh_fingerprint() == jax_el.mesh_fingerprint(jax_el.elastic_local_mesh(model=1))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        el.mesh_fingerprint(2)
+
+    class Mesh:  # a DeviceMesh's interface (2 ranks: test_torch_remesh.py)
+        mesh_dim_names = ("data", "model")
+        shape = (2, 1)
+
+        def size(self):
+            return 2
+
+    shape, axes = jax_el.elastic_mesh_shape(2, model=1, prefer_pods=False)
+    assert el.mesh_fingerprint(Mesh()) == {"n_devices": 2, "shape": list(shape),
+                                           "axes": list(axes)}
 
 
 def test_check_restart_mesh_raises_on_device_count_change():
     el.check_restart_mesh(el.mesh_fingerprint())
-    with pytest.raises(el.RemeshRequired, match="queue 1 item 5"):
-        el.check_restart_mesh({"n_devices": 2, "shape": [2], "axes": ["data"]})
+    jax_el.check_restart_mesh(el.mesh_fingerprint())
+    for expected in ({"n_devices": 2, "shape": [2], "axes": ["data"]},
+                     {"n_devices": 2, "shape": [1, 2], "axes": ["data", "model"]}):
+        with pytest.raises(el.RemeshRequired) as ours:
+            el.check_restart_mesh(expected)
+        with pytest.raises(jax_el.RemeshRequired) as theirs:
+            jax_el.check_restart_mesh(expected)
+        assert str(ours.value) == str(theirs.value)
 
 
 @pytest.mark.parametrize("key", ["g000_embed", "g004_head", "g002_layers_002_004",

@@ -132,15 +132,16 @@ def test_unported_serve_options_raise(kwargs, err, match):
     (["--arch", "mixtral-8x7b", "--kv-page-len", "0", "--param-kind", "pinned_host",
       "--expert-stream"], 0, "experts:"),
     (["--loadgen", "--verify-schedule"], 2, "--verify-schedule requires --param-kind"),
-    (["--kv-page-len", "0", "--model-parallel", "2"], 2, "ROADMAP.md"),
+    (["--kv-page-len", "0", "--model-parallel", "2"], 2, "does not divide the world size 1"),
     (["--kv-page-len", "0", "--param-kind", "pinned_host"], 0, "weights:"),
     (["--kv-kind", "disk_host", "--param-kind", "disk_host", "--param-cache-mb", "1"], 0,
      "weight residency:"),
 ])
 def test_cli_exits_on_unported_flags(monkeypatch, capsys, flags, code, text):
-    """What is still unported (model parallelism) exits 2 naming ROADMAP.md,
-    as ``--verify-schedule`` or ``--expert-stream`` on device weights does (a
-    usage error); the streamed-weight and expert-stream flags serve."""
+    """A model axis the ranks cannot host exits 2 with the JAX package's
+    divisibility reason (serving does not degrade), as ``--verify-schedule``
+    or ``--expert-stream`` on device weights does (a usage error); the
+    streamed-weight and expert-stream flags serve."""
     monkeypatch.setattr(sys, "argv", ["serve", "--smoke", "--device", "cpu", "--batch", "2",
                                       "--prompt-len", "8", "--gen", "3", *flags])
     if code == 0:

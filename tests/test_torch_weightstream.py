@@ -138,7 +138,8 @@ def test_recurrentgemma_streamed_serving_refused_with_the_jax_message():
 def test_expert_stream_and_shardings_name_their_items():
     """Expert streaming needs a MoE config (the JAX package's message);
     ``merge_expert_slice`` stacks expert groups on a new expert axis;
-    per-group shardings need a mesh (queue 1 item 5)."""
+    per-group shardings map a full-params tree onto the groups (against the
+    JAX package's on every config: test_torch_sharded_stream.py)."""
     cfg = get_smoke_config("smollm-360m")
     jc = jax_get_smoke_config("smollm-360m")
     with pytest.raises(ValueError, match="requires an MoE config") as ours:
@@ -153,8 +154,14 @@ def test_expert_stream_and_shardings_name_their_items():
     assert [float(merged["moe"]["wi"][0, e, 0, 0]) for e in range(3)] == [0.0, 1.0, 2.0]
     plan = WeightStreamPlan(cfg, st.abstract_params(cfg))
     assert plan.group_shardings(None) is None and plan.home_group_shardings(None) is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        plan.group_shardings({"embed": None})
+    marks = tr.tree_map(lambda x: tuple(x.shape), st.abstract_params(cfg))
+    fetch, home = plan.group_shardings(marks), plan.home_group_shardings(marks)
+    assert len(fetch) == len(home) == plan.n_groups
+    assert fetch[0] == home[0] == {"embed": marks["embed"]}
+    # the tied head's fetch group borrows embed's layout; its home does not
+    assert fetch[-1] == {"ln_f": marks["ln_f"], "embed": marks["embed"]}
+    assert home[-1] == {"ln_f": marks["ln_f"]}
+    assert all(f is marks["blocks"] for f in fetch[1:-1])
 
 
 def test_tree_bytes_rejects_dtypeless_leaf():
