@@ -52,8 +52,8 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    8c), with and without
    copy-on-write sharing: the same tokens, shared hits, fewer H2D bytes;
    (e) the load generator's bursty trace (prompts 128/256/512, outputs
-   4/8/16, a 64-token shared prefix, steady phases of 2 s; 8/16/32 and 4 s
-   until phase 8c) through the SLO scheduler at pinned
+   4/8/16, a 64-token shared prefix, steady phases of 1 s; 8/16/32 and 4 s
+   until phase 8c, 2 s until its (e)-(g)) through the SLO scheduler at pinned
    host under the virtual clock, every offered request completed or
    rejected, then again over the trace cut to its first phase, whose
    requests must get the same stamps and tokens as in the whole run; then
@@ -137,7 +137,8 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    the paged session at device, pinned-host and disk pages (gen 4; 32
    until phase 8c), tokens bitwise (a)'s, one H2D request a fetched page
    group; (c) the weights homed at
-   pinned host, then disk (gen 4), streamed one pass a prefill or step
+   pinned host (gen 8; 32 until phase 8c's (e)-(g)), then disk (gen 4),
+   streamed one pass a prefill or step
    under the one-layer plan's distance-1 floor rounded up to 100 MB with
    the residency cache off: tokens bitwise (a)'s, every request and byte
    the plan's (the codebook heads' group reads the embedding's);
@@ -226,7 +227,7 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    auto): losses, parameters and moments bitwise, every request and byte
    of the weight passes and the optimizer pass the plan's, one H2D request
    a fetched group; walls, tokens/s, waits, drains and peak memory logged.
-   Runs right after 6m, in a child process, as 6m.
+   Runs right after 6m, in 6m's child process.
 6m. train full-width mixtral-8x7b (d_model 4096, 32 heads over 8, 8 experts
    of d_ff 14336 top-2; cut to one layer, 1,713,418,240 parameters) with
    ``expert_stream=True`` (a non-expert group and 8 expert groups of
@@ -235,9 +236,10 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    fetched in both passes: losses, parameters and moments bitwise, every
    request and byte the plan's (each expert group's bytes twice a step),
    one H2D request a fetched group.  Runs right after 6v, in a child
-   process (its host memory goes back when it exits: the later phases leave
-   the host's MemAvailable low), and refuses to start unless the host holds
-   two homes of weights and moments with 3 GB to spare.  The disk
+   process with 6x and 6a after it (its host memory goes back when the
+   child exits: the later phases leave the host's MemAvailable low; the
+   child logs MemAvailable before each phase), and refuses to start unless
+   the host holds two homes of weights and moments with 3 GB to spare.  The disk
    home of this step is held on the CPU (tests/test_torch_moe_train.py).
 6a. train full-width musicgen-medium at phase 6's batch, sequence and AdamW
    settings: (a) the state on the card, 4 steps, finite losses, the step
@@ -247,7 +249,7 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    floor rounded up to 100 MB, the residency cache off) 1 step at the
    device home and 1 at pinned host: losses, parameters and moments bitwise, every request and
    byte the plan's, the step-0 loss bitwise the monolithic ``lm_loss`` on
-   the same weights.  Runs in a child process after 6x.
+   the same weights.  Runs after 6x, in 6m's child process.
 6v. full-width qwen2-vl-72b (d_model 8192, 64 heads over 8, head_dim 128,
    d_ff 29568, vocab 152,064, M-RoPE sections (16, 24, 24), qkv bias,
    untied) on one sequence of 1024 text positions behind a 128-position
@@ -305,7 +307,23 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    the one card, both launchers at smoke size in parallel processes
    (started before the build, read after phase 1; both time nothing):
    ``train`` degrades with the warning and exits 0, ``serve`` exits 2 with
-   the divisibility reason.
+   the divisibility reason; (e) full-width mixtral-8x7b cut to one layer
+   (1.71 B parameters, 8 experts of d_ff 14336 top-2) trained two steps at
+   batch 2 x 512 through ``build_trainer(mesh=...)`` under
+   ``moe_impl="sorted_ep"`` (each rank's experts on its capacity buffer,
+   the partial outputs summed over ``model``): finite losses, the step
+   walls, kernel launches and peak memory logged, ``moe_sorted_ep`` reached
+   and the dispatch not; the layer's ``y`` and ``aux`` bitwise
+   ``moe_sorted_local`` on full tensors without a mesh; at a capacity
+   factor of ``n_experts / top_k`` (nothing can drop) the step's loss
+   within 2e-2 of the same step under ``moe_impl="dispatch"``; (f)
+   ``pod_allreduce_int8`` over the one-rank ``data`` group on the
+   gradients of (a)'s grad step: ``out + err`` within 1e-5 of each gradient
+   and ``out`` bitwise the codec's round trip ``q * s`` at the rank's own
+   scale; (g) the ``shard`` suite's body in place on the child's group
+   (one request a (rank, group), the per-leaf schedule's 13 a group, a
+   steady-wait collapse of at least 2x, bitwise equal to eager sharded
+   placement).
 
 Every full-width step wall of phases 2, 2b, 2m (a), 2x, 2a (prefill a
 request, or the lock-step batch, and the mean decode step), 6 (a), 6x (a),
@@ -374,9 +392,10 @@ PAGE_LEN, HOT_PAGES, SHARED_PREFIX = 32, 1, 256
 SHARED_GEN = 16
 #: (e)'s trace: its output lengths the load generator's defaults, its phases
 #: (seconds, requests a second) steady, burst, steady ((8, 16, 32) and steady
-#: phases of 4 s until phase 8c needed the time)
+#: phases of 4 s until phase 8c needed the time, 2 s until its (e)-(g) did:
+#: 18 requests, 4 of them in the first phase)
 LG_PROMPTS, LG_GENS, LG_SHARED = (128, 256, 512), (4, 8, 16), 64
-LG_PHASES = ((2.0, 2.0), (1.0, 8.0), (2.0, 2.0))
+LG_PHASES = ((1.0, 2.0), (1.0, 8.0), (1.0, 2.0))
 # phase 2w: the weights streamed under 160 MB (34 groups, 818,014,080 bytes a
 # pass: the tied head re-reads the embedding); the paged session's 176 MB
 # leaves the same ~160 MB once the hot window (15.7 MB) is cut; a budget under
@@ -413,8 +432,10 @@ XL_TRAIN_STEPS, XL_W_LAYERS, XL_W_STEPS = 3, 24, 1
 # phase 6's batch and sequence, AdamW on the card for 4 steps, then the
 # streamed-weight step 1 step a home (2 until phase 8c needed the time), cut
 # to 12 of its 48 layers (24 until phase 8c needed the time); the disk-homed
-# pages' and weights' runs at a shorter gen
+# pages' and weights' runs at a shorter gen, and the pinned-host weights' run
+# too (phase 2's 32 until phase 8c's (e)-(g) needed the time)
 AU_DISK_GEN, AU_TRAIN_STEPS, AU_W_LAYERS, AU_W_STEPS = 4, 4, 12, 1
+AU_W_GEN = 8
 # phase 6v: full-width qwen2-vl-72b cut to 2 layers for the no-gradient
 # forward and to 1 for the streamed-weight step (whose home, 14 B a
 # parameter, is 48 GB); one sequence of 1024 text positions behind its
@@ -446,6 +467,10 @@ W_TRAIN_BUDGET_MB, W_TRAIN_GROUPS, W_TRAIN_STEPS, W_TRAIN_DISK_STEPS = 160, 34, 
 P2_RESULT = ROOT / "build" / "phase-2p.json"
 W6_RESULT = ROOT / "build" / "phase-6w.json"
 MESH_GEN, MESH_TRAIN_STEPS = 8, 2
+# phase 8c (e): full-width mixtral-8x7b cut to one layer, trained under
+# moe_impl="sorted_ep" at phase 6m's batch and sequence; (f): the int8
+# all-reduce's reconstruction tolerance (tests/test_runtime.py's)
+EP_LAYERS, EP_STEPS, GC_TOL = 1, 2, dict(rtol=1e-5, atol=1e-5)
 #: the torchrun environment a child must not inherit (its own launches open
 #: no group)
 TORCHRUN_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK",
@@ -2160,36 +2185,224 @@ STREAM_FIELDS = ("h2d_requests", "bytes_h2d", "d2h_requests", "bytes_d2h", "disk
                  "unique_group_fetches", "cache_hits", "transfer_wait_s", "writeback_drain_s")
 
 
-def host_bits(tree) -> list:
-    """Every leaf of ``tree`` (tensors anywhere, numpy, spill views) as a
-    flat CPU byte tensor, in leaf order."""
+def free_host(device: str) -> None:
+    """Collect, and give back the pinned buffers the CUDA caching host
+    allocator keeps (a streamed train step's drains: tens of GB)."""
+    gc.collect()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if device == "cuda" and empty is not None:
+        empty()
+
+
+def streamed_step_counts(plan, leaves: dict, kind: str, hit: int) -> dict:
+    """One streamed train step's counters at home ``kind`` (the plan's closed
+    form): the weight passes (forward ``embed, L.., head``, backward the
+    middle groups reversed and ``embed``), then the optimizer pass
+    ({grads, moments} in; {params, moments} out).  ``leaves`` counts each
+    home group's leaves; ``hit`` is 1 when the head's home is a residency
+    hit (cached from an earlier step's forward)."""
+    n, total, head_home = plan.n_groups, plan.total_param_bytes, plan.head_home_bytes
+    bwd = list(reversed(plan.groups[1:-1])) + [plan.groups[0]]
+    pass_bytes = sum(plan.group_bytes(g) for g in plan.groups) + sum(plan.group_bytes(g) for g in bwd)
+    n_ex = len(plan.expert_groups)
+    disk = kind == "disk_host"
+    if kind == "device":  # every group passes through by reference
+        w = dict(h2d_requests=0, bytes_h2d=0, unique_group_fetches=0, cache_hits=2 * n - 1,
+                 disk_requests=0)
+    else:
+        # from disk each fetched group reads its chunk, and a head that reads
+        # the embedding (tied, or codebook heads) the embed chunk too
+        w = dict(h2d_requests=2 * n - 1, bytes_h2d=pass_bytes - hit * head_home,
+                 unique_group_fetches=2 * n - 1, cache_hits=0,
+                 disk_requests=(2 * n - 1 + int(plan.head_reads_embed) - hit) if disk else 0)
+    # the backward's gradients, a D2H request a leaf; an expert group's
+    # drain at its layer's non-expert group, a 0-d f32 placeholder at its own
+    w.update(d2h_requests=sum(leaves[g.key] for g in bwd) + n_ex,
+             bytes_d2h=total - head_home + 4 * n_ex)
+    o = dict(h2d_requests=n - (kind == "device"), d2h_requests=4 * sum(leaves.values()),
+             bytes_d2h=7 * total, disk_requests=n if disk else 0,
+             bytes_h2d=(total - head_home) + (6 * total if kind != "device" else 0))
+    return {"param": w, "opt": o}
+
+
+def profile_streamed_step(step, state, batch) -> None:
+    """One more streamed step under the profiler: the device's kernel and
+    copy time against the wall (copies on the engine's stream overlap the
+    compute, so the two may sum past the wall)."""
+    from repro_torch.launch.profile_serve import _breakdown
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    r = _breakdown(prof, wall, 1, 10_000)
+    by: dict = {}
+    for kname, c in r["launches_by_kernel"].items():
+        by.setdefault("copies" if kname.startswith("Memcpy") else "kernels", [0.0, 0])[1] += c
+    for k_ in r["top_kernels"]:
+        cls = "copies" if k_["name"].startswith("Memcpy") else "kernels"
+        by.setdefault(cls, [0.0, 0])[0] += k_["ms_per_unit"]
+    kern, cop = by.get("kernels", [0, 0]), by.get("copies", [0, 0])
+    log(f"    profiled step: wall {wall * 1e3:.1f} ms; device kernels {kern[0]:.1f} ms "
+        f"({kern[1]:.0f} launches), copies {cop[0]:.1f} ms ({cop[1]:.0f}); 1 - kernel ms / wall = "
+        f"{1 - kern[0] / (wall * 1e3):.4f}; top: "
+        + "; ".join(f"{k_['ms_per_unit']:.1f} ms x{k_['calls_per_unit']:.0f} {k_['name'][:50]}"
+                    for k_ in r["top_kernels"][:6]))
+
+
+def streamed_train(phase: str, cfg, plan, smi: str, runs: list, *, batch_fn, tokens: int,
+                   residency=None, device: str = "cuda") -> list:
+    """The streamed-weight train step from one group-wise init through
+    ``runs``, each ``dict(name, kind, distance, steps)`` with an optional
+    ``store`` (a disk home's spill store) and ``profile`` (one more step
+    under the profiler).  The first run, at the device home, is the
+    baseline: every other run's losses are its first ones and its
+    parameters and moments its state after as many steps, bit for bit.
+    Every step's requests and bytes of the weight passes and the optimizer
+    pass are the plan's closed form, with one H2D request a fetched group
+    and the streamed bytes within the budget; the walls, waits, drains and
+    peak memory are logged.  ``residency`` (``ResidencyCache(0)``) turns the
+    cache off, else the budget's cache may hold the head's home alone.  The
+    last run takes the initial state over, so that its first step can free
+    it.  Returns each run's record (its state dropped)."""
+    from repro_torch.core import schedcheck as sc
     from repro_torch.core import tree as tr
-    from repro_torch.core.arrays import host_tensor
+    from repro_torch.core.refspec import PrefetchSpec
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps as st
 
-    return [host_tensor(x).detach().to("cpu", copy=True).reshape(-1).view(torch.uint8)
-            for x in tr.leaves(tree)]
+    n = plan.n_groups
+    budget = plan.device_budget_bytes
+    cap = residency.capacity_bytes if residency is not None else plan.residency_capacity_bytes()
+    max_d = plan.max_distance_for_budget(cached_bytes=cap or 0)
+    report = sc.analyze_train_schedule(plan, distance=max_d, cache_capacity=cap,
+                                       spill=any(r["kind"] == "disk_host" for r in runs))
+    log(f"  {phase} plan: {n} groups ({plan.layout}{', expert-split' if plan.expert_stream else ''}), "
+        f"{plan.total_param_bytes} B of weights, budget {budget} B, residency cache {cap} B, max "
+        f"distance {max_d}; analyzed peak {report.peak_bytes} B, ok {report.ok}")
+    if not report.ok or (budget is not None and report.peak_bytes > budget):
+        raise SystemExit(f"{phase}: the schedule fails its analysis\n{report}")
+    # the closed-form traffic holds while the cache holds the head's home
+    # and no other group, or nothing
+    fits = [g.key for g in plan.groups if cap is not None and plan.group_bytes(g, fetch=False) <= cap]
+    if fits not in ([], [plan.groups[-1].key]):
+        raise SystemExit(f"{phase}: a {cap} B cache holds other groups than the head's home: {fits}")
+    head_cached = bool(fits)
+    leaves = {k: len(tr.leaves(t)) for k, t in
+              plan.init_home(st.abstract_params(cfg))["groups"].items()}
+    if runs[0]["kind"] != "device":
+        raise SystemExit(f"{phase}: the baseline run must be the device home's")
+    keep = {r["steps"] for r in runs[1:]}
+
+    free_host(device)
+    t0 = time.perf_counter()
+    box = {"state0": st.init_weight_streamed_state(cfg, plan, SEED, device)}
+    log(f"  {phase} group-wise init of the state at the host: {time.perf_counter() - t0:.1f} s "
+        f"(host MemAvailable {mem_available()} B)")
+
+    def home(i: int, kind: str, store):
+        state0 = box.pop("state0") if i == len(runs) - 1 else box["state0"]
+        return (st.device_weight_streamed_state(plan, state0, device) if kind == "device" else
+                st.spill_weight_streamed_state(plan, state0, store) if kind == "disk_host" else
+                state0)
+
+    records, kept = [], {}
+    for i, spec in enumerate(runs):
+        name, kind, steps = spec["name"], spec["kind"], spec["steps"]
+        free_host(device)
+        reset_peak(device)
+        step = st.make_weight_streamed_train_step(
+            cfg, AdamWConfig(**TRAIN_OPT), plan=plan, param_kind=kind,
+            spill_store=spec.get("store"),
+            prefetch=PrefetchSpec(buffer_size=n + 2, distance=spec["distance"]),
+            residency=residency if kind != "device" else None, device=device)
+        t0 = time.perf_counter()
+        s = home(i, kind, spec.get("store"))
+        r = dict(name=name, kind=kind, distance=spec["distance"], home_s=time.perf_counter() - t0,
+                 losses=[], walls=[], steps=[], host_avail=mem_available())
+        stats = {"param": step.param_stats, "opt": step.opt_stats}
+        try:
+            for k in range(steps):
+                before = {w: {f: getattr(s_, f) for f in STREAM_FIELDS} for w, s_ in stats.items()}
+                b = batch_fn(k)
+                sync(device)
+                t0 = time.perf_counter()
+                s, m = step(s, b)
+                r["losses"].append(float(m["loss"]))
+                sync(device)
+                r["walls"].append(time.perf_counter() - t0)
+                r["steps"].append({w: {f: getattr(s_, f) - before[w][f] for f in STREAM_FIELDS}
+                                   for w, s_ in stats.items()})
+                if i == 0 and k + 1 in keep:  # the baseline's state after k + 1 steps
+                    kept[k + 1] = s
+            ps = step.param_stats
+            r.update(peak=peak_allocated(device), streamed_peak=ps.peak_inflight_bytes,
+                     max_distance=max(ps.distance_trace) if ps.distance_trace else 0,
+                     fetched_per_request=ps.per_tier()["h2d"]["requests_per_fetched_device_group"],
+                     hits=step.residency.hits if step.residency is not None else 0,
+                     cached_peak=(step.residency.peak_resident_bytes
+                                  if step.residency is not None else 0))
+            if spec.get("profile") and device == "cuda":  # after the counters are read
+                profile_streamed_step(step, s, batch_fn(steps))
+        finally:
+            step.close()
+        for k, got in enumerate(r["steps"]):
+            want = streamed_step_counts(plan, leaves, kind, int(head_cached and k > 0))
+            for w in ("param", "opt"):
+                for f, v in want[w].items():
+                    if got[w][f] != v:
+                        raise SystemExit(f"{phase} {name} step {k}: {w} {f} {got[w][f]}, "
+                                         f"expected {v}")
+        if not all(map(math.isfinite, r["losses"])):
+            raise SystemExit(f"{phase} {name}: losses not finite: {r['losses']}")
+        if i:
+            base = records[0]["losses"][:steps]
+            if r["losses"] != base:
+                raise SystemExit(f"{phase} {name}: losses {r['losses']} differ from the device "
+                                 f"home's {base}")
+            for part in ("params", "opt"):
+                for key, want in kept[steps][part]["groups"].items():
+                    if not same_bits(s[part]["groups"][key], want):
+                        raise SystemExit(f"{phase} {name}: {part} group {key} differs between "
+                                         f"the homes (the device home's after {steps} step(s))")
+            if r["fetched_per_request"] != 1.0:
+                raise SystemExit(f"{phase} {name}: {r['fetched_per_request']} H2D requests a "
+                                 "fetched group")
+            if budget is not None and r["streamed_peak"] > budget:
+                raise SystemExit(f"{phase} {name}: {r['streamed_peak']} B streamed over the "
+                                 f"budget {budget} B")
+        del s
+        per = r["steps"]
+        log(f"  {phase} {name}: losses {r['losses']}{' bitwise the device home' if i else ''}"
+            f"{', parameters and moments too' if i else ''}; step walls "
+            f"{[round(w * 1e3, 1) for w in r['walls']]} ms "
+            f"({[round(tokens / w, 1) for w in r['walls']]} tok/s); wait "
+            f"{[round((x['param']['transfer_wait_s'] + x['opt']['transfer_wait_s']) * 1e3, 1) for x in per]}"
+            f" ms, drain "
+            f"{[round((x['param']['writeback_drain_s'] + x['opt']['writeback_drain_s']) * 1e3, 1) for x in per]}"
+            f" ms a step; H2D {per[-1]['param']['bytes_h2d']:,} + {per[-1]['opt']['bytes_h2d']:,} B "
+            f"({per[-1]['param']['h2d_requests']} + {per[-1]['opt']['h2d_requests']} requests), D2H "
+            f"{per[-1]['param']['bytes_d2h']:,} + {per[-1]['opt']['bytes_d2h']:,} B, disk "
+            f"{per[-1]['param']['disk_requests']} + {per[-1]['opt']['disk_requests']} requests a "
+            f"step (weights + optimizer), every count the plan's; peak streamed "
+            f"{r['streamed_peak']} B, cached {r['cached_peak']} B, {r['hits']} residency hits; "
+            f"max_memory_allocated {r['peak']} B; home placed in {r['home_s']:.1f} s; host "
+            f"MemAvailable {r['host_avail']} B at the start ({smi})")
+        records.append(r)
+    kept.clear()
+    free_host(device)
+    return records
 
 
-def state_bits(state) -> dict:
-    return {part: {k: host_bits(t) for k, t in state[part]["groups"].items()}
-            for part in ("params", "opt")}
-
-
-def same_state(state, ref: dict) -> bool:
-    """``state``'s parameters and moments bit for bit ``ref``'s (state_bits)."""
-    from repro_torch.core import tree as tr
-    from repro_torch.core.arrays import host_tensor
-
-    for part in ("params", "opt"):
-        for key, leaves in ref[part].items():
-            got = tr.leaves(state[part]["groups"][key])
-            if len(got) != len(leaves):
-                return False
-            for x, want in zip(got, leaves):
-                t = host_tensor(x).detach()
-                if not torch.equal(t.to("cpu").reshape(-1).view(torch.uint8), want):
-                    return False
-    return True
+def home_pair(steps: int) -> list:
+    """:func:`streamed_train`'s runs at the device home and at pinned host
+    (distance auto), ``steps`` steps each."""
+    return [dict(name="(device home)", kind="device", distance="auto", steps=steps),
+            dict(name="(pinned host, distance auto)", kind="pinned_host", distance="auto",
+                 steps=steps)]
 
 
 def phase_train_streamed(cfg, ref: dict, smi: str, device="cuda",
@@ -2197,16 +2410,15 @@ def phase_train_streamed(cfg, ref: dict, smi: str, device="cuda",
                          spill: Path = ROOT / "build" / "spill-6w") -> None:
     """Phase 6w: phase 6's model and batches through the streamed-weight train
     step, the weights, gradients and moments homed on the card, at pinned
-    host and on disk under ``budget_mb``, one layer a group."""
-    import gc
+    host and on disk under ``budget_mb``, one layer a group
+    (:func:`streamed_train`, plus the streamed peak at each distance against
+    the plan's window, the head's one residency hit a step, and (a)'s
+    step-0 loss against phase 6's monolithic one)."""
     import shutil
 
     from repro_torch.core import schedcheck as sc
-    from repro_torch.core import tree as tr
-    from repro_torch.core.refspec import PrefetchSpec
     from repro_torch.core.spillstore import SpillStore
     from repro_torch.core.weightstream import WeightStreamPlan
-    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import steps as st
 
     t_phase = time.perf_counter()
@@ -2220,14 +2432,8 @@ def phase_train_streamed(cfg, ref: dict, smi: str, device="cuda",
     log(f"phase 6w streamed-weight train {tcfg.name} on {smi}: {n} groups (one layer each), "
         f"budget {budget} B, residency cache {cap} B, max distance {max_d}; batch {TRAIN_BATCH}, "
         f"seq {TRAIN_SEQ}\n{report}")
-    if n != groups or not report.ok or report.peak_bytes > budget:
-        raise SystemExit(f"6w: {n} groups (expected {groups}), schedule ok {report.ok}, "
-                         f"analyzed peak {report.peak_bytes} B against the budget {budget} B")
-    # the closed-form traffic below holds while the cache can hold the head's
-    # home (ln_f) and no other group
-    if [g.key for g in plan.groups if plan.group_bytes(g, fetch=False) <= cap] != [
-            plan.groups[-1].key]:
-        raise SystemExit(f"6w: a {cap} B cache holds other groups than the head's home")
+    if n != groups:
+        raise SystemExit(f"6w: {n} groups (expected {groups})")
     bwd = list(reversed(plan.groups[1:-1])) + [plan.groups[0]]
     seqs = ([plan.group_bytes(g) for g in plan.groups], [plan.group_bytes(g) for g in bwd])
 
@@ -2236,187 +2442,53 @@ def phase_train_streamed(cfg, ref: dict, smi: str, device="cuda",
         i..i+d in flight."""
         return max(sum(q[i:i + d + 1]) for q in seqs for i in range(len(q)))
 
-    total, head_home = plan.total_param_bytes, plan.head_home_bytes
-    pass_bytes = sum(seqs[0]) + sum(seqs[1])
-
-    def expected(kind: str, k: int) -> dict:
-        """Step ``k``'s counters at ``kind``: the weight passes, then the
-        optimizer pass ({grads, moments} in; {params, moments} out)."""
-        if kind == "device":  # every group passes through by reference
-            w = dict(h2d_requests=0, bytes_h2d=0, disk_requests=0, unique_group_fetches=0,
-                     cache_hits=2 * n - 1)
-        else:
-            hit = 1 if k else 0  # the head's ln_f, cached from step 0's forward
-            w = dict(h2d_requests=2 * n - 1, bytes_h2d=pass_bytes - hit * head_home,
-                     disk_requests=(2 * n - hit) if kind == "disk_host" else 0,
-                     unique_group_fetches=2 * n - 1, cache_hits=0)
-        # one D2H request a leaf: the backward's gradients, then the
-        # optimizer's parameters and their master, m and v
-        w.update(d2h_requests=sum(leaves[g.key] for g in bwd), bytes_d2h=total - head_home)
-        # on the card the head's gradients and moments are both resident
-        o = dict(h2d_requests=n - (kind == "device"), d2h_requests=4 * sum(leaves.values()),
-                 bytes_d2h=7 * total,
-                 bytes_h2d=(total - head_home) + (6 * total if kind != "device" else 0),
-                 disk_requests=n if kind == "disk_host" else 0)
-        return {"param": w, "opt": o}
-
-    leaves = {k: len(tr.leaves(t)) for k, t in
-              plan.init_home(st.abstract_params(tcfg))["groups"].items()}
-
-    t0 = time.perf_counter()
-    state0 = st.init_weight_streamed_state(tcfg, plan, SEED, device)
-    log(f"  group-wise init of the state at the host: {time.perf_counter() - t0:.1f} s")
-
-    def profiled(step, state, k: int) -> None:
-        """One more step under the profiler: the device's kernel and copy
-        time against the wall (copies on the engine's stream overlap the
-        compute, so the two may sum past the wall)."""
-        from repro_torch.launch.profile_serve import _breakdown
-
-        batch = train_batch(tcfg, k, device)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(state, batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        r = _breakdown(prof, wall, 1, 10_000)
-        by: dict = {}
-        for kname, c in r["launches_by_kernel"].items():
-            by.setdefault("copies" if kname.startswith("Memcpy") else "kernels", [0.0, 0])[1] += c
-        for k_ in r["top_kernels"]:
-            cls = "copies" if k_["name"].startswith("Memcpy") else "kernels"
-            by.setdefault(cls, [0.0, 0])[0] += k_["ms_per_unit"]
-        log(f"    profiled step {k}: wall {wall * 1e3:.1f} ms; device kernels "
-            f"{by.get('kernels', [0, 0])[0]:.1f} ms ({by.get('kernels', [0, 0])[1]:.0f} launches), "
-            f"copies {by.get('copies', [0, 0])[0]:.1f} ms ({by.get('copies', [0, 0])[1]:.0f}); "
-            f"1 - kernel ms / wall = {1 - by.get('kernels', [0, 0])[0] / (wall * 1e3):.4f}; top: "
-            + "; ".join(f"{k_['ms_per_unit']:.1f} ms x{k_['calls_per_unit']:.0f} {k_['name'][:50]}"
-                        for k_ in r["top_kernels"][:6]))
-
-    def run(name: str, kind: str, distance, steps: int, store=None, keep=(),
-            profile: bool = False) -> dict:
-        gc.collect()  # the last run's state must not count in this one's peak
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        step = st.make_weight_streamed_train_step(
-            tcfg, AdamWConfig(**TRAIN_OPT), plan=plan, param_kind=kind, spill_store=store,
-            prefetch=PrefetchSpec(buffer_size=n + 2, distance=distance), device=device)
-        t0 = time.perf_counter()
-        s = (st.device_weight_streamed_state(plan, state0, device) if kind == "device" else
-             st.spill_weight_streamed_state(plan, state0, store) if kind == "disk_host" else
-             state0)
-        out = dict(name=name, home_s=time.perf_counter() - t0, losses=[], walls=[], steps=[],
-                   kept={})
-        stats = {"param": step.param_stats, "opt": step.opt_stats}
-        try:
-            for k in range(steps):
-                batch = train_batch(tcfg, k, device)
-                before = {w: {f: getattr(s_, f) for f in STREAM_FIELDS} for w, s_ in stats.items()}
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                s, m = step(s, batch)
-                out["losses"].append(float(m["loss"]))
-                torch.cuda.synchronize()
-                out["walls"].append(time.perf_counter() - t0)
-                out["steps"].append({w: {f: getattr(s_, f) - before[w][f] for f in STREAM_FIELDS}
-                                     for w, s_ in stats.items()})
-                if k + 1 in keep:
-                    out["kept"][k + 1] = state_bits(s)
-            out["state"] = s
-            out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-            out["param_stats"], out["residency"] = step.param_stats, step.residency
-            out["hits"] = step.residency.hits if step.residency is not None else 0
-            if profile:  # after the counters are read: its traffic is not checked
-                profiled(step, s, steps)
-        finally:
-            step.close()
-        return out
-
-    def check(r: dict, kind: str, distance, want_state: dict) -> None:
-        name = r["name"]
-        steps = len(r["losses"])
-        if r["losses"] != a["losses"][:steps]:
-            raise SystemExit(f"6w {name}: losses {r['losses']} differ from (a)'s {a['losses']}")
-        if not same_state(r["state"], want_state):
-            raise SystemExit(f"6w {name}: parameters or moments differ from (a)'s after {steps} "
-                             "step(s)")
-        for k, got in enumerate(r["steps"]):
-            want = expected(kind, k)
-            for w in ("param", "opt"):
-                for f, v in want[w].items():
-                    if got[w][f] != v:
-                        raise SystemExit(f"6w {name} step {k}: {w} {f} {got[w][f]}, expected {v}")
-        ps = r["param_stats"]
-        peak = ps.peak_inflight_bytes
-        rc = {"hits": r["hits"], "peak_resident_bytes": (
-            r["residency"].peak_resident_bytes if r["residency"] is not None else 0)}
-        if kind == "device":
-            want_peak = 0
-        elif distance == "auto":
-            want_peak = None
-            if not window(1) <= peak <= window(max_d) or max(ps.distance_trace) > max_d:
-                raise SystemExit(f"6w {name}: peak streamed {peak} B outside "
-                                 f"[{window(1)}, {window(max_d)}] or a distance above {max_d}")
-        else:
-            want_peak = window(distance)
-        if want_peak is not None and peak != want_peak:
-            raise SystemExit(f"6w {name}: peak streamed {peak} B, the plan's {want_peak} B")
-        held = peak + rc["peak_resident_bytes"]
-        if not (peak <= report.peak_bytes <= budget and held <= budget + cap):
-            raise SystemExit(f"6w {name}: streamed {peak} B + cached {rc['peak_resident_bytes']} B "
-                             f"against the budget {budget} B and the cache {cap} B")
-        if kind != "device" and rc["hits"] != steps - 1:
-            raise SystemExit(f"6w {name}: {rc['hits']} residency hits, expected {steps - 1}")
-        per = r["steps"]
-        log(f"  {name}: losses {r['losses']} bitwise (a)'s, parameters and moments too; step walls "
-            f"{[round(w * 1e3, 1) for w in r['walls']]} ms; wait "
-            f"{[round((x['param']['transfer_wait_s'] + x['opt']['transfer_wait_s']) * 1e3, 1) for x in per]}"
-            f" ms, drain "
-            f"{[round((x['param']['writeback_drain_s'] + x['opt']['writeback_drain_s']) * 1e3, 1) for x in per]}"
-            f" ms a step; H2D {per[-1]['param']['bytes_h2d']:,} + {per[-1]['opt']['bytes_h2d']:,} B "
-            f"({per[-1]['param']['h2d_requests']} + {per[-1]['opt']['h2d_requests']} requests), D2H "
-            f"{per[-1]['param']['bytes_d2h']:,} + {per[-1]['opt']['bytes_d2h']:,} B, disk "
-            f"{per[-1]['param']['disk_requests']} + {per[-1]['opt']['disk_requests']} requests a "
-            f"step (weights + optimizer); peak streamed {peak} B (plan: "
-            f"{'bounded' if want_peak is None else want_peak}), cached "
-            f"{rc['peak_resident_bytes']} B, {rc['hits']} residency hits; max_memory_allocated "
-            f"{r['max_memory_allocated']} B against phase 6 (a)'s {ref['peak']} B; home placed in "
-            f"{r['home_s']:.1f} s ({smi})")
-
-    # (a) the device home: the bitwise baseline
-    a = run("(a) device", "device", "auto", W_TRAIN_STEPS, keep={1, W_TRAIN_STEPS})
-    if not math.isclose(a["losses"][0], ref["losses"][0], rel_tol=RTOL, abs_tol=ATOL):
-        raise SystemExit(f"6w (a): step-0 loss {a['losses'][0]} not within 2e-2 of phase 6 (a)'s "
-                         f"{ref['losses'][0]}")
-    log(f"  (a) step-0 loss {a['losses'][0]} against phase 6 (a)'s monolithic "
-        f"{ref['losses'][0]} (|diff| {abs(a['losses'][0] - ref['losses'][0]):.3e}); step 1 "
-        f"{a['losses'][1]} against {ref['losses'][1]}")
-    check(a, "device", "auto", a["kept"][W_TRAIN_STEPS])
-    del a["state"]
-
-    # (b) pinned host at distance 0, 1 and auto (last: the pinned buffers the
-    # drains allocate are then warm)
-    for dist in (0, 1, "auto"):
-        steps = W_TRAIN_STEPS if dist == "auto" else 1
-        r = run(f"(b) pinned_host d={dist}", "pinned_host", dist, steps, profile=dist == "auto")
-        check(r, "pinned_host", dist, a["kept"][steps])
-        if dist == "auto":  # what phase 8c (b) holds its sharded step against
-            write_w6_result(r["losses"][0], r["walls"][0], n,
-                            {w: r["steps"][0][w]["h2d_requests"] for w in ("param", "opt")})
-        del r
-
-    # (c) disk, one step: the fsync'd writeback of every group
     shutil.rmtree(spill, ignore_errors=True)
     store = SpillStore(spill)
+    # (b) pinned host at distance 0, 1 and auto (last: the pinned buffers the
+    # drains allocate are then warm); (c) disk, one step: the fsync'd
+    # writeback of every group
+    runs = [dict(name="(a) device", kind="device", distance="auto", steps=W_TRAIN_STEPS)]
+    runs += [dict(name=f"(b) pinned_host d={d}", kind="pinned_host", distance=d,
+                  steps=W_TRAIN_STEPS if d == "auto" else 1, profile=d == "auto")
+             for d in (0, 1, "auto")]
+    runs.append(dict(name="(c) disk_host", kind="disk_host", distance="auto",
+                     steps=W_TRAIN_DISK_STEPS, store=store))
     try:
-        r = run("(c) disk_host", "disk_host", "auto", W_TRAIN_DISK_STEPS, store=store)
-        check(r, "disk_host", "auto", a["kept"][W_TRAIN_DISK_STEPS])
-        del r
+        recs = streamed_train("6w", tcfg, plan, smi, runs,
+                              batch_fn=lambda k: train_batch(tcfg, k, device),
+                              tokens=TRAIN_BATCH * TRAIN_SEQ, device=device)
     finally:
         store.close(delete=True)
         shutil.rmtree(spill, ignore_errors=True)
+    a = recs[0]
+    if not math.isclose(a["losses"][0], ref["losses"][0], rel_tol=RTOL, abs_tol=ATOL):
+        raise SystemExit(f"6w (a): step-0 loss {a['losses'][0]} not within 2e-2 of phase 6 (a)'s "
+                         f"{ref['losses'][0]}")
+    for r in recs:
+        peak, d = r["streamed_peak"], r["distance"]
+        if r["kind"] == "device":
+            ok = peak == 0
+        elif d == "auto":
+            ok = window(1) <= peak <= window(max_d) and r["max_distance"] <= max_d
+        else:
+            ok = peak == window(d)
+        if not ok or not (peak <= report.peak_bytes <= budget
+                          and peak + r["cached_peak"] <= budget + cap):
+            raise SystemExit(f"6w {r['name']}: peak streamed {peak} B (distance {d}, at most "
+                             f"{r['max_distance']}) against the plan's windows, cached "
+                             f"{r['cached_peak']} B against the budget {budget} B and cache {cap} B")
+        if r["kind"] != "device" and r["hits"] != len(r["losses"]) - 1:
+            raise SystemExit(f"6w {r['name']}: {r['hits']} residency hits, expected "
+                             f"{len(r['losses']) - 1}")
+    auto = next(r for r in recs if r["distance"] == "auto" and r["kind"] == "pinned_host")
+    # what phase 8c (b) holds its sharded step against
+    write_w6_result(auto["losses"][0], auto["walls"][0], n,
+                    {w: auto["steps"][0][w]["h2d_requests"] for w in ("param", "opt")})
+    log(f"  6w: (a)'s step-0 loss {a['losses'][0]} against phase 6 (a)'s monolithic "
+        f"{ref['losses'][0]} (|diff| {abs(a['losses'][0] - ref['losses'][0]):.3e}); peak streamed "
+        f"at d=0, 1 the plan's windows {window(0)}, {window(1)} B, at auto within "
+        f"[{window(1)}, {window(max_d)}] B; the head's home one residency hit a step after the "
+        f"first; max_memory_allocated beside phase 6 (a)'s {ref['peak']} B")
     log(f"  phase 6w done in {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2604,168 +2676,6 @@ def slstm_share(cfg, step_prof: dict) -> None:
         f"{step_prof['device_busy_ms_per_unit']:.1f})")
 
 
-def free_host(device: str) -> None:
-    """Collect, and give back the pinned buffers the CUDA caching host
-    allocator keeps (a streamed train step's drains: tens of GB)."""
-    gc.collect()
-    empty = getattr(torch._C, "_host_emptyCache", None)
-    if device == "cuda" and empty is not None:
-        empty()
-
-
-def streamed_step_counts(plan, leaves: dict, kind: str, hit: int) -> dict:
-    """One streamed train step's counters at home ``kind`` (the plan's closed
-    form): the weight passes (forward ``embed, L.., head``, backward the
-    middle groups reversed and ``embed``), then the optimizer pass
-    ({grads, moments} in; {params, moments} out).  ``leaves`` counts each
-    home group's leaves; ``hit`` is 1 when the head's home is a residency
-    hit (cached from an earlier step's forward)."""
-    n, total, head_home = plan.n_groups, plan.total_param_bytes, plan.head_home_bytes
-    bwd = list(reversed(plan.groups[1:-1])) + [plan.groups[0]]
-    pass_bytes = sum(plan.group_bytes(g) for g in plan.groups) + sum(plan.group_bytes(g) for g in bwd)
-    n_ex = len(plan.expert_groups)
-    disk = kind == "disk_host"
-    if kind == "device":  # every group passes through by reference
-        w = dict(h2d_requests=0, bytes_h2d=0, unique_group_fetches=0, cache_hits=2 * n - 1,
-                 disk_requests=0)
-    else:
-        # from disk each fetched group reads its chunk, and a head that reads
-        # the embedding (tied, or codebook heads) the embed chunk too
-        w = dict(h2d_requests=2 * n - 1, bytes_h2d=pass_bytes - hit * head_home,
-                 unique_group_fetches=2 * n - 1, cache_hits=0,
-                 disk_requests=(2 * n - 1 + int(plan.head_reads_embed) - hit) if disk else 0)
-    # the backward's gradients, a D2H request a leaf; an expert group's
-    # drain at its layer's non-expert group, a 0-d f32 placeholder at its own
-    w.update(d2h_requests=sum(leaves[g.key] for g in bwd) + n_ex,
-             bytes_d2h=total - head_home + 4 * n_ex)
-    o = dict(h2d_requests=n - (kind == "device"), d2h_requests=4 * sum(leaves.values()),
-             bytes_d2h=7 * total, disk_requests=n if disk else 0,
-             bytes_h2d=(total - head_home) + (6 * total if kind != "device" else 0))
-    return {"param": w, "opt": o}
-
-
-def streamed_train_pair(phase: str, cfg, plan, smi: str, *, batch_fn, tokens: int, steps: int,
-                        residency=None, device: str = "cuda") -> dict:
-    """The streamed-weight train step from one group-wise init, at the
-    device home and then at pinned host (distance auto), ``steps`` steps
-    each: losses, parameters and moments bitwise; each step's requests and
-    bytes of the weight passes and the optimizer pass the plan's closed
-    form, with one H2D request a fetched group; the steps' walls, waits,
-    drains and peak memory logged.  ``residency`` (``ResidencyCache(0)``)
-    turns the cache off, else the budget's cache may hold the head's home
-    alone.  Returns the device run's losses and its per-step numbers."""
-    import gc
-
-    from repro_torch.core import schedcheck as sc
-    from repro_torch.core import tree as tr
-    from repro_torch.core.refspec import PrefetchSpec
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train import steps as st
-
-    n = plan.n_groups
-    budget = plan.device_budget_bytes
-    cap = residency.capacity_bytes if residency is not None else plan.residency_capacity_bytes()
-    max_d = plan.max_distance_for_budget(cached_bytes=cap or 0)
-    report = sc.analyze_train_schedule(plan, distance=max_d, cache_capacity=cap, spill=False)
-    log(f"  {phase} plan: {n} groups ({plan.layout}{', expert-split' if plan.expert_stream else ''}), "
-        f"{plan.total_param_bytes} B of weights, budget {budget} B, residency cache {cap} B, max "
-        f"distance {max_d}; analyzed peak {report.peak_bytes} B, ok {report.ok}")
-    if not report.ok or (budget is not None and report.peak_bytes > budget):
-        raise SystemExit(f"{phase}: the schedule fails its analysis\n{report}")
-    fits = [g.key for g in plan.groups if cap is not None and plan.group_bytes(g, fetch=False) <= cap]
-    if fits not in ([], [plan.groups[-1].key]):
-        raise SystemExit(f"{phase}: a {cap} B cache holds other groups than the head's home: {fits}")
-    head_cached = bool(fits)
-    leaves = {k: len(tr.leaves(t)) for k, t in
-              plan.init_home(st.abstract_params(cfg))["groups"].items()}
-
-    def expected(kind: str, k: int) -> dict:
-        return streamed_step_counts(plan, leaves, kind, int(head_cached and k > 0))
-
-    free_host(device)
-    t0 = time.perf_counter()
-    # the last run takes the initial state over, so that its first step can
-    # free it: a home's old and new states are both held while a step runs
-    box = {"state0": st.init_weight_streamed_state(cfg, plan, SEED, device)}
-    log(f"  {phase} group-wise init of the state at the host: {time.perf_counter() - t0:.1f} s "
-        f"(host MemAvailable {mem_available()} B)")
-
-    def run(name: str, kind: str) -> dict:
-        free_host(device)
-        reset_peak(device)
-        step = st.make_weight_streamed_train_step(
-            cfg, AdamWConfig(**TRAIN_OPT), plan=plan, param_kind=kind,
-            prefetch=PrefetchSpec(buffer_size=n + 2, distance="auto"),
-            residency=residency if kind != "device" else None, device=device)
-        t0 = time.perf_counter()
-        s = (st.device_weight_streamed_state(plan, box["state0"], device) if kind == "device"
-             else box.pop("state0"))
-        out = dict(name=name, home_s=time.perf_counter() - t0, losses=[], walls=[], steps=[],
-                   host_avail=mem_available())
-        stats = {"param": step.param_stats, "opt": step.opt_stats}
-        try:
-            for k in range(steps):
-                b = batch_fn(k)
-                before = {w: {f: getattr(s_, f) for f in STREAM_FIELDS} for w, s_ in stats.items()}
-                if device == "cuda":
-                    torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                s, m = step(s, b)
-                out["losses"].append(float(m["loss"]))
-                if device == "cuda":
-                    torch.cuda.synchronize()
-                out["walls"].append(time.perf_counter() - t0)
-                out["steps"].append({w: {f: getattr(s_, f) - before[w][f] for f in STREAM_FIELDS}
-                                     for w, s_ in stats.items()})
-            out["state"] = s
-            out["peak"] = peak_allocated(device)
-            out["fetched_per_request"] = step.param_stats.per_tier()["h2d"][
-                "requests_per_fetched_device_group"]
-            out["streamed_peak"] = step.param_stats.peak_inflight_bytes
-        finally:
-            step.close()
-        for k, got in enumerate(out["steps"]):
-            want = expected(kind, k)
-            for w in ("param", "opt"):
-                for f, v in want[w].items():
-                    if got[w][f] != v:
-                        raise SystemExit(f"{phase} {name} step {k}: {w} {f} {got[w][f]}, expected {v}")
-        per = out["steps"]
-        log(f"  {phase} {name}: losses {out['losses']}; step walls "
-            f"{[round(w * 1e3, 1) for w in out['walls']]} ms ("
-            f"{[round(tokens / w, 1) for w in out['walls']]} tok/s); wait "
-            f"{[round((x['param']['transfer_wait_s'] + x['opt']['transfer_wait_s']) * 1e3, 1) for x in per]}"
-            f" ms, drain "
-            f"{[round((x['param']['writeback_drain_s'] + x['opt']['writeback_drain_s']) * 1e3, 1) for x in per]}"
-            f" ms a step; H2D {per[-1]['param']['bytes_h2d']:,} + {per[-1]['opt']['bytes_h2d']:,} B "
-            f"({per[-1]['param']['h2d_requests']} + {per[-1]['opt']['h2d_requests']} requests), D2H "
-            f"{per[-1]['param']['bytes_d2h']:,} + {per[-1]['opt']['bytes_d2h']:,} B a step (weights + "
-            f"optimizer), every count the plan's; peak streamed {out['streamed_peak']} B; "
-            f"max_memory_allocated {out['peak']} B; home placed in {out['home_s']:.1f} s; host "
-            f"MemAvailable {out['host_avail']} B at the start ({smi})")
-        return out
-
-    a = run("(device home)", "device")
-    if not all(map(math.isfinite, a["losses"])):
-        raise SystemExit(f"{phase}: losses not finite: {a['losses']}")
-    b = run("(pinned host, distance auto)", "pinned_host")
-    if b["losses"] != a["losses"]:
-        raise SystemExit(f"{phase}: pinned-host losses {b['losses']} differ from the device "
-                         f"home's {a['losses']}")
-    for part in ("params", "opt"):
-        for key in a["state"][part]["groups"]:
-            if not same_bits(b["state"][part]["groups"][key], a["state"][part]["groups"][key]):
-                raise SystemExit(f"{phase}: {part} group {key} differs between the homes")
-    if b["fetched_per_request"] != 1.0:
-        raise SystemExit(f"{phase}: {b['fetched_per_request']} H2D requests a fetched group")
-    if budget is not None and b["streamed_peak"] > budget:
-        raise SystemExit(f"{phase}: {b['streamed_peak']} B streamed over the budget {budget} B")
-    log(f"  {phase}: losses, parameters and moments bitwise across the device and pinned-host "
-        f"homes; one H2D request a fetched group")
-    del a["state"], b["state"]
-    return a
-
-
 def phase_xlstm_train(smi: str) -> None:
     """Phase 6x: full-width xlstm-1.3b trained on the card (the AdamW state on
     the card), then through the streamed-weight step on its period layout
@@ -2815,8 +2725,8 @@ def phase_xlstm_train(smi: str) -> None:
         f"{floor} B rounded up to 100 MB, against {plan.total_param_bytes} B of bf16 weights")
     if plan.layout != "period" or not budget_mb * 1e6 < plan.total_param_bytes:
         raise SystemExit(f"6x (b): layout {plan.layout}, budget {budget_mb} MB")
-    streamed_train_pair("6x (b)", tcfg, plan, smi, batch_fn=lambda k: train_batch(tcfg, k),
-                        tokens=tokens, steps=XL_W_STEPS)
+    streamed_train("6x (b)", tcfg, plan, smi, home_pair(XL_W_STEPS),
+                   batch_fn=lambda k: train_batch(tcfg, k), tokens=tokens)
     log(f"  phase 6x done in {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2900,8 +2810,8 @@ def phase_moe_train(smi: str, device: str = "cuda", full=None) -> None:
     def batch_fn(k):
         return {name: v.to(device) for name, v in synthetic_batch(cfg, sc_, k).items()}
 
-    streamed_train_pair("6m", cfg, plan, smi, batch_fn=batch_fn, tokens=MT_BATCH * MT_SEQ,
-                        steps=MT_STEPS, residency=ResidencyCache(0), device=device)
+    streamed_train("6m", cfg, plan, smi, home_pair(MT_STEPS), batch_fn=batch_fn,
+                   tokens=MT_BATCH * MT_SEQ, residency=ResidencyCache(0), device=device)
     log(f"  6m expert groups: {len(plan.expert_groups)} of {plan.per_expert_bytes} B; a pinned "
         f"step fetches each twice (forward, backward), {2 * len(plan.expert_groups) * plan.per_expert_bytes} B")
     log(f"  phase 6m done in {time.perf_counter() - t_phase:.1f} s")
@@ -3042,7 +2952,7 @@ def phase_audio_serve(smi: str, device: str = "cuda", full=None) -> dict:
     budget_mb = math.ceil(floor / 1e8) * 100
     log(f"  (c) budget {budget_mb} MB: the one-layer plan's distance-1 floor {floor} B rounded "
         f"up to 100 MB, the residency cache off")
-    for kind, g in (("pinned_host", GEN), ("disk_host", AU_DISK_GEN)):
+    for kind, g in (("pinned_host", AU_W_GEN), ("disk_host", AU_DISK_GEN)):
         shutil.rmtree(spill, ignore_errors=True)
         res, launches = run(f"(c) weights at {kind}", gen=g, kv_kind="device", kv_page_len=0,
                             param_kind=kind, device_budget_mb=budget_mb, param_cache_mb=0,
@@ -3154,9 +3064,9 @@ def phase_audio_train(smi: str, device: str = "cuda", full=None) -> None:
     log(f"  (b) {bcfg.n_layers} layers, budget {budget_mb} MB: the plan's distance-1 floor "
         f"{floor} B rounded up to 100 MB, against {plan.total_param_bytes} B of bf16 weights; "
         f"the codebook heads' group reads the embedding: {plan.head_reads_embed}")
-    b = streamed_train_pair("6a (b)", bcfg, plan, smi,
-                            batch_fn=lambda k: train_batch(bcfg, k, device), tokens=tokens,
-                            steps=AU_W_STEPS, residency=ResidencyCache(0), device=device)
+    b = streamed_train("6a (b)", bcfg, plan, smi, home_pair(AU_W_STEPS),
+                       batch_fn=lambda k: train_batch(bcfg, k, device), tokens=tokens,
+                       residency=ResidencyCache(0), device=device)[0]
     if b["losses"][0] != mono:
         raise SystemExit(f"6a (b): the streamed step-0 loss {b['losses'][0]} is not the "
                          f"monolithic lm_loss {mono}")
@@ -3859,7 +3769,7 @@ def phase_mesh(smi: str, device: str = "cuda", full=None) -> None:
     import torch.distributed as dist
 
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import tree as tr
     from repro_torch.core.engine import ShardedGroupLayout
     from repro_torch.core.refspec import PrefetchSpec
@@ -3960,9 +3870,11 @@ def phase_mesh(smi: str, device: str = "cuda", full=None) -> None:
         if float(m["loss"]) != losses["mesh"][1] or not same_state(replay, states["mesh"]):
             raise SystemExit("8c (a): the restart from the step-1 checkpoint does not replay "
                              "step 2 bitwise")
-        del replay, restored, states
+        del replay, restored
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         laps["restore and replay"] = sub_s()
+        grads = mesh_grads(tcfg, mesh, states["mesh"]["params"], sharded.make_batch(0))
+        del states
         log(f"  (a) train, params and AdamW moments as DTensors by the train plan, the Sharder "
             f"in the layer body: losses {losses['mesh']} bitwise the no-mesh run's, parameters "
             f"and moments too after each step; step walls {[round(w * 1e3, 1) for w in walls['mesh']]}"
@@ -3970,6 +3882,8 @@ def phase_mesh(smi: str, device: str = "cuda", full=None) -> None:
             f"(step 2 under the profiler); kernel launches a step {counts['mesh']} against "
             f"{counts['plain']}; the step-1 checkpoint carries the mesh {fp} and its restart "
             f"replays step 2 bitwise (s: { {k: round(v, 1) for k, v in laps.items()} })")
+        check_pod_allreduce(grads, mesh, smi)
+        del grads
 
         # (b) one streamed-weight step, every group staged at the plan's layouts
         w6 = json.loads(W6_RESULT.read_text())
@@ -4032,9 +3946,191 @@ def phase_mesh(smi: str, device: str = "cuda", full=None) -> None:
             f"{res['prefill_s'] * 1e3:.3f} ms, decode {res['decode_s'] * 1e3 / res['n_steps']:.3f} "
             f"ms a step against 2p's {p2['decode_step_ms']:.3f} ms; h2d {st_.h2d_requests} req "
             f"over {st_.n_groups} page groups ({sub_s():.1f} s)")
+        sorted_ep_train(mesh, smi, device, None if full is None else
+                        get_smoke_config("mixtral-8x7b"))
+        sub_s()
+        shard_suite(smi, device)
+        log(f"  (g) {sub_s():.1f} s")
     finally:
         dist.destroy_process_group()
-    log(f"  phase 8c (a)-(c) done in {time.perf_counter() - t_phase:.1f} s")
+    log(f"  phase 8c (a)-(c), (e)-(g) done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def mesh_grads(cfg, mesh, params, batch) -> dict:
+    """Phase 8c (f)'s input: the gradients of one grad step of ``cfg`` at
+    ``params`` (DTensors by the train plan) on ``mesh``, as full tensors."""
+    from repro_torch.core import tree as tr
+    from repro_torch.launch import train as launch_train
+    from repro_torch.parallel.local import full_local
+    from repro_torch.train import steps as st
+
+    sharder = launch_train._train_layouts(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ)[4]
+    _, _, grads = st.make_grad_step(cfg, mesh, sharder)(params, batch)
+    return tr.tree_map(full_local, grads)
+
+
+def check_pod_allreduce(grads: dict, mesh, smi: str) -> None:
+    """Phase 8c (f): ``pod_allreduce_int8`` over the one-rank ``data`` group
+    on a full-width gradient tree.  ``out + err`` must give back each
+    gradient within tests/test_runtime.py's 1e-5, and on one rank the
+    all-reduce is the codec's round trip: ``out`` bit for bit ``q * s`` at
+    the rank's own scale (the JAX package's compiled program's
+    ``max|g| * fl(1 / 127)``; ``decompress_int8(compress_int8(g))`` divides
+    by 127, so it gives these bits wherever the two scales agree, counted)."""
+    from repro_torch.core import tree as tr
+    from repro_torch.optim import grad_compress as gc_
+
+    t0 = time.perf_counter()
+    flat = tr.leaves(grads)
+    err0 = gc_.init_error_state(grads)
+    sync("cuda" if flat[0].is_cuda else "cpu")
+    t1 = time.perf_counter()
+    out, err = gc_.pod_allreduce_int8(grads, "data", err0, mesh)
+    sync("cuda" if flat[0].is_cuda else "cpu")
+    wall = time.perf_counter() - t1
+    codec = gc_.decompress_int8(*gc_.compress_int8(grads)[:2])
+    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=flat[0].device)
+    worst, same_codec, n = 0.0, 0, 0
+    for g, o, e, c in zip(flat, tr.leaves(out), tr.leaves(err), tr.leaves(codec)):
+        gf = g.float()
+        if not torch.allclose(o + e, gf, **GC_TOL):
+            raise SystemExit(f"8c (f): out + err misses a gradient by "
+                             f"{float((o + e - gf).abs().max())}")
+        scale = torch.clamp(gf.abs().max(), min=1e-30) * inv127
+        q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+        if not torch.equal(bits(o), bits(q.float() * scale)):
+            raise SystemExit("8c (f): on one rank out is not the codec's round trip q * s")
+        worst = max(worst, float((o + e - gf).abs().max()))
+        same_codec += int(torch.equal(bits(o), bits(c)))
+        n += g.numel()
+    log(f"  (f) pod_allreduce_int8 over the one-rank 'data' group on (a)'s {len(flat)} gradient "
+        f"leaves ({n:,} values): out + err within {worst:.3e} of each gradient (1e-5 allowed); out "
+        f"bitwise q * s at the rank's own scale in every leaf, and bitwise "
+        f"decompress_int8(compress_int8(g)) in {same_codec} of {len(flat)} (the rest: the two "
+        f"scales an ulp apart); the all-reduce {wall * 1e3:.1f} ms ({time.perf_counter() - t0:.1f}"
+        f" s; {smi})")
+
+
+def sorted_ep_train(mesh, smi: str, device: str = "cuda", full=None) -> None:
+    """Phase 8c (e): full-width mixtral-8x7b cut to ``EP_LAYERS`` trained
+    under ``moe_impl="sorted_ep"`` on ``mesh`` through ``build_trainer``
+    (``full`` and ``device="cpu"`` rehearse it at another size)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as tr
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.local import full_local
+    from repro_torch.runtime.driver import DriverConfig
+    from repro_torch.train import steps as st
+
+    t0 = time.perf_counter()
+    cfg = train_cfg(dataclasses.replace(full or get_config("mixtral-8x7b"), n_layers=EP_LAYERS,
+                                        moe_impl="sorted_ep"))
+    calls = {"sorted_ep": 0, "dispatch": 0}
+    originals = {"sorted_ep": moe.moe_sorted_ep, "dispatch": moe.moe_dispatch}
+
+    def counted(name):
+        def fn(*args, **kw):
+            calls[name] += 1
+            return originals[name](*args, **kw)
+        return fn
+
+    moe.moe_sorted_ep, moe.moe_dispatch = counted("sorted_ep"), counted("dispatch")
+    try:
+        trainer = launch_train.build_trainer(
+            cfg, global_batch=MT_BATCH, seq_len=MT_SEQ, opt_cfg=AdamWConfig(**TRAIN_OPT),
+            driver_cfg=DriverConfig(total_steps=EP_STEPS, checkpoint_dir=str(ROOT / "build" /
+                                                                             "ckpt-8c-ep"),
+                                    log_every=0),
+            seed=SEED, device=device, mesh=mesh)
+        reset_peak(device)
+        state = trainer.init_state()
+        init_s = time.perf_counter() - t0
+        n_params = sum(full_local(x).numel() for x in tr.leaves(state["params"]))
+        walls, losses, launches = [], [], 0
+        for k in range(EP_STEPS):
+            b, out = trainer.make_batch(k), {}
+
+            def one():
+                out["s"], out["m"] = trainer.step_fn(state, b)
+
+            if k == EP_STEPS - 1:  # the last step under the profiler
+                launches, wall = kernel_launches(one, device)
+            else:
+                sync(device)
+                t1 = time.perf_counter()
+                one()
+                sync(device)
+                wall = time.perf_counter() - t1
+            state = out["s"]
+            walls.append(wall)
+            losses.append(float(out["m"]["loss"]))
+        peak = peak_allocated(device)
+        if not all(map(math.isfinite, losses)) or calls["sorted_ep"] == 0 or calls["dispatch"]:
+            raise SystemExit(f"8c (e): losses {losses}, calls {calls}")
+        step_calls = dict(calls)
+
+        # the layer's expert parallelism against the local routine on full
+        # tensors without a mesh, on a random activation
+        p_moe = {k: v[0] for k, v in state["params"]["blocks"]["moe"].items()}
+        gen = torch.Generator(device=device).manual_seed(SEED + 5)
+        h = torch.randn((MT_BATCH, MT_SEQ, cfg.d_model), generator=gen, device=device).to(
+            torch.bfloat16)
+        with torch.no_grad():
+            y, aux = originals["sorted_ep"](cfg, p_moe, h, mesh)
+            y0, aux0 = moe.moe_sorted_local(cfg, {k: full_local(v) for k, v in p_moe.items()},
+                                            h.reshape(-1, cfg.d_model), cfg.n_experts, 0)
+        if not (torch.equal(bits(y), bits(y0.reshape(y.shape))) and torch.equal(bits(aux),
+                                                                                 bits(aux0))):
+            raise SystemExit("8c (e): sorted_ep on the mesh differs from the local routine on "
+                             "full tensors")
+
+        # where no token can drop, the step's loss against the dispatch's
+        b0 = trainer.make_batch(0)
+        _, _, _, _, sharder = launch_train._train_layouts(cfg, mesh, MT_BATCH, MT_SEQ)
+        nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+        loss = {impl: float(full_local(st.make_grad_step(
+            dataclasses.replace(nodrop, moe_impl=impl), mesh, sharder)(state["params"], b0)[0]))
+            for impl in ("sorted_ep", "dispatch")}
+        if not math.isclose(loss["sorted_ep"], loss["dispatch"], rel_tol=RTOL, abs_tol=ATOL):
+            raise SystemExit(f"8c (e): at capacity factor {nodrop.capacity_factor} the losses "
+                             f"{loss} differ by more than 2e-2")
+    finally:
+        moe.moe_sorted_ep, moe.moe_dispatch = originals["sorted_ep"], originals["dispatch"]
+    del state, trainer
+    free_host(device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"  (e) {cfg.name} cut to {EP_LAYERS} layer ({n_params:,} parameters, {cfg.n_experts} "
+        f"experts of d_ff {cfg.d_ff} top-{cfg.moe_top_k}) under moe_impl=\"sorted_ep\" on the "
+        f"{dist.get_backend()} mesh through build_trainer, batch {MT_BATCH} x {MT_SEQ}: losses "
+        f"{losses}; step walls {[round(w * 1e3, 1) for w in walls]} ms (the last under the "
+        f"profiler, {launches} kernel launches); sorted_ep calls {step_calls['sorted_ep']}, "
+        f"dispatch {step_calls['dispatch']}; max_memory_allocated {peak} B; the layer's y and aux "
+        f"bitwise the local routine's on full tensors; at capacity factor "
+        f"{nodrop.capacity_factor:g} the step's loss {loss['sorted_ep']} against the dispatch's "
+        f"{loss['dispatch']} (2e-2 allowed); init {init_s:.1f} s, (e) "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+
+
+def shard_suite(smi: str, device: str = "cuda") -> None:
+    """Phase 8c (g): the ``shard`` suite's body in place on the child's
+    group, and its gates (one request a (rank, group), the per-leaf
+    schedule's (1 + 12) x n a group, a steady-wait collapse of at least 2x,
+    bitwise equality with eager sharded placement)."""
+    import torch.distributed as dist
+
+    from repro_torch.benchmarks import shard_stream
+
+    rows, _ = shard_stream.run_body(device)
+    ok, line = shard_stream.gates(rows, dist.get_world_size())
+    if not ok:
+        raise SystemExit(f"8c (g): the shard suite's gates fail: {line}")
+    log(f"  (g) the shard suite on the {dist.get_backend()} group of {dist.get_world_size()}: "
+        f"{line} ({smi})")
 
 
 def phase_mesh_cli():
@@ -4096,7 +4192,7 @@ def phase_8c_alone() -> None:
     """Phase 8c alone on the card (``python3 -c 'import chip_smoke as cs;
     cs.phase_8c_alone()'``): the kernels built, the references it reads
     written first (phase 2p's pinned-host paged run, phase 6w's first
-    pinned-host step), then (a)-(d)."""
+    pinned-host step), then (a)-(g)."""
     from repro_torch.configs import get_config
     from repro_torch.core.refspec import PrefetchSpec
     from repro_torch.core.weightstream import WeightStreamPlan
@@ -4162,21 +4258,34 @@ def torchrun_phase(phase: str, smi: str) -> None:
         raise SystemExit(f"{phase} failed in its torchrun child (rc {rc})")
 
 
-def isolated(phase: str, smi: str) -> None:
-    """Run the phase function ``phase`` in a child process on the same card.
-    Phases 6m and 6x hold tens of GB of host memory (numpy homes, pinned
-    drains) that the caching allocators and the C heap keep after they
-    return (whole runs in-process saw 41 of the host's 105.9 GB available
-    after 6m had freed its state, and 13.6 GB left for 6x after phases
-    2m-6w).  A child gives it all back when it exits."""
+def isolated(phases: tuple, smi: str) -> None:
+    """Run the phase functions ``phases`` in turn in one child process on
+    the same card, logging the host's MemAvailable before each.  Phases 6v,
+    6m and 6x hold tens of GB of host memory (numpy homes, pinned drains)
+    that the caching allocators and the C heap keep after they return
+    (whole runs in-process saw 41 of the host's 105.9 GB available after 6m
+    had freed its state, and 13.6 GB left for 6x after phases 2m-6w).  A
+    child gives it all back when it exits; each child costs 12-16 s to start
+    and exit, so the phases that fit the host one after another share one."""
     torch.cuda.empty_cache()  # the child gets the card's memory
     code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke as cs; "
             f"from repro_torch.device import resolve_device; resolve_device('cuda'); "
-            f"cs.{phase}({smi!r})")
+            f"cs.child_phases({list(phases)!r}, {smi!r})")
     sys.stdout.flush()
     rc = subprocess.run([sys.executable, "-c", code], cwd=ROOT).returncode
     if rc:
-        raise SystemExit(f"{phase} failed in its child process (rc {rc})")
+        raise SystemExit(f"{', '.join(phases)} failed in their child process (rc {rc})")
+
+
+def child_phases(phases: list, smi: str) -> None:
+    """:func:`isolated`'s child: each phase in turn, the host's MemAvailable
+    and the child's resident set logged before it."""
+    t0 = time.perf_counter()
+    for phase in phases:
+        free_host("cuda")
+        log(f"-- child {time.perf_counter() - t0:.1f} s: {phase} (host MemAvailable "
+            f"{mem_available()} B, this process's resident set {rss_bytes()} B)")
+        globals()[phase](smi)
 
 
 def main() -> int:
@@ -4214,11 +4323,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    # the two phases that hold tens of GB of host memory, first, each in a
-    # child process: the later phases leave the host's memory low
-    for phase in ("phase_vlm_train", "phase_moe_train", "phase_xlstm_train", "phase_audio_train"):
-        at(phase)
-        isolated(phase, smi)
+    # the phases that hold tens of GB of host memory, first, in child
+    # processes: the later phases leave the host's memory low.  6v's home
+    # takes ~75 GB of the host; 6m, 6x and 6a fit one after another
+    for phases in (("phase_vlm_train",), ("phase_moe_train", "phase_xlstm_train",
+                                          "phase_audio_train")):
+        at(" + ".join(phases))
+        isolated(phases, smi)
     at("phase 2")
     from repro_torch.train.steps import init_params
 
@@ -4258,8 +4369,8 @@ def main() -> int:
     at("phase 8c")
     t8 = time.perf_counter()
     torchrun_phase("phase_mesh", smi)
-    log(f"  phase 8c (a)-(c) done in {time.perf_counter() - t8:.1f} s with the child's start "
-        f"(its (d) ran beside phases 0 and 1)")
+    log(f"  phase 8c (a)-(c), (e)-(g) done in {time.perf_counter() - t8:.1f} s with the child's "
+        f"start (its (d) ran beside phases 0 and 1)")
     log(f"done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

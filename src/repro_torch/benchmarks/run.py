@@ -3,22 +3,26 @@
     PYTHONPATH=src python -m repro_torch.benchmarks.run                 # all, on the card
     PYTHONPATH=src python -m repro_torch.benchmarks.run fig3 table2     # a subset
     PYTHONPATH=src python -m repro_torch.benchmarks.run --smoke --device cpu
-        # the modeled-link suites (engine, disk, serve, serve_slo, weights,
-        # recovery) at reduced size, on the CPU by request
+        # the modeled-link suites (engine, disk, serve, serve_slo, shard,
+        # weights, recovery) at reduced size, on the CPU by request
 
 The JAX package's ``benchmarks/run.py`` over the port's suites.  Each
 suite's ``main(device)`` returns nonzero when its gate fails; a failing
-suite makes the runner exit 1.  The ``shard`` suite (a 2-device mesh) is
-not ported: asking for it exits 2 (ROADMAP queue 1 item 5).
+suite makes the runner exit 1.  ``shard`` runs on the process group that
+is up, or on its own ranks (two gloo ranks on the CPU, one NCCL rank on
+the card; ``benchmarks/shard_stream.py``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import os
 import sys
 import time
 from typing import Optional, Sequence
+
+import torch
 
 SUITES = {
     "fig3": ("repro_torch.benchmarks.offload_modes", "paper Fig 3: eager/on-demand/prefetch (small images)"),
@@ -30,27 +34,32 @@ SUITES = {
     "disk": ("repro_torch.benchmarks.disk_tier", "DiskHost three-level streaming (modeled disk link)"),
     "serve": ("repro_torch.benchmarks.serve_paged", "paged KV-cache serving vs per-step placement"),
     "serve_slo": ("repro_torch.benchmarks.serve_slo", "SLO load-generator serving: goodput under SLO + COW prefix sharing A/B"),
+    "shard": ("repro_torch.benchmarks.shard_stream", "sharding-aware coalescing vs per-leaf fallback (2-device mesh)"),
     "weights": ("repro_torch.benchmarks.weight_stream", "streamed model parameters under a device budget (modeled link)"),
     "recovery": ("repro_torch.benchmarks.recovery", "self-healing runtime: retry overhead, fault bitwise-equality, CRC recovery, restart latency"),
 }
 
 #: the suites driven by the deterministic LinkModel emulation (the JAX
-#: package's, without ``shard``)
-SMOKE_SUITES = ["engine", "disk", "serve", "serve_slo", "weights", "recovery"]
-
-#: suites of the JAX package the port does not have yet, and why
-NOT_PORTED = {"shard": "the 2-device sharded-streaming suite waits for multi-device support "
-                       "(ROADMAP queue 1 item 5)"}
+#: package's)
+SMOKE_SUITES = ["engine", "disk", "serve", "serve_slo", "shard", "weights", "recovery"]
 
 
 def run_suites(names: Sequence[str], device: Optional[str] = None) -> list[str]:
-    """Run each suite's ``main(device)``; returns the names that failed."""
+    """Run each suite's ``main(device)``; returns the names that failed.  On
+    the CPU the suites run on one intra-op thread: their products are small
+    (as XLA runs them, on one), and beside other busy processes a pool's
+    threads wait on each other at every op, which took the weights suite
+    from 41 to 88-98 s beside eight busy loops."""
+    from repro_torch.benchmarks.common import one_cpu_thread
+
+    cpu = device is not None and torch.device(device).type == "cpu"
     failures = []
     for name in names:
         mod_name, desc = SUITES[name]
         print(f"\n########## {name}: {desc} ##########")
         t0 = time.time()
-        rc = importlib.import_module(mod_name).main(device)
+        with one_cpu_thread(torch.device("cpu")) if cpu else contextlib.nullcontext():
+            rc = importlib.import_module(mod_name).main(device)
         print(f"[{name}] rc={rc} ({time.time() - t0:.1f}s)")
         if rc:
             failures.append(name)
@@ -65,9 +74,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     for name in args.suites:
-        if name in NOT_PORTED:
-            print(f"suite {name!r} is not ported: {NOT_PORTED[name]}", file=sys.stderr)
-            return 2
         if name not in SUITES:
             ap.error(f"unknown suite {name!r}")
     if args.smoke:

@@ -18,10 +18,17 @@ the device setup turns TF32 off, so the router product is f32-exact.
 stable descending sort: on ties the lower expert index comes first, as
 ``jax.lax.top_k`` gives it.
 
-``moe_sorted_ep`` (the JAX package's expert parallelism over a mesh) is
-not ported: it needs a mesh (ROADMAP.md, queue 1 item 5).
+``moe_sorted_ep`` is expert parallelism over a ``DeviceMesh`` (the JAX
+package's ``shard_map`` strategy): the tokens sharded over the data axes and
+replicated over ``model``, each model rank's ``E / m`` experts run on a
+token-sorted capacity buffer, the partial outputs summed over ``model``.
+The buffer is filled by index assignment (kept slots are unique) and the
+choices combine by a gather summed in choice order, so neither step needs a
+float scatter-add: the card's atomics would fix no order.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -182,7 +189,109 @@ def moe_dispatch(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Te
     return torch.stack(ys, dim=1).reshape(b, s, d), aux
 
 
-def moe_sorted_ep(cfg: ModelConfig, p: Params, x: torch.Tensor, mesh, *args, **kwargs):
-    """Expert parallelism over a mesh: not ported."""
-    raise NotImplementedError(
-        "moe_sorted_ep needs a mesh (ROADMAP.md, queue 1 item 5: multi-device and tooling)")
+# ---------------------------------------------------------------------------
+# the sorted capacity scatter over a mesh (expert parallelism)
+# ---------------------------------------------------------------------------
+
+
+def moe_sorted_local(cfg: ModelConfig, p: Params, x: torch.Tensor, e_local: int,
+                     e_offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-sorted capacity scatter over the ``e_local`` experts from
+    ``e_offset`` (the JAX package's ``_moe_sorted_local``).  ``x`` (T, D) is
+    the rank's replicated view of its tokens, ``p`` holds the full
+    ``router`` and the rank's expert slices; returns ``(y, aux)``, ``y`` the
+    rank's partial output (summed over the model axis by the caller)."""
+    t, d = x.shape
+    k = cfg.moe_top_k
+    dev = x.device
+    top_w, top_i, _, aux = _router(cfg, {"router": p["router"]}, x)
+    flat_i = top_i.reshape(-1)  # (T*K,) global expert ids
+    flat_w = top_w.reshape(-1)
+    tok_of = torch.arange(t, device=dev).repeat_interleave(k)
+    local = (flat_i >= e_offset) & (flat_i < e_offset + e_local)
+    lexp = torch.where(local, flat_i - e_offset, e_local)  # e_local: the overflow bin
+    # rank of each (token, choice) within its local expert, in index order
+    order = torch.argsort(lexp, stable=True)
+    sorted_e = lexp[order]
+    seg_start = torch.searchsorted(sorted_e, torch.arange(e_local + 1, device=dev))
+    rank = torch.empty_like(lexp)
+    rank[order] = torch.arange(t * k, device=dev) - seg_start[sorted_e]
+    cap = _capacity(cfg, t)
+    keep = local & (rank < cap)
+    slot = torch.where(keep, lexp * cap + rank, e_local * cap)  # the overflow slot
+    # the capacity buffer (+1 overflow row, dropped): kept slots are unique,
+    # and every write to the overflow row is zero, so assignment is the JAX
+    # package's scatter-add into zeros
+    rows = torch.where(keep[:, None], x[tok_of], torch.zeros((), dtype=x.dtype, device=dev))
+    buf = torch.zeros((e_local * cap + 1, d), dtype=x.dtype, device=dev).index_put((slot,), rows)
+    ex_in = buf[: e_local * cap].reshape(e_local, cap, d)
+    ex_out = _expert_ffn(cfg, p, ex_in, "ecd,edf->ecf", "ecf,efd->ecd")
+    # gather back, weight, and combine each token's choices in choice order
+    # (the JAX package's index-order scatter-add over ``tok_of``)
+    flat_out = torch.cat([ex_out.reshape(e_local * cap, d), ex_out.new_zeros((1, d))])
+    per_choice = (flat_out[slot] * (flat_w * keep).to(x.dtype)[:, None]).reshape(t, k, d)
+    y = per_choice[:, 0]
+    for j in range(1, k):
+        y = y + per_choice[:, j]
+    return y, aux
+
+
+def moe_sorted_ep(cfg: ModelConfig, p: Params, x: torch.Tensor, mesh,
+                  data_axes: tuple = ("data",),
+                  model_axis: str = "model") -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism over ``mesh``: ``x`` (B, S, D) -> ``(y, aux)``.
+    Each rank takes its shard of the batch over ``data_axes``, replicated
+    over ``model_axis``, and its ``E / m`` experts (``Shard(0)`` over
+    ``model_axis``, redistributed from the placements it was given), runs
+    :func:`moe_sorted_local`, and the partial outputs are summed over
+    ``model_axis`` (``Partial`` to ``Replicate``); ``aux`` is averaged over
+    the data and model axes.  Autograd carries each step back: the local
+    gradients of the replicated inputs are partial sums over the ranks that
+    shared them.  DTensors come back as DTensors; plain tensors are taken
+    as replicated and come back plain and full."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    m = mesh.shape[names.index(model_axis)]
+    e = cfg.n_experts
+    assert e % m == 0, f"experts {e} must divide model axis {m} for sorted_ep"
+    e_local = e // m
+    reduced = (*data_axes, model_axis)
+
+    def per_dim(data, model, other):
+        return [data if n in data_axes else model if n == model_axis else other for n in names]
+
+    rep = [Replicate()] * mesh.ndim
+    plain = not isinstance(x, DTensor)
+
+    def local_of(t, placements, grads):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, rep, run_check=False)
+        if list(t.placements) != placements:
+            t = t.redistribute(mesh, placements)
+        return t.to_local(grad_placements=grads)
+
+    # tokens over the data axes, replicated over model: each model rank's
+    # gradient is its experts' share, summed over model on the way back
+    xb = local_of(x, per_dim(Shard(0), Replicate(), Replicate()),
+                  per_dim(Shard(0), Partial(), Replicate()))
+    p_local = {"router": local_of(p["router"], rep,
+                                  per_dim(Partial(), Partial(), Replicate()))}
+    for n in EXPERT_NAMES:
+        if n in p:
+            p_local[n] = local_of(p[n], per_dim(Replicate(), Shard(0), Replicate()),
+                                  per_dim(Partial(), Shard(0), Replicate()))
+    midx = mesh.get_local_rank(model_axis)
+    b, s, d = xb.shape
+    y, aux = moe_sorted_local(cfg, p_local, xb.reshape(b * s, d), e_local, midx * e_local)
+    shape = torch.Size(x.shape)
+    y = DTensor.from_local(y.reshape(b, s, d), mesh, per_dim(Shard(0), Partial(), Replicate()),
+                           shape=shape, stride=torch.empty(shape, device="meta").stride(),
+                           run_check=False)
+    y = y.redistribute(mesh, per_dim(Shard(0), Replicate(), Replicate()))
+    n = math.prod(mesh.shape[names.index(a)] for a in reduced)
+    aux = DTensor.from_local(aux, mesh, [Partial() if a in reduced else Replicate() for a in names],
+                             run_check=False).redistribute(mesh, rep) / n
+    if plain:
+        return y.full_tensor(), aux.to_local()
+    return y, aux

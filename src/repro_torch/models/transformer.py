@@ -29,7 +29,9 @@ All three run one layer body (:func:`_layer`); they differ only in the
 token mixer (attention over the prompt, a cache, or the whole sequence; the
 recurrence with or without a carried state) and in a MoE layer's FFN: the
 GShard dispatch (:func:`repro_torch.models.moe.moe_dispatch`, with its aux
-loss) over a whole sequence, the router-first dense top-k
+loss) over a whole sequence (in training with a mesh and
+``moe_impl="sorted_ep"``, the expert-parallel
+:func:`~repro_torch.models.moe.moe_sorted_ep`), the router-first dense top-k
 (:func:`~repro_torch.models.moe.moe_decode`) for one decode token.  An
 xLSTM block (``mlstm`` / ``slstm``) is its own token mixer and carries no
 MLP.
@@ -375,16 +377,21 @@ def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor,
-         decode: bool) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor, decode: bool,
+         mesh=None) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's second half: the pre-norm MLP or MoE FFN plus residual.
     Returns ``(x, aux)``: a MoE layer's aux loss over a sequence (``decode``
-    False: the dispatch), else ``None``."""
+    False: the dispatch, or with ``moe_impl="sorted_ep"`` and a ``mesh`` the
+    expert-parallel :func:`~repro_torch.models.moe.moe_sorted_ep`, as the
+    JAX package's ``_block_train``), else ``None``."""
     if "moe" in p:
         h = layers.norm_apply(p["ln2"], x, cfg.norm_type)
         if decode:
             return x + local.on_full(moe.moe_decode, cfg, p["moe"], h), None
-        y, aux = local.on_full(moe.moe_dispatch, cfg, p["moe"], h)
+        if cfg.moe_impl == "sorted_ep" and mesh is not None:
+            y, aux = moe.moe_sorted_ep(cfg, p["moe"], h, mesh)
+        else:
+            y, aux = local.on_full(moe.moe_dispatch, cfg, p["moe"], h)
         return x + y, aux
     if "mlp" not in p:
         return x, None
@@ -404,12 +411,12 @@ def _store(cache: dict, state: dict) -> None:
 
 def _layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
            mix: Callable[[torch.Tensor], torch.Tensor],
-           decode: bool = False) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+           decode: bool = False, mesh=None) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer body every pass runs: the pre-norm token mixer ``mix``
     (attention or the recurrence, on the normed input) plus residual, then
     the pre-norm MLP or MoE FFN plus residual.  Returns ``(x, aux)`` as
     :func:`_mlp`."""
-    return _mlp(cfg, p, x + mix(layers.norm_apply(p["ln1"], x, cfg.norm_type)), decode)
+    return _mlp(cfg, p, x + mix(layers.norm_apply(p["ln1"], x, cfg.norm_type)), decode, mesh)
 
 
 #: the xLSTM blocks' sequence and decode-step forms, by block kind
@@ -418,25 +425,27 @@ _XLSTM_STEP = {"mlstm": xlstm.mlstm_block_step, "slstm": xlstm.slstm_block_step}
 
 
 def _layer_train(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-                 angles: Optional[torch.Tensor], sharder=None,
-                 path: tuple = ()) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+                 angles: Optional[torch.Tensor], sharder=None, path: tuple = (),
+                 mesh=None) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer of the training forward (the JAX package's ``_block_train``
     / ``_hetero_block_train``): no cache; the recurrence starts from zero
     and runs the plain scan, as the JAX package's ``use_kernel=False``.
     With a ``sharder`` the layer's parameters are gathered to their
     TP-only layout first and the output pinned to the activation layout
-    (the JAX package's ``_block_train``).  Returns ``(x, aux)`` as
-    :func:`_mlp`."""
+    (the JAX package's ``_block_train``).  ``mesh`` reaches :func:`_mlp`
+    (given only for a uniform stack's layers, as the JAX package's
+    ``_block_train`` gets it).  Returns ``(x, aux)`` as :func:`_mlp`."""
     if sharder is not None:
         p = sharder.block(p, path or None)
-        x, aux = _layer_train(cfg, kind, p, x, angles)
+        x, aux = _layer_train(cfg, kind, p, x, angles, mesh=mesh)
         return sharder.acts(x), aux
     if kind == "rec":
         return _layer(cfg, p, x, lambda h: local.on_full(rglru.rglru_block_train, cfg, p["rec"],
                                                           h)[0])
     if kind in _XLSTM_TRAIN:
         return _layer(cfg, p, x, lambda h: local.on_full(_XLSTM_TRAIN[kind], cfg, p[kind], h)[0])
-    return _layer(cfg, p, x, lambda h: attention.attention_train(cfg, p["attn"], h, angles))
+    return _layer(cfg, p, x, lambda h: attention.attention_train(cfg, p["attn"], h, angles),
+                  mesh=mesh)
 
 
 def _layer_prefill(cfg: ModelConfig, kind: str, p: Params, cache: dict, x: torch.Tensor,
@@ -532,14 +541,14 @@ def _unbind(tree) -> list:
 
 def _train_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  angles: Optional[torch.Tensor], aux: torch.Tensor, sharder=None,
-                 path: tuple = ()) -> tuple[torch.Tensor, torch.Tensor]:
+                 path: tuple = (), mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer of the training forward under the config's remat: the
     program :func:`forward_hidden` and the group stages share.  Returns
     ``(x, aux)`` with a MoE layer's aux loss added to the carried ``aux``.
     The Sharder's gather runs inside the remat, so the backward gathers the
     layer again (ZeRO-3)."""
     x, a = _remat(cfg, functools.partial(_layer_train, cfg, kind, sharder=sharder,
-                                         path=path))(p, x, angles)
+                                         path=path, mesh=mesh))(p, x, angles)
     return x, aux if a is None else aux + a
 
 
@@ -560,6 +569,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, batch: dict, mesh=None,
     x = _acts(sharder, _embed(cfg, params, on_mesh(batch, _mesh(mesh, sharder, params))))
     angles = _angles(cfg, batch, x.shape[1], device=x.device)
     aux = _zero_like(x)
+    # the JAX package passes its mesh to the uniform stack's body only
+    layer_mesh = mesh if cfg.uniform_blocks and cfg.use_scan else None
     stacked: dict = {}
     for kind, path, j in layer_slots(cfg):
         if j is None:
@@ -568,7 +579,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, batch: dict, mesh=None,
             if path not in stacked:
                 stacked[path] = _unbind(_at(params["blocks"], path, None))
             p = stacked[path][j]
-        x, aux = _train_layer(cfg, kind, p, x, angles, aux, sharder, path)
+        x, aux = _train_layer(cfg, kind, p, x, angles, aux, sharder, path, layer_mesh)
     return x, aux
 
 
@@ -807,13 +818,13 @@ def head_stage_loss(cfg: ModelConfig, group: Params, x: torch.Tensor, aux: torch
 
 
 def block_group_train(cfg: ModelConfig, blocks_slice: Params, x: torch.Tensor, aux: torch.Tensor,
-                      angles: Optional[torch.Tensor],
+                      angles: Optional[torch.Tensor], mesh=None,
                       sharder=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Training forward over one stacked layer-group slice ``(Lg, ...)`` of a
     uniform stack: :func:`forward_hidden`'s layer program entered mid-stack.
     ``aux`` is the MoE aux-loss carry.  Returns ``(x, aux)``."""
     for p in _unbind(blocks_slice):
-        x, aux = _train_layer(cfg, "attn", p, x, angles, aux, sharder)
+        x, aux = _train_layer(cfg, "attn", p, x, angles, aux, sharder, mesh=mesh)
     return x, aux
 
 

@@ -1067,10 +1067,10 @@ def make_weight_streamed_train_step(
         g = plan.groups[u.gidx[0]]
         if u.kind == "moe":
             stages.append(lambda ps, x, a, ang: transformer.block_group_train(
-                cfg, merge_expert_slice(ps[0], ps[1:]), x, a, ang, sharder=sharder))
+                cfg, merge_expert_slice(ps[0], ps[1:]), x, a, ang, **msh))
         elif u.kind == "layers":
             stages.append(lambda ps, x, a, ang: transformer.block_group_train(
-                cfg, ps[0], x, a, ang, sharder=sharder))
+                cfg, ps[0], x, a, ang, **msh))
         elif u.kind == "period":
             stages.append(lambda ps, x, a, ang: transformer.period_group_train(
                 cfg, ps[0], x, a, ang, sharder=sharder))

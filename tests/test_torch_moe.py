@@ -160,12 +160,6 @@ def test_moe_decode_matches_jax_and_subset_is_bitwise(arch):
         assert torch.equal(moe.moe_decode(pc, pd, xd), full)
 
 
-def test_moe_sorted_ep_names_its_item():
-    pc, _ = _cfgs("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        moe.moe_sorted_ep(pc, {}, torch.zeros(1, 1, pc.d_model), mesh=None)
-
-
 # ---------------------------------------------------------------------------
 # the MoE layer in the model
 # ---------------------------------------------------------------------------

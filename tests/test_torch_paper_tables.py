@@ -5,8 +5,9 @@ JAX package's ``benchmarks/`` and ``repro.roofline.hw``.
 On the CPU the tables' rows and columns are the JAX package's (its
 committed ``results/bench/{table1_power,table2_stall}.json``), the cited
 rows its values and the measured row's watts ``"n/a"``.  The runner takes
-``--smoke`` and ``--device``, refuses ``shard`` with rc 2 and exits 1 on a
-failing suite.  Tests marked ``cuda`` skip without a card.
+``--smoke`` and ``--device``, runs the JAX package's suites (``shard`` on two
+gloo ranks, its counts the JAX package's) and exits 1 on a failing suite.
+Tests marked ``cuda`` skip without a card.
 """
 import dataclasses
 import json
@@ -140,10 +141,9 @@ def test_power_field_falls_back_to_power_draw(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def test_runner_suites_are_the_jax_packages_without_shard():
-    assert list(bench_run.SUITES) == [s for s in ref_run.SUITES if s != "shard"]
-    assert bench_run.SMOKE_SUITES == [s for s in ref_run.SMOKE_SUITES if s != "shard"]
-    assert "queue 1 item 5" in bench_run.NOT_PORTED["shard"]
+def test_runner_suites_are_the_jax_packages():
+    assert list(bench_run.SUITES) == list(ref_run.SUITES)
+    assert bench_run.SMOKE_SUITES == ref_run.SMOKE_SUITES
 
 
 def _runner(cwd: Path, *args: str) -> subprocess.CompletedProcess:
@@ -153,9 +153,34 @@ def _runner(cwd: Path, *args: str) -> subprocess.CompletedProcess:
                           cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
 
 
-def test_runner_refuses_shard_with_rc_2(tmp_path):
-    p = _runner(tmp_path, "shard")
-    assert p.returncode == 2 and "queue 1 item 5" in p.stderr
+#: the columns of a ``BENCH_shard`` row that count (the JAX package's
+#: integers: summed over the port's ranks where they count requests, bytes
+#: and devices; ``final_distance`` is each rank's adaptive distance)
+SHARD_COUNTS = ("config", "n_devices", "n_leaves", "requests_per_group",
+                "requests_per_device_group", "h2d_requests", "bytes_h2d", "final_distance",
+                "bitwise_equal_to_eager_sharded")
+
+
+def test_runner_shard_on_two_gloo_ranks_counts_the_jax_packages(tmp_path):
+    """``run.py shard --device cpu`` re-runs the suite on two gloo ranks and
+    exits 0; its rows' counts are those of the JAX package's
+    ``benchmarks.shard_stream`` on its forced 2-device mesh, run from
+    another directory at the same sizes."""
+    (tmp_path / "port").mkdir()
+    p = _runner(tmp_path / "port", "shard", "--device", "cpu")
+    assert p.returncode == 0 and "[shard] rc=0" in p.stdout, (p.stdout + p.stderr)[-3000:]
+    ref_dir = tmp_path / "jax"
+    ref_dir.mkdir()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)]),
+           "JAX_PLATFORMS": "cpu"}
+    r = subprocess.run([sys.executable, "-m", "benchmarks.shard_stream"], cwd=ref_dir, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, (r.stdout + r.stderr)[-3000:]
+    ours = json.loads((tmp_path / "port" / "results" / "torch" / "BENCH_shard.json").read_text())
+    theirs = json.loads((ref_dir / "results" / "bench" / "BENCH_shard.json").read_text())
+    assert [{k: row[k] for k in SHARD_COUNTS} for row in ours] == [
+        {k: row[k] for k in SHARD_COUNTS} for row in theirs]
+    assert all(row["wait_collapse_vs_per_leaf"] >= 2.0 for row in ours if row["config"] == "sharded")
 
 
 def test_runner_smoke_on_the_cpu_exits_0(tmp_path):
@@ -184,6 +209,10 @@ def test_runner_smoke_on_the_cpu_exits_0(tmp_path):
         (1.0, 0.0), (1.0, 1.0), (1.0, 1.0), (1.0, 1.0)]
     rows = json.loads((res / "BENCH_recovery.json").read_text())
     assert rows[0]["repeats"] == 20  # the smoke REPEATS of the clean-overhead gate
+    shard = {r["config"]: r for r in json.loads((res / "BENCH_shard.json").read_text())}
+    assert [(shard[c]["requests_per_group"], shard[c]["requests_per_device_group"],
+             shard[c]["n_devices"]) for c in ("per_leaf", "sharded")] == [(26.0, 13.0, 2),
+                                                                          (2.0, 1.0, 2)]
 
 
 def test_runner_exits_1_on_a_failing_suite(monkeypatch, tmp_path, capsys):
