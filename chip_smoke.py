@@ -197,6 +197,17 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    the training shape.  (a)-(e) launch no hand-written kernel, as in the
    JAX package, whose gradient path runs none.  Phase 6 runs after phase 4,
    and phase 5 times its flash shape beside the serving ones.
+6dry. right after 6 (a): 6 (a)'s step lowered on the meta device by the
+   dry-run (``launch/dryrun.py::lower_step``, no mesh: the one-card
+   program, the config as 6 (a) runs it; nothing is allocated and no
+   kernel runs) and held against one step of (a) on the card: the
+   dry-run's ``argument_size_in_bytes`` equal to the bytes the step's
+   parameters, AdamW state and batch occupy on the card, exactly, and
+   its ``argument + output + temp - alias`` within 15% of the step's
+   measured peak of allocated bytes (net of what the card held before the
+   step but for those arguments); its FLOPs, ``model_flops_ratio`` and the
+   FLOP/s they give over (a)'s measured wall logged beside (a)'s
+   ``roofline`` line, with the card's name and power limit.
 6w. train the same model on phase 6's batches through the streamed-weight
    train step (``make_weight_streamed_train_step``), the weights, gradients
    and AdamW moments homed off the card under ``device_budget_mb=160``, one
@@ -333,11 +344,12 @@ port's ``H100`` (``roofline_line``): a ``roofline`` line with
 ``model_flops`` (6 N T or 2 N T over the config's active parameters, its
 depth cut included), ``analytic_hbm_bytes`` on one device,
 ``residual_inner_scan_flops``, the compute and memory terms (the compute
-term's FLOPs are the analytic ones plus the residual: no compiled step is
-counted yet), the dominant term, ``mfu`` (model FLOPs over 989 TFLOP/s and
-the wall) and ``bound_share`` (the dominant term over the wall; the bytes
-count the plain attention's (B, S, S) scores, which the flash kernel never
-writes, so a share above 1 is logged as found, not failed).
+term's FLOPs are the analytic ones plus the residual; phase 6dry counts
+6 (a)'s lowered step beside them), the dominant term, ``mfu`` (model
+FLOPs over 989 TFLOP/s and the wall) and ``bound_share`` (the dominant
+term over the wall; the bytes count the plain attention's (B, S, S)
+scores, which the flash kernel never writes, so a share above 1 is logged
+as found, not failed).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -457,6 +469,8 @@ TRAIN_GROUPS, TRAIN_STATE_BYTES = 4, 4_341_853_440  # 12 bytes a parameter
 # (d) takes one step: its fsync'd disk writes cost ~10-15 s a step, and
 # phase 6 keeps within ~110 s (the CPU tests hold several disk steps)
 TRAIN_HOST_MB, TRAIN_DISK_STEPS = 2000, 1
+#: phase 6dry: the dry-run's peak against the measured step's, relative
+DRYRUN_PEAK_BAND = 0.15
 TRAIN_FAIL_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 4, 3, 2
 # phase 6w: phase 6's model and batches through the streamed-weight train step
 # under 160 MB, one layer a group (34 groups); the steps of each run (the disk
@@ -870,8 +884,8 @@ def roofline_line(phase: str, cfg, kind: str, seq: int, batch: int, wall_s: floa
     analytic roofline on the port's ``H100`` (``repro_torch.roofline``):
     ``model_flops``, ``analytic_hbm_bytes`` on one device and
     ``residual_inner_scan_flops``; the terms of a ``RooflineResult`` whose
-    ``hlo_flops`` is the analytic model FLOPs (no compiled step is counted
-    yet: ROADMAP queue 1 item 5e) and whose ``hlo_bytes`` is 0, so the
+    ``hlo_flops`` is the analytic model FLOPs (phase 6dry counts 6 (a)'s
+    lowered step beside it) and whose ``hlo_bytes`` is 0, so the
     memory term is the analytic bytes'; MFU against 989 TFLOP/s and the
     dominant term's share of the wall.  ``cfg`` is the config that ran, its
     depth cut included.  The analytic bytes count the (B, S, S) scores of
@@ -896,7 +910,7 @@ def roofline_line(phase: str, cfg, kind: str, seq: int, batch: int, wall_s: floa
     log(f"  roofline {phase} {cfg.name} {kind}, {cfg.n_layers} of {depth} layers, B {batch} x S "
         f"{seq}: wall {wall_s * 1e3:.3f} ms; model_flops {mf:.6e}, analytic_hbm_bytes {nbytes:.6e} "
         f"(one device), residual_inner_scan_flops {resid:.6e}; terms on {H100.name} (hlo_flops := "
-        f"model_flops, analytic, + the residual; no compiled step counted yet): compute "
+        f"model_flops, analytic, + the residual): compute "
         f"{t['t_compute_s'] * 1e3:.3f} ms, memory {t['t_memory_s'] * 1e3:.3f} ms, dominant "
         f"{t['dominant']} {t['t_dominant_s'] * 1e3:.3f} ms; mfu {mfu:.4f}, bound_share {share:.4f}"
         f"{' (above 1: the analytic bytes over-count this step)' if share > 1 else ''} ({smi})")
@@ -1926,6 +1940,56 @@ def median(xs) -> float:
     return xs[len(xs) // 2] if len(xs) % 2 else (xs[len(xs) // 2 - 1] + xs[len(xs) // 2]) / 2
 
 
+def measured_step(step_fn, params, opt, batch) -> tuple:
+    """One train step on the card, with the bytes its arguments occupy
+    (their storages: parameters, AdamW state, batch) and its peak of
+    allocated bytes, net of what the card held before it but for those
+    arguments: ``(params, opt, {"argument_bytes", "step_peak"})``."""
+    from repro_torch.core.lowering import tensor_bytes
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    args = tensor_bytes((params, opt, batch))
+    torch.cuda.reset_peak_memory_stats()
+    new_params, new_opt, _ = step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held + args
+    return new_params, new_opt, {"argument_bytes": args, "step_peak": peak}
+
+
+def phase_dryrun(tcfg, step: dict, wall_s: float, smi: str) -> None:
+    """Phase 6dry: phase 6 (a)'s step lowered on the meta device, held
+    against ``step`` (:func:`measured_step`) and read over (a)'s wall."""
+    from repro_torch.launch.dryrun import lower_step
+    from repro_torch.roofline import analysis as ra
+
+    t0 = time.perf_counter()
+    c = lower_step(tcfg, TRAIN_SEQ, TRAIN_BATCH, "train",
+                   inputs=train_batch(tcfg, 0, "meta"))  # the launcher's int64 batch
+    secs = time.perf_counter() - t0
+    m = c.memory_analysis()
+    total = (m.argument_size_in_bytes + m.output_size_in_bytes + m.temp_size_in_bytes
+             - m.alias_size_in_bytes)
+    flops = ra.cost_terms(c)["flops"]
+    mf = ra.model_flops(tcfg, "train", TRAIN_SEQ, TRAIN_BATCH)
+    share = total / step["step_peak"]
+    log(f"phase 6dry {tcfg.name} train, B {TRAIN_BATCH} x S {TRAIN_SEQ}, lowered on the meta device "
+        f"in {secs:.1f} s (host CPU): argument {m.argument_size_in_bytes} B (on the card "
+        f"{step['argument_bytes']} B), output {m.output_size_in_bytes} B, temp "
+        f"{m.temp_size_in_bytes} B, alias {m.alias_size_in_bytes} B; argument + output + temp - "
+        f"alias {total} B against (a)'s measured step peak {step['step_peak']} B: {share:.4f} "
+        f"(gate 1 +- {DRYRUN_PEAK_BAND}) ({smi})")
+    log(f"  6dry FLOPs {flops:.6e} (products), model_flops {mf:.6e}, model_flops_ratio "
+        f"{mf / flops:.4f}; over (a)'s wall {wall_s * 1e3:.3f} ms: {flops / wall_s / 1e12:.2f} "
+        f"TFLOP/s = {flops / wall_s / BF16_FLOP_PER_S:.4f} of 989 TFLOP/s ({smi})")
+    if m.argument_size_in_bytes != step["argument_bytes"]:
+        raise SystemExit(f"6dry: the dry-run's arguments {m.argument_size_in_bytes} B are not the "
+                         f"{step['argument_bytes']} B the step's arguments occupy on the card")
+    if abs(share - 1) > DRYRUN_PEAK_BAND:
+        raise SystemExit(f"6dry: the dry-run's peak {total} B is {share:.4f} of the measured "
+                         f"{step['step_peak']} B, outside 1 +- {DRYRUN_PEAK_BAND}")
+
+
 def phase_train(cfg, smi: str) -> dict:
     """Phase 6: train full-width smollm-360m on the card through the
     launcher's driver, the AdamW state on the card, at pinned host (in bulk
@@ -1987,8 +2051,8 @@ def phase_train(cfg, smi: str) -> dict:
     params, opt = a2["state"]["params"], a2["state"]["opt"]
     del a2
     batch = train_batch(tcfg, 0)
-    params, opt, _ = step_fn(params, opt, batch)
-    torch.cuda.synchronize()
+    params, opt, step_mem = measured_step(step_fn, params, opt, batch)
+    phase_dryrun(tcfg, step_mem, wall, smi)
     # the step's two halves on the card (CUDA events): forward + backward, the AdamW update
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()

@@ -15,7 +15,7 @@ import torch
 from repro_torch.configs.base import SHAPES, ModelConfig
 
 __all__ = ["ARCHS", "SHAPES", "ModelConfig", "cell_is_runnable", "get_config",
-           "get_smoke_config", "input_specs", "vision_prefix_len"]
+           "get_smoke_config", "input_specs", "step_inputs", "vision_prefix_len"]
 
 _MODULES = {
     "olmo-1b": "olmo_1b",
@@ -65,7 +65,11 @@ def input_specs(cfg: ModelConfig, shape: str) -> dict:
     """
     if shape not in SHAPES:
         raise ValueError(f"unknown shape {shape!r}; have {list(SHAPES)}")
-    seq, batch, step = SHAPES[shape]
+    return step_inputs(cfg, *SHAPES[shape])
+
+
+def step_inputs(cfg: ModelConfig, seq: int, batch: int, step: str) -> dict:
+    """:func:`input_specs` of any ``(seq_len, global_batch, step kind)``."""
     i32 = torch.int32
     f = cfg.compute_dtype
 

@@ -26,7 +26,8 @@ Placement on the CPU happens only when the caller asks for it
 package's CPU backend maps its host kinds onto device memory
 (:func:`host_offload_supported` is False, :func:`resolve_kind` falls back to
 ``Device``); CPU-only torch cannot pin memory at all.  On the card a pin
-that fails raises.  Meshes and shardings are not ported (ROADMAP.md).
+that fails raises.  Under a mesh, :func:`sharding_for` gives a level's
+DTensor layout.
 """
 from __future__ import annotations
 

@@ -253,11 +253,56 @@ class OffloadedFunction:
             self._spill_store.close()
             self._spill_store = None
 
-    def lower(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            "OffloadedFunction.lower is the dry-run's path; the dry-run is not ported "
-            "(ROADMAP.md, queue 1 item 5e: the dry-run)"
-        )
+    def lower(self, *args: Any, streamed: bool = True, **kwargs: Any):
+        """Lower without executing (the dry-run's path): the call traced on
+        meta tensors of the arguments' shapes (tensors, numpy arrays or meta
+        tensors; no data is read, nothing runs), returned as a
+        :class:`~repro_torch.core.lowering.Lowered`, with the true memory
+        kinds.  An argument at a host kind counts in ``host_bytes``, not
+        in the device's arguments.  Without streaming a host argument is
+        copied whole to the device for the call (``temp``).  A streamed one
+        (``streamed=True``) holds the device only through its
+        ``PrefetchSpec`` ring, ``distance + 1`` blocks of
+        ``elements_per_fetch`` rows: ``fn`` is traced once on one block's
+        shapes and the call's FLOPs, bytes and outputs are the block's
+        times the blocks."""
+        from repro_torch.core import lowering as lw
+
+        bound = self._signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        vals = {n: lw.meta_like(v) for n, v in bound.arguments.items()}
+        on_host = [n for n in vals if not self._ref(n).kind.directly_addressable]
+        host_bytes = lw.tensor_bytes([vals[n] for n in on_host])
+        stream_names = [n for n in self._params if streamed and self._ref(n).streamed]
+        fixed = {n: v for n, v in vals.items() if n not in stream_names}
+        fixed_dev = lw.tensor_bytes([v for n, v in fixed.items() if n not in on_host])
+        if not stream_names:
+            low = lw.lower(self._fn, **vals)
+            low.argument_bytes, low.host_bytes = fixed_dev, host_bytes
+            return low
+        spec = self._ref(stream_names[0]).prefetch
+        g = spec.elements_per_fetch
+        n_rows = tr.leaves(vals[stream_names[0]])[0].shape[0]
+        if n_rows % g != 0:
+            raise ValueError(f"leading axis {n_rows} not divisible by elements_per_fetch={g}")
+        n_chunks = n_rows // g
+        blocks = [tr.tree_map(lambda a: torch.empty((g, *a.shape[1:]), dtype=a.dtype,
+                                                    device="meta"), vals[n])
+                  for n in stream_names]
+        block = lw.lower(lambda *b, **kw: self._fn(**kw, **dict(zip(stream_names, b))),
+                         *blocks, **fixed)
+        window = min(pf._distance(spec, n_chunks) + 1, n_chunks) * lw.tensor_bytes(blocks)
+        own = block.peak_bytes - block.argument_bytes - block.output_bytes  # a block's temporaries
+        out = n_chunks * block.output_bytes
+        fixed_all = lw.tensor_bytes(list(fixed.values()))  # host ones copied in bulk
+        # the ring's last block beside every block's output, then the
+        # outputs beside their concatenation
+        peak = fixed_all + max(window + own + out, 2 * out)
+        return lw.Lowered(flops=n_chunks * block.flops,
+                          bytes_accessed=n_chunks * block.bytes_accessed,
+                          argument_bytes=fixed_dev, output_bytes=out, alias_bytes=0,
+                          peak_bytes=peak, collectives=block.collectives * n_chunks,
+                          host_bytes=host_bytes, window_bytes=window, n_blocks=n_chunks)
 
 
 def offload(

@@ -202,10 +202,11 @@ def streamed_matmul(
     ``x`` may carry leading batch dims; they are flattened into M.  f32 and
     bf16 (the same for both operands); the result is in ``x``'s dtype.  On a
     CUDA tensor this launches the kernel (contiguous operands) or raises; on
-    a CPU tensor it runs the plain version.  ``block_m`` / ``block_n`` /
-    ``block_k`` are the Pallas kernel's VMEM blocks, kept so that callers of
-    the JAX wrapper run unchanged; each route's tile is fixed, so they must
-    be positive and are not otherwise read.
+    a CPU tensor it runs the plain version (on a meta tensor, its shapes).
+    ``block_m`` / ``block_n`` / ``block_k`` are the Pallas kernel's VMEM
+    blocks, kept so that callers of the JAX wrapper run unchanged; each
+    route's tile is fixed, so they must be positive and are not otherwise
+    read.
     """
     if min(block_m, block_n, block_k) < 1:
         raise ValueError(f"block sizes must be >= 1, got ({block_m}, {block_n}, {block_k})")
@@ -219,7 +220,7 @@ def streamed_matmul(
     *lead, k = x.shape
     n = w.shape[1]
     distance, slots = ring_of(spec, k, x.dtype)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: a lowering's shapes, nothing runs
         return matmul_ref(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"streamed_matmul runs on cuda or cpu tensors, not {x.device}")

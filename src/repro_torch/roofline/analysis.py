@@ -12,8 +12,8 @@ same config gives the same floats:
   * ``RooflineResult.terms`` — compute, memory and collective times on an
     ``HwSpec`` (the port's default is :data:`~repro_torch.roofline.hw.H100`).
 
-``cost_terms`` reads a compiled program's cost analysis; the port has no
-compiled step to read until its dry-run lands, so it refuses.
+``cost_terms`` reads a lowered step's cost analysis
+(:mod:`repro_torch.core.lowering`, which the dry-run drives).
 """
 from __future__ import annotations
 
@@ -93,11 +93,15 @@ def weighted_collective_bytes(by_class: dict[str, int]) -> float:
 
 def cost_terms(compiled) -> dict[str, float]:
     """flops / bytes-accessed per device from a compiled step's cost
-    analysis: not ported yet (ROADMAP.md queue 1 item 5e, the dry-run)."""
-    raise NotImplementedError(
-        "cost_terms reads a compiled step's cost analysis; the port has no "
-        "compiled step until its dry-run lands (ROADMAP.md queue 1 item 5e)"
-    )
+    analysis (a :class:`repro_torch.core.lowering.Compiled`, or any object
+    whose ``cost_analysis()`` gives such a dict, or a list of them)."""
+    ca = compiled.cost_analysis()
+    if isinstance(ca, (list, tuple)):
+        ca = ca[0]
+    return {
+        "flops": float(ca.get("flops", 0.0)),
+        "bytes": float(ca.get("bytes accessed", 0.0)),
+    }
 
 
 @dataclasses.dataclass

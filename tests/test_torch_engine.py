@@ -178,6 +178,44 @@ def test_adaptive_distance_trace_matches_jax(seed):
         assert pc.observe(float(w)) == jc.observe(float(w))
 
 
+#: the shard suite's sharded row, its 80 measured waits (us) of 5 runs: one
+#: of the port's two gloo ranks (its window ended at 5) and the JAX
+#: package's one executor (ended at 7), on a CPU
+_SHARD_WAITS_US = {
+    "port_rank": [
+        1896.2, 17.0, 16.9, 12.4, 10.7, 12.0, 8.4, 10.3, 1460.0, 11.4, 11.7, 9.7, 19.0, 12.2,
+        10.9, 8.0, 14426.6, 12.5, 9.4, 4350.4, 10.5, 10.8, 12.3, 1644.1, 10.4, 2099.4, 2198.0,
+        9.2, 4.7, 1592.8, 3474.1, 359.4, 5736.0, 19.2, 9.0, 16.1, 8.9, 11.6, 10.0, 9.5, 6.4,
+        10.8, 11.3, 7.2, 6.5, 6.8, 6.4, 5.2, 3815.7, 1483.7, 1350.5, 8.5, 8.5, 9.0, 9.7, 8.4,
+        15.0, 13.8, 10.1, 9.0, 8.5, 8.5, 9.1, 5.8, 2911.7, 6497.2, 3187.3, 8.5, 9.2, 6.4, 6.3,
+        8.7, 7.2, 10.9, 11.3, 9.7, 9.3, 8.8, 7.5, 9.0],
+    "jax_executor": [
+        2416.4, 259.7, 1761.6, 696.2, 7.5, 123.6, 1264.7, 555.8, 219.7, 1086.8, 1072.6, 1929.6,
+        1142.7, 963.0, 1792.3, 1044.4, 2528.0, 8.8, 11.5, 7.7, 1210.3, 2189.0, 562.5, 6.9, 11.3,
+        13.8, 11.5, 12.5, 147.6, 2008.0, 11.6, 7.3, 2916.0, 10.1, 8.5, 7.7, 9.4, 9.5, 133.1,
+        1190.6, 1209.7, 1181.3, 1216.3, 1272.2, 1201.9, 1201.3, 1243.5, 1111.2, 2581.2, 770.8,
+        1267.1, 1254.8, 540.9, 1214.4, 8.3, 197.0, 1339.7, 1282.3, 1224.8, 1229.0, 1197.6, 16.6,
+        8.5, 282.7, 2460.7, 6.2, 1213.7, 2652.6, 6.6, 11.7, 8.2, 1125.5, 1472.8, 11.0, 13.3, 12.5,
+        10.9, 9.9, 13.6, 7.3],
+}
+
+
+@pytest.mark.parametrize("source", sorted(_SHARD_WAITS_US))
+def test_adaptive_distance_on_the_shard_suites_measured_waits(source):
+    """The shard suite's ``final_distance`` moves with the measured waits,
+    not with the controller: the waits one run measured, fed to both
+    packages' controllers at the executor's settings, give one trace."""
+    cfg = EngineConfig()
+    kw = dict(initial=cfg.min_distance, min_distance=cfg.min_distance,
+              max_distance=cfg.max_distance, wait_eps_s=cfg.wait_eps_s,
+              shrink_after=cfg.shrink_after)
+    jc, pc = jeng.AdaptiveDistance(**kw), AdaptiveDistance(**kw)
+    ours = [pc.observe(w * 1e-6) for w in _SHARD_WAITS_US[source]]
+    theirs = [jc.observe(w * 1e-6) for w in _SHARD_WAITS_US[source]]
+    assert ours == theirs
+    assert 1 < ours[-1] <= cfg.max_distance
+
+
 def test_engine_widen_reaches_registered_controllers():
     with TransferEngine(device="cpu") as eng:
         ctrl = AdaptiveDistance(initial=1, max_distance=8)

@@ -250,10 +250,44 @@ def test_fixed_arguments_ride_along_and_lower_is_not_ported():
             np.testing.assert_array_equal(out.numpy(), x * scale)
     finally:
         k.close()
-    with pytest.raises(NotImplementedError, match="dry-run"):
-        k.lower(x, scale)
+    # lower(), the dry-run's trace: x (pinned host) streams through a ring of
+    # distance + 1 = 2 blocks of 3 rows; scale rides along on the device
+    low = k.lower(x, scale)
+    assert (low.n_blocks, low.host_bytes, low.window_bytes) == (4, x.nbytes, 2 * 3 * 4 * 4)
+    mem = low.memory_analysis()
+    assert (mem.argument_size_in_bytes, mem.output_size_in_bytes) == (4, x.nbytes)
+    whole = k.lower(x, scale, streamed=False)  # the eager call: x copied whole
+    assert (whole.n_blocks, whole.host_bytes, whole.window_bytes) == (1, x.nbytes, 0)
+    assert whole.memory_analysis().temp_size_in_bytes == x.nbytes
     with pytest.raises(ValueError, match="unknown arguments"):
         offload(refs=dict(y=OffloadRef()), device="cpu")(lambda x: x)
+
+
+@pytest.mark.parametrize("height", [256, 512])
+def test_lower_streams_listing_4_through_its_ring(height):
+    """The quickstart's listing 4 product with its ``x`` homed at pinned
+    host and streamed: lowered at two heights of the host array, the host
+    bytes follow the height while the device holds the same ring window
+    (distance 2 + 1 blocks of one row) and each block costs the same
+    FLOPs; the device arguments are ``w`` alone."""
+    from repro_torch.kernels.streamed_matmul import streamed_matmul
+
+    spec = PrefetchSpec(buffer_size=3, elements_per_fetch=1, distance=2)
+
+    @offload(refs=dict(x=OffloadRef(kind=mk.PINNED_HOST, prefetch=spec)), device="cpu")
+    def listing4(x, w):
+        return streamed_matmul(x, w, spec=spec)
+
+    x = np.zeros((height, 512), np.float32)
+    w = torch.zeros((512, 256))
+    low = listing4.lower(x, w)
+    assert low.n_blocks == height and low.host_bytes == height * 512 * 4
+    assert low.window_bytes == 3 * 512 * 4
+    assert low.flops // low.n_blocks == 2 * 512 * 256
+    assert low.compile().cost_analysis()["flops"] == 2.0 * height * 512 * 256
+    mem = low.compile().memory_analysis()
+    assert (mem.argument_size_in_bytes, mem.output_size_in_bytes, mem.alias_size_in_bytes) == (
+        w.numel() * 4, height * 256 * 4, 0)
 
 
 # ---------------------------------------------------------------------------

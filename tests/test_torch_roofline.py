@@ -180,8 +180,27 @@ def test_the_result_fields_are_the_jax_packages():
 
 
 def test_cost_terms_waits_for_the_dry_run():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5e"):
-        an.cost_terms(object())
+    """``cost_terms`` reads what the dry-run's lowering reports, and any
+    compiled object's ``cost_analysis()`` as the JAX package's does (a dict,
+    or a list of them: the first)."""
+    from repro_torch.core import lowering
+
+    x = torch.empty((64, 32), device="meta")
+    w = torch.empty((32, 16), device="meta")
+    compiled = lowering.lower(lambda a, b: a @ b, x, w).compile()
+    assert an.cost_terms(compiled) == {"flops": 2.0 * 64 * 32 * 16,
+                                       "bytes": 4.0 * (64 * 32 + 32 * 16 + 64 * 16)}
+
+    class Stub:
+        def __init__(self, ca):
+            self.ca = ca
+
+        def cost_analysis(self):
+            return self.ca
+
+    for ca in ({"flops": 7.0, "bytes accessed": 3.0}, [{"flops": 7.0, "bytes accessed": 3.0}],
+               ({"flops": 5.0},), {}):
+        assert an.cost_terms(Stub(ca)) == ref_an.cost_terms(Stub(ca))
 
 
 def test_the_package_exports_the_terms_beside_the_hardware():
