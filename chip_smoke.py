@@ -27,7 +27,13 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    (batch 2, prompt 512, 32 heads over 8, window 4096) and decode (its
    520-slot ring), at musicgen-medium's prefill and decode (24 heads over
    24 KV heads, head_dim 64) and at qwen2-vl-72b's training forward (1152
-   positions, 64 heads over 8, head_dim 128); the attention kernels also at the
+   positions, 64 heads over 8, head_dim 128); both at qwen3-moe-235b-a22b's
+   64 heads over 4 (16 a KV head, the top of both contracts: flash's
+   prefill at batch 2 and 1, and at 300 positions with a q_offset of 20;
+   decode over its 520 slots at lengths (520, 517) and (1, 0)) and at the
+   dense configs' one-request prefill and decode, head_dim 128: olmo-1b's
+   16 over 16, minitron-4b's 24 over 8, internlm2-20b's 48 over 8; the
+   attention kernels also at the
    hybrid's head_dim 256 with 10 query heads over 1 KV head, on scores
    peaked enough that a missing key block or a window off by one fails
    (decode there at atol 2e-3), decode also at every edge of its key
@@ -48,8 +54,8 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    request per group, the device retaining less than the 89,128,960-byte
    cache; (c) the unpaged pinned-host round trip, tokens bitwise (a)'s, one
    H2D and one D2H request per cache leaf a step; (d) 8 requests on 4
-   slots sharing a 256-token prefix at pinned host, gen 16 (32 until phase
-   8c), with and without
+   slots sharing a 256-token prefix at pinned host, gen 8 (32 until phase
+   8c, 16 until 2q and 2d), with and without
    copy-on-write sharing: the same tokens, shared hits, fewer H2D bytes;
    (e) the load generator's bursty trace (prompts 128/256/512, outputs
    4/8/16, a 64-token shared prefix, steady phases of 1 s; 8/16/32 and 4 s
@@ -65,11 +71,11 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    bytes a pass): tokens bitwise phase 2's, the same flash and decode
    launches, one H2D request and the plan's bytes per fetched group,
    streamed plus cached bytes within the budget, ``max_memory_allocated``
-   logged beside phase 2's; (b) the same at disk, gen 8; (c) the paged
+   logged beside phase 2's; (b) the same at disk, gen 4 (8 until 2q and 2d); (c) the paged
    session at pinned-host pages and weights under 176 MB (the hot window's
    cut first): tokens bitwise, the schedule verified; (d) no budget, then
-   ``param_cache_mb=0``, gen 8: 0 and all groups fetched each decode step;
-   (e) (a) under the hazard sanitizer, gen 8 (32 until phase 8c), bitwise,
+   ``param_cache_mb=0``, gen 4: 0 and all groups fetched each decode step;
+   (e) (a) under the hazard sanitizer, gen 4 (32 until phase 8c, 8 until 2q and 2d), bitwise,
    and a 100 MB budget (under
    the distance-1 floor) refused before any thread exists;
 2m. serve full-width mixtral-8x7b (d_model 4096, 32 heads over 8, head_dim
@@ -83,10 +89,11 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    attention path's, the routing decisions that differ counted; (b) the same
    4 layers with ``expert_stream=True`` at pinned host under 9,000 MB (above
    the plan's distance-1 floor of three MoE units, 8,707,620,864 bytes),
-   routed, at distance 0 and 1 (``param_cache_mb=0``) and ``auto`` (the
-   default cache, too small for an expert group); (c) all experts
-   (``route_experts=False``), auto, gen 4 (8 until phase 8c); (d) disk,
-   routed, gen 4, spilled under
+   routed, at distance 1 (``param_cache_mb=0``) and ``auto`` (the default
+   cache, too small for an expert group; distance 0 too until phases 2q and
+   2d took its time); (c) all experts (``route_experts=False``), auto, gen
+   2 (8 until phase 8c, 4 until 2q and 2d); (d) disk, routed, gen 2 (4
+   until 2q and 2d), spilled under
    ``build/spill-moe/`` (deleted after); (e) 4 layers (12.1 GB; all 32,
    93.41 GB, more than the card, ran here until phases 2x, 6x and 6m took
    their time, 16 until 2a, 6a and 6v, 8 until 8c), routed, gen 4, at
@@ -104,6 +111,36 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    ``param_cache_mb=0`` every pipeline request and byte the plan's; streamed
    plus cached bytes within the analyzer's peak and the budget; routed
    expert bytes a layer a decode step at most half (c)'s, (e) too;
+2q. serve full-width qwen3-moe-235b-a22b (d_model 4096, 64 heads over 4,
+   head_dim 128, qk-norm, 128 experts of d_ff 1536 top-8, vocab 151,936,
+   untied; random weights from seed 0) cut to 4 of its 94 layers (11.2 B
+   parameters, 22.4 GB) through ``serve`` with ``attn_impl="pallas"`` at
+   2m's batch 2, prompt 512 and gen 8, unpaged, the launch counts zeroed
+   just before and read just after each run and the decode routing
+   recorded: (a) on the card, the weights built group by group there
+   (``init_params``; the init's peak allocation under the weights plus
+   twice the larger f32 unit, a layer or the shell), flash and decode
+   launched, its peak allocation against the weights', its prefill logits
+   and first decode step within 5e-2 of the plain attention path's with
+   the plain path's routing held (the free-routing difference and the
+   routing flips logged beside: among 128 experts top-8 a flipped near tie
+   swaps an expert); (b) the experts routed from a pinned-host home built
+   group by group (``init_weight_streamed_params``, refused unless
+   MemAvailable holds it with 3 GB to spare) under the plan's distance-1
+   floor rounded up to 10 MB, so the cache is smaller than one 37.7 MB
+   expert group, the schedule verified first; distance auto, 4 decode
+   steps: tokens bitwise (a)'s, every request and byte the plan's and the
+   routing's (2m's count check), at most 16 experts (top-8 x batch 2),
+   0.125 of the plan's all-expert bytes, a layer a decode step;
+2d. serve full-width olmo-1b (16 layers, d_model 2048, 16 heads over 16),
+   minitron-4b (32 layers, d_model 3072, 24 over 8, vocab 256,000, untied)
+   and internlm2-20b (48 layers, d_model 6144, 48 over 8; 19.86 B
+   parameters, 39.7 GB), all at head_dim 128 and full depth, one after
+   another, each built group by group on the card (its init's peak held as
+   2q's) and freed before the next: phase 2's batch, prompt and gen,
+   unpaged device caches, flash and decode launched, a ``roofline`` line;
+   then its tokens checked and the kernel path's logits held to the plain
+   path's at 2 layers (phase 3's check);
 3. check the output: shapes, token range, finite logits, and the kernel
    path's logits against the plain path's (``attn_impl="xla"``) on the same
    full-width model and prompt;
@@ -115,7 +152,8 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
 3b. check its output as in phase 3, on one 3072-token prompt;
 2x. serve full-width xlstm-1.3b (48 layers: 6 periods of 7 mLSTM and an
    sLSTM; d_model 2048, 4 heads of 512, vocab 50,304, tied; 1,741,275,472
-   parameters, bf16, random weights from seed 0) in lock-step through
+   parameters, bf16, random weights from seed 0) cut to 24 layers, 3
+   periods (all 48 until phases 2q and 2d took the time), in lock-step through
    ``serve``: batch 4, prompt 512 (4 chunks of 128), gen 32, twice, the
    launch counts zeroed just before and read just after each (no
    hand-written kernel is on this path, as none is in the JAX package's):
@@ -134,10 +172,12 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    before and read just after: (a) unpaged, device caches, the baseline,
    its prefill logits (1, 4, 1, 2048) and first decode step within 5e-2
    of the plain attention path's and its first token that prefill's; (b)
-   the paged session at device, pinned-host and disk pages (gen 4; 32
-   until phase 8c), tokens bitwise (a)'s, one H2D request a fetched page
-   group; (c) the weights homed at
-   pinned host (gen 8; 32 until phase 8c's (e)-(g)), then disk (gen 4),
+   the paged session at device, pinned-host and disk pages (the pinned
+   run's gen 8, 32 until 2q and 2d; the disk run's gen 2: 32 until phase
+   8c, 4 until 2q and 2d), tokens bitwise (a)'s, one
+   H2D request a fetched page group; (c) the weights homed at
+   pinned host (gen 8; 32 until phase 8c's (e)-(g)), then disk (gen 2; 4
+   until 2q and 2d),
    streamed one pass a prefill or step
    under the one-layer plan's distance-1 floor rounded up to 100 MB with
    the residency cache off: tokens bitwise (a)'s, every request and byte
@@ -159,7 +199,8 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    same function (``scaled_dot_product_attention``, ``torch.matmul``:
    yardsticks the port never calls; no single PyTorch call computes a
    linear recurrence) with CUDA events, L2 flushed before every launch, at
-   the serving paths' shapes (mixtral's from phase 2m (a)) and
+   the serving paths' shapes (mixtral's from phase 2m (a), qwen3-moe's from
+   2q (a), internlm2-20b's from 2d) and
    ``streamed_matmul`` on both routes (the
    MLP in bf16, the sweep's 512³ in f32), beside the least time the card
    could take (bytes at 3.35 TB/s; FLOPs at 989 TFLOP/s bf16 on the tensor
@@ -170,8 +211,8 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
 
 6. train full-width smollm-360m (361,821,120 parameters, bf16, random
    weights from seed 0, ``attn_impl="xla"``, ``remat="full"``, loss chunks of
-   512; batch 8, sequence 1024, AdamW with peak lr 1e-3, 2 warmup steps, 8
-   total) through the launcher's ``build_trainer``: (a)'s first run and
+   512; batch 8, sequence 1024, AdamW with peak lr 1e-3, 2 warmup steps, 6
+   total, 8 until phases 2q and 2d) through the launcher's ``build_trainer``: (a)'s first run and
    (e) through its driver's ``run()`` (checkpoints included), the others
    through the same trainer's state, loader and step: (a) the AdamW state
    on the card, 8 steps, twice from the same init (finite losses, the
@@ -214,7 +255,7 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    layer a group (34 groups), from the group-wise init (no whole model on
    the card), the schedule analyzed first: (a) the device home, 2 steps,
    its step-0 loss within 2e-2 of phase 6 (a)'s; (b) pinned host, 1 step
-   each at distance 0 and 1 and 2 at ``auto``; (c) disk (``wp/`` and ``wopt/``
+   at distance 1 (and 0 until phases 2q and 2d) and 2 at ``auto``; (c) disk (``wp/`` and ``wopt/``
    chunks, fsync'd), 1 step.  Every home's losses, parameters and moments
    bitwise (a)'s; each step's H2D, D2H and disk requests and bytes, of the
    weight passes and of the optimizer pass, the plan's; the peak streamed
@@ -225,8 +266,10 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    walls, wait, drain, bytes each way and ``max_memory_allocated`` (beside
    phase 6 (a)'s) logged with the card's name and power limit.  No
    hand-written kernel runs here, as in phase 6.
-6x. train full-width xlstm-1.3b at phase 6's batch, sequence and AdamW
-   settings: (a) the state on the card, 3 steps through ``build_trainer``,
+6x. train full-width xlstm-1.3b at phase 6's batch and AdamW settings, at
+   sequence 512 (phase 6's 1024 until phases 2q and 2d took the time; the
+   loss still falls within 3 steps): (a) the state on the card, 3 steps
+   through ``build_trainer``,
    finite and falling losses, the step wall, tokens/s, model FLOP/s and
    ``max_memory_allocated`` (one profiled step and the sLSTM loop's part of
    it are :func:`phase_xlstm_profile`'s, which ``main`` skips: profiling
@@ -336,7 +379,7 @@ machine with a CUDA card and ``nvcc``.  Phases, each fatal on failure:
    steady-wait collapse of at least 2x, bitwise equal to eager sharded
    placement).
 
-Every full-width step wall of phases 2, 2b, 2m (a), 2x, 2a (prefill a
+Every full-width step wall of phases 2, 2b, 2m (a), 2q (a), 2d, 2x, 2a (prefill a
 request, or the lock-step batch, and the mean decode step), 6 (a), 6x (a),
 6a (a) (the median train step) and 6v (a) (the kernel path's ``lm_loss``,
 no gradients) is read against the JAX package's analytic roofline on the
@@ -400,8 +443,9 @@ BATCH, PROMPT, GEN, SEED = 4, 512, 32, 0
 # phase 2p: the JAX package's default page length, one hot page; 8 requests
 # sharing a 256-token prefix; the load generator's trace
 PAGE_LEN, HOT_PAGES, SHARED_PREFIX = 32, 1, 256
-#: (d)'s generation (the session's 32 until phase 8c needed the time)
-SHARED_GEN = 16
+#: (d)'s generation (the session's 32 until phase 8c needed the time, 16
+#: until phases 2q and 2d did)
+SHARED_GEN = 8
 #: (e)'s trace: its output lengths the load generator's defaults, its phases
 #: (seconds, requests a second) steady, burst, steady ((8, 16, 32) and steady
 #: phases of 4 s until phase 8c needed the time, 2 s until its (e)-(g) did:
@@ -411,14 +455,16 @@ LG_PHASES = ((1.0, 2.0), (1.0, 8.0), (1.0, 2.0))
 # phase 2w: the weights streamed under 160 MB (34 groups, 818,014,080 bytes a
 # pass: the tied head re-reads the embedding); the paged session's 176 MB
 # leaves the same ~160 MB once the hot window (15.7 MB) is cut; a budget under
-# the distance-1 floor; the disk and residency runs' shorter generation
+# the distance-1 floor; the disk, residency and sanitized runs' shorter
+# generation (8 until phases 2q and 2d needed the time)
 W_BUDGET_MB, W_PAGED_BUDGET_MB, W_FLOOR_MB = 160, 176, 100
-W_GROUPS, W_PASS_BYTES, W_SHORT_GEN = 34, 818_014_080, 8
+W_GROUPS, W_PASS_BYTES, W_SHORT_GEN = 34, 818_014_080, 4
 # phase 2m: full-width mixtral-8x7b, cut to 4 layers for the runs that have a
 # device-resident twin; the budget above the expert plan's distance-1 floor
 # (three MoE units, 8,707,620,864 bytes) with a residency cache (292 MB) that
-# holds no expert group (352,321,536 bytes); the disk run's and the whole
-# model's shorter generation; the deep run's depth (4 of 32 layers, drawn
+# holds no expert group (352,321,536 bytes); the all-expert and disk runs'
+# and the whole model's shorter generation (the first two's 4 until phases
+# 2q and 2d needed the time); the deep run's depth (4 of 32 layers, drawn
 # and homed apart from (a)'s: the whole model's 93.4 GB ran until phases 2x,
 # 6x and 6m needed the time, 16 layers until phases 2a, 6a and 6v did, 8
 # until phase 8c did) and
@@ -427,8 +473,19 @@ W_GROUPS, W_PASS_BYTES, W_SHORT_GEN = 34, 818_014_080, 8
 # until phase 8c needed the time: the ring and the kernels' decode shape are
 # prompt + gen, 520 slots)
 MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 2, 512, 8
-MOE_BUDGET_MB, MOE_DISK_GEN, MOE_FULL_GEN = 9000, 4, 4
+MOE_BUDGET_MB, MOE_DISK_GEN, MOE_FULL_GEN = 9000, 2, 4
 MOE_FULL_LAYERS, MOE_HOST_MARGIN = 4, 3_000_000_000
+# phase 2q: full-width qwen3-moe-235b-a22b (64 heads over 4, 128 experts of
+# d_ff 1536 top-8, qk-norm) cut to 4 of its 94 layers, served at 2m's batch,
+# prompt and gen; (b) routes the experts from a pinned-host home under the
+# plan's distance-1 floor rounded up to 10 MB (so the residency cache stays
+# smaller than one 37.7 MB expert group), 4 decode steps, where a layer's
+# routed step may fetch at most top-8 x batch 2 = 16 of its 128 experts
+Q_ARCH, Q_LAYERS, Q_STREAM_GEN, Q_BUDGET_ROUND, Q_EXPERT_SHARE = (
+    "qwen3-moe-235b-a22b", 4, 5, 10_000_000, 0.125)
+# phase 2d: the dense configs served at full width and depth, each one's
+# kernel-vs-plain logit check at 2 layers
+DENSE_ARCHS, DENSE_CHECK_LAYERS = ("olmo-1b", "minitron-4b", "internlm2-20b"), 2
 # the recurrentgemma-2b cell: a prompt longer than the 2048-token window
 HYB_PROMPT = 3072
 # phase 2x: full-width xlstm-1.3b served (a prompt of 4 mLSTM chunks); phase
@@ -438,15 +495,23 @@ HYB_PROMPT = 3072
 # steps a home before then; at 2 periods the budget of its floor would hold
 # the whole model)
 XL_BATCH, XL_PROMPT, XL_GEN, XL_PARAMS = 4, 512, 32, 1_741_275_472
+#: phase 2x's depth: 3 of the 6 periods (all 48 layers until phases 2q and
+#: 2d needed the time; its prefill, decode and profiled steps are host-bound,
+#: so its time follows the layer count)
+XL_SERVE_LAYERS = 24
 XL_TRAIN_STEPS, XL_W_LAYERS, XL_W_STEPS = 3, 24, 1
+#: 6x's sequence (phase 6's 1024 until phases 2q and 2d needed the time: its
+#: steps are host-bound on the sLSTM loop, one pass of it a position)
+XL_SEQ = 512
 # phase 2a: full-width musicgen-medium served at phase 2's batch, prompt and
 # gen (the disk-homed weights' run at a shorter gen); phase 6a: trained at
 # phase 6's batch and sequence, AdamW on the card for 4 steps, then the
 # streamed-weight step 1 step a home (2 until phase 8c needed the time), cut
 # to 12 of its 48 layers (24 until phase 8c needed the time); the disk-homed
-# pages' and weights' runs at a shorter gen, and the pinned-host weights' run
-# too (phase 2's 32 until phase 8c's (e)-(g) needed the time)
-AU_DISK_GEN, AU_TRAIN_STEPS, AU_W_LAYERS, AU_W_STEPS = 4, 4, 12, 1
+# pages' and weights' runs at a shorter gen (4 until phases 2q and 2d needed
+# the time), and the pinned-host weights' and pages' runs too (phase 2's 32
+# until phase 8c's (e)-(g) needed the time; the pages' until 2q and 2d did)
+AU_DISK_GEN, AU_TRAIN_STEPS, AU_W_LAYERS, AU_W_STEPS = 2, 4, 12, 1
 AU_W_GEN = 8
 # phase 6v: full-width qwen2-vl-72b cut to 2 layers for the no-gradient
 # forward and to 1 for the streamed-weight step (whose home, 14 B a
@@ -462,8 +527,9 @@ MT_LAYERS, MT_BATCH, MT_SEQ, MT_STEPS = 1, 2, 512, 1
 # phase 6: full-width smollm-360m training at the JAX package's train defaults
 # (remat "full", loss chunks of 512 positions), its AdamW settings; the
 # streamed optimizer's groups; the DISK_OPT host budget and its steps; the
-# failure the driver recovers from
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PARAMS = 8, 1024, 8, 361_821_120
+# failure the driver recovers from.  6 steps a run (8 until phases 2q and 2d
+# needed the time)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PARAMS = 8, 1024, 6, 361_821_120
 TRAIN_OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
 TRAIN_GROUPS, TRAIN_STATE_BYTES = 4, 4_341_853_440  # 12 bytes a parameter
 # (d) takes one step: its fsync'd disk writes cost ~10-15 s a step, and
@@ -474,8 +540,11 @@ DRYRUN_PEAK_BAND = 0.15
 TRAIN_FAIL_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 4, 3, 2
 # phase 6w: phase 6's model and batches through the streamed-weight train step
 # under 160 MB, one layer a group (34 groups); the steps of each run (the disk
-# run's fsync'd writeback of ~5.8 GB costs ~10-20 s a step, so it takes one)
+# run's fsync'd writeback of ~5.8 GB costs ~10-20 s a step, so it takes one);
+# the pinned-host runs' distances (0 too until phases 2q and 2d needed the
+# time)
 W_TRAIN_BUDGET_MB, W_TRAIN_GROUPS, W_TRAIN_STEPS, W_TRAIN_DISK_STEPS = 160, 34, 2, 1
+W_TRAIN_DISTANCES = (1, "auto")
 # phase 8c: its gen and train steps; it reads what phases 2p and 6w wrote: the tokens and launches of the
 # pinned-host paged run, and 6w's first loss and step-0 request counts
 P2_RESULT = ROOT / "build" / "phase-2p.json"
@@ -591,6 +660,7 @@ def decode_inputs(b, t, n, kh, h, lens, seed=2, qk=0.5):
 
 
 def phase_kernels(cfg, hcfg) -> dict:
+    from repro_torch.configs import get_config
     from repro_torch.core.refspec import PrefetchSpec
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
@@ -598,54 +668,67 @@ def phase_kernels(cfg, hcfg) -> dict:
     n, kh, h = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     log("phase 1 kernels vs plain versions on the card")
     errs = {}
-    # the serving path's shapes first, then edges of the wrappers' contract
+    # the serving path's shapes first, then edges of the wrappers' contract;
+    # a named case's error goes to phase 5's row of that cell
+    qc = get_config(Q_ARCH)
+    qn, qk_ = qc.n_heads, qc.n_kv_heads
+    dn = {a: (get_config(a).n_heads, get_config(a).n_kv_heads) for a in DENSE_ARCHS}
     flash_cases = [
-        (1, PROMPT, PROMPT, n, kh, h, 0, 0),
-        (2, 100, 100, 4, 4, 64, 0, 0),
-        (1, 256, 256, 4, 2, 64, 64, 0),
-        (2, 64, 192, 4, 2, 64, 0, 128),
-        (1, 128, 128, 4, 2, 128, 0, 0),
-        (1, 300, 300, 8, 8, 128, 100, 0),
-        (2, 300, 300, 8, 1, 128, 100, 20),
+        ("flash_attention", (1, PROMPT, PROMPT, n, kh, h, 0, 0)),
+        (None, (2, 100, 100, 4, 4, 64, 0, 0)),
+        (None, (1, 256, 256, 4, 2, 64, 64, 0)),
+        (None, (2, 64, 192, 4, 2, 64, 0, 128)),
+        (None, (1, 128, 128, 4, 2, 128, 0, 0)),
+        (None, (1, 300, 300, 8, 8, 128, 100, 0)),
+        (None, (2, 300, 300, 8, 1, 128, 100, 20)),
         # mixtral-8x7b's prefill: head_dim 128, 4 query heads a KV head, window 4096
-        (MOE_BATCH, MOE_PROMPT, MOE_PROMPT, 32, 8, 128, 4096, 0),
+        ("flash_attention_moe", (MOE_BATCH, MOE_PROMPT, MOE_PROMPT, 32, 8, 128, 4096, 0)),
         # musicgen-medium's prefill (one request): 24 heads over 24 KV heads, head_dim 64
-        (1, PROMPT, PROMPT, 24, 24, 64, 0, 0),
+        ("flash_attention_audio", (1, PROMPT, PROMPT, 24, 24, 64, 0, 0)),
         # qwen2-vl-72b's training forward: 1024 text + 128 vision positions, 64 over 8
-        (VL_BATCH, VL_TEXT + VL_TEXT // 8, VL_TEXT + VL_TEXT // 8, 64, 8, 128, 0, 0),
-    ]
-    flash_named = {0: "flash_attention", len(flash_cases) - 3: "flash_attention_moe",
-                   len(flash_cases) - 2: "flash_attention_audio",
-                   len(flash_cases) - 1: "flash_attention_vlm"}
-    for i, (b, s, t, nn, kk, hh, window, qo) in enumerate(flash_cases):
+        ("flash_attention_vlm", (VL_BATCH, VL_TEXT + VL_TEXT // 8, VL_TEXT + VL_TEXT // 8, 64, 8,
+                                 128, 0, 0)),
+        # qwen3-moe-235b-a22b's prefill, 64 heads over 4 (G 16, the top of
+        # both kernels' contracts: a warpgroup's 64 rows hold 4 queries):
+        # both requests in one call, one request (the path's), a q_offset
+        (None, (MOE_BATCH, MOE_PROMPT, MOE_PROMPT, qn, qk_, 128, 0, 0)),
+        ("flash_attention_qwen3", (1, MOE_PROMPT, MOE_PROMPT, qn, qk_, 128, 0, 0)),
+        (None, (1, 300, 300, qn, qk_, 128, 0, 20)),
+    ] + [  # phase 2d's prefills (one request): G 1, 6 and 3 at head_dim 128
+        (f"flash_attention_{a}", (1, PROMPT, PROMPT, nn, kk, 128, 0, 0))
+        for a, (nn, kk) in dn.items()]
+    for name, (b, s, t, nn, kk, hh, window, qo) in flash_cases:
         q, k, v = flash_inputs(b, s, t, nn, kk, hh)
         out = flash_attention(q, k, v, window=window, q_offset=qo)
         ref = attention_ref(q, k, v, window=window, q_offset=qo)
         err = check_close(f"flash_attention B={b} S={s} T={t} N={nn} KH={kk} H={hh} "
                           f"window={window} q_offset={qo}", out, ref)
-        if i in flash_named:
-            errs[flash_named[i]] = err
+        if name:
+            errs[name] = err
     t = PROMPT + GEN
-    tm = MOE_PROMPT + MOE_GEN  # mixtral's ring: min(window, context) slots
+    tm = MOE_PROMPT + MOE_GEN  # mixtral's ring: min(window, context) slots; qwen3's cache
     decode_cases = [
-        (BATCH, t, n, kh, h, [t, 300, 77, 1]),
-        (2, 1024, 8, 2, 64, [1, 777]),
-        (1, 300, 4, 1, 128, [300]),
-        (2, 256, 10, 5, 64, [0, 129]),
-        (MOE_BATCH, tm, 32, 8, 128, [tm, tm - 3]),
+        ("decode_attention", (BATCH, t, n, kh, h, [t, 300, 77, 1])),
+        (None, (2, 1024, 8, 2, 64, [1, 777])),
+        (None, (1, 300, 4, 1, 128, [300])),
+        (None, (2, 256, 10, 5, 64, [0, 129])),
+        ("decode_attention_moe", (MOE_BATCH, tm, 32, 8, 128, [tm, tm - 3])),
         # musicgen-medium's decode: 24 heads over 24 KV heads, head_dim 64
-        (BATCH, t, 24, 24, 64, [t, t - 1, 300, 1]),
-    ]
-    decode_named = {len(decode_cases) - 2: "decode_attention_moe",
-                    len(decode_cases) - 1: "decode_attention_audio"}
-    for i, (b, tt, nn, kk, hh, lens) in enumerate(decode_cases):
+        ("decode_attention_audio", (BATCH, t, 24, 24, 64, [t, t - 1, 300, 1])),
+        # qwen3-moe-235b-a22b's decode, G 16: the mma A tile's 16 rows all
+        # heads, no padding row; then a row of one key beside an empty one
+        ("decode_attention_qwen3", (MOE_BATCH, tm, qn, qk_, 128, [tm, tm - 3])),
+        (None, (MOE_BATCH, tm, qn, qk_, 128, [1, 0])),
+    ] + [  # phase 2d's decode: G 1, 6 and 3 at head_dim 128
+        (f"decode_attention_{a}", (BATCH, t, nn, kk, 128, [t, t - 1, 300, 1]))
+        for a, (nn, kk) in dn.items()]
+    for i, (name, (b, tt, nn, kk, hh, lens)) in enumerate(decode_cases):
         q, k, v, lengths = decode_inputs(b, tt, nn, kk, hh, lens)
         out = decode_attention(q, k, v, lengths)
         ref = decode_attention_ref(q, k, v, lengths)
         err = check_close(f"decode_attention B={b} T={tt} N={nn} KH={kk} H={hh} lengths={lens}",
                           out, ref)
         if i == 0:
-            errs["decode_attention"] = err
             specs = [PrefetchSpec(1, 1, 0), PrefetchSpec(2, 1, 1), PrefetchSpec(4, 1, 3)]
             outs = [decode_attention(q, k, v, lengths, spec=sp) for sp in specs]
             same = all(torch.equal(outs[0], o) for o in outs[1:])
@@ -653,8 +736,8 @@ def phase_kernels(cfg, hcfg) -> dict:
                 f" (buffer_size, distance): {same}")
             if not same:
                 raise SystemExit("decode_attention: value depends on the PrefetchSpec")
-        if i in decode_named:
-            errs[decode_named[i]] = err
+        if name:
+            errs[name] = err
     errs.update(check_attention_256(hcfg))
     errs.update(check_rglru_scan(hcfg))
     errs.update(check_streamed_matmul(cfg))
@@ -931,32 +1014,33 @@ def serve_rooflines(phase: str, cfg, res: dict, prompt: int, smi: str) -> None:
 
 
 def phase_serve(cfg, prompt: int, phase: str, expect: tuple, smi: str,
-                params=None) -> tuple[dict, dict]:
+                params=None, device: str = "cuda") -> tuple[dict, dict]:
     """Serve ``cfg`` through the entry point (with ``params``, or weights
     from ``SEED``); every serving kernel's count is zeroed just before and
-    read just after, and each of ``expect`` must have launched."""
+    read just after, and each of ``expect`` must have launched (on the
+    card: the plain versions on the CPU count none)."""
     from repro_torch.launch.serve import serve
 
     log(f"phase {phase} serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, "
         f"{cfg.dtype}, attn_impl={cfg.attn_impl}; batch {BATCH}, prompt {prompt}, gen {GEN}")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(device)
     wrappers = serving_kernels()
     for w in wrappers.values():
         w.launches = 0
     res = serve(cfg, batch=BATCH, prompt_len=prompt, gen=GEN, kv_kind="device",
-                kv_page_len=0, seed=SEED, params=params)
+                kv_page_len=0, seed=SEED, params=params, device=device)
     launches = {name: w.launches for name, w in wrappers.items()}
-    peak = res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    peak = res["max_memory_allocated"] = peak_allocated(device)
     log(f"  prefill {res['prefill_s'] * 1e3:.3f} ms for {BATCH} requests "
         f"({res['prefill_s'] * 1e3 / BATCH:.3f} ms each), decode {res['decode_s'] * 1e3:.3f} ms "
         f"for {res['n_steps']} steps = {res['tokens_per_s']:.1f} tok/s, "
         f"peak allocated {peak / 2**20:.1f} MiB")
     log(f"  launches during serve: {launches}")
-    if min(launches[k] for k in expect) <= 0:
-        raise SystemExit(f"a kernel of the path was not launched: {launches}")
-    serve_rooflines(phase, cfg, res, prompt, smi)
+    if device == "cuda":
+        if min(launches[k] for k in expect) <= 0:
+            raise SystemExit(f"a kernel of the path was not launched: {launches}")
+        serve_rooflines(phase, cfg, res, prompt, smi)
     return res, launches
 
 
@@ -1327,11 +1411,19 @@ class RouteLog:
         moe.decode_route = self._orig
 
 
-def moe_logit_check(cfg, params, prompts: torch.Tensor, device: str) -> None:
+def moe_logit_check(cfg, params, prompts: torch.Tensor, device: str, phase: str = "2m",
+                    hold_routing: bool = False) -> None:
     """(a)'s prefill logits and first decode step, kernel path against the
-    plain path on the same 4 layers, within LOGIT_RTOL of the largest logit;
+    plain path on the same layers, within LOGIT_RTOL of the largest logit;
     the routing decisions that differ between the two are counted (bf16
-    attention differences can flip a near tie in a later layer)."""
+    attention differences can flip a near tie in a later layer).
+
+    With ``hold_routing`` the gate reads a third run: the kernel path with
+    every router call's choices and weights replaced by the plain path's,
+    so both run the same experts and differ by the attention's rounding
+    alone.  Among 128 experts top-8 a flipped near tie swaps a whole expert
+    of a token's FFN, and the free-routing difference (logged beside) then
+    measures the flips more than the kernels."""
     from repro_torch.launch.serve import step_pos
     from repro_torch.models import moe
     from repro_torch.train import steps as st
@@ -1340,38 +1432,50 @@ def moe_logit_check(cfg, params, prompts: torch.Tensor, device: str) -> None:
     out, routes = {}, {}
     orig = moe._router
     nxt = None
-    for impl in ("pallas", "xla"):
+    runs = [("pallas", False), ("xla", False)] + ([("pallas", True)] if hold_routing else [])
+    for impl, held in runs:
         c = dataclasses.replace(cfg, attn_impl=impl)
-        tops = routes[impl] = []
+        calls = routes[impl, held] = []
+        replay = iter(routes["xla", False]) if held else None
 
-        def router(cfg_, p, x):
+        def router(cfg_, p, x, calls=calls, replay=replay):
             r = orig(cfg_, p, x)
-            tops.append(r[1])
+            if replay is not None:
+                r = next(replay) + r[2:]
+            calls.append(r[:2])
             return r
 
         moe._router = router
         try:
             logits, caches = st.make_prefill_step(c, b, s + 2)(params, {"tokens": prompts})
             if nxt is None:
-                nxt = logits[:, -1].argmax(-1)  # both paths decode the same token
+                nxt = logits[:, -1].argmax(-1)  # every run decodes the same token
             logits2, _ = st.make_decode_step(c)(params, caches, {"tokens": nxt[:, None]},
                                                 step_pos(c, b, s, device))
         finally:
             moe._router = orig
-        out[impl] = (logits.float(), logits2.float())
+        out[impl, held] = (logits.float(), logits2.float())
         del caches
-    flips = sum(int((a != b_).sum()) for a, b_ in zip(routes["pallas"], routes["xla"]))
-    total = sum(a.numel() for a in routes["pallas"])
+    free, ref = routes["pallas", False], routes["xla", False]
+    flips = sum(int((a[1] != b_[1]).sum()) for a, b_ in zip(free, ref))
+    total = sum(a[1].numel() for a in free)
+    gated = runs[-1]
     for i, step in enumerate(("prefill", "decode")):
-        a, ref = out["pallas"][i], out["xla"][i]
-        if not (torch.isfinite(a).all() and torch.isfinite(ref).all()):
-            raise SystemExit(f"2m {step} logits are not finite")
-        rel = max_err(a, ref) / ref.abs().max().item()
-        same = bool((a.argmax(-1) == ref.argmax(-1)).all())
-        log(f"  (a) {step} logits, kernel path vs plain path: max |diff| / max |logit| = "
-            f"{rel:.3e} (limit {LOGIT_RTOL}), same greedy token: {same}")
-        if rel > LOGIT_RTOL:
-            raise SystemExit(f"2m {step} logits of the kernel path disagree with the plain path")
+        r = out["xla", False][i]
+        rels = {}
+        for run in (("pallas", False), gated):
+            a = out[run][i]
+            if not (torch.isfinite(a).all() and torch.isfinite(r).all()):
+                raise SystemExit(f"{phase} {step} logits are not finite")
+            rels[run] = max_err(a, r) / r.abs().max().item()
+        a = out[gated][i]
+        same = bool((a.argmax(-1) == r.argmax(-1)).all())
+        held = (f" with the plain path's routing held (free routing: "
+                f"{rels['pallas', False]:.3e})" if hold_routing else "")
+        log(f"  (a) {step} logits, kernel path vs plain path{held}: max |diff| / max |logit| = "
+            f"{rels[gated]:.3e} (limit {LOGIT_RTOL}), same greedy token: {same}")
+        if rels[gated] > LOGIT_RTOL:
+            raise SystemExit(f"{phase} {step} logits of the kernel path disagree with the plain path")
     log(f"  (a) routing decisions that differ between the paths: {flips} of {total}")
 
 
@@ -1423,7 +1527,7 @@ def moe_run(cfg, params, name: str, smi: str, *, gen: int, expect=None, device: 
              f"{res['launches']} ({time.perf_counter() - t0:.1f} s; {smi})")
     log(line)
     if expect is not None and not np.array_equal(res["generated"], expect):
-        raise SystemExit(f"2m {name}: tokens differ from the run they must equal bitwise")
+        raise SystemExit(f"{name}: tokens differ from the run they must equal bitwise")
     return res
 
 
@@ -1435,10 +1539,15 @@ def check_moe_counts(name: str, res: dict, budget_bytes: int, *, disk: bool = Fa
     expert group bytes (an expert group is larger than the cache, so never
     resident); with ``cached=False`` (``param_cache_mb=0``) the pipeline's
     groups and bytes the plan's closed form too; streamed plus cached bytes
-    within the budget and the analyzer's peak."""
+    within the budget and the analyzer's peak.  Prefill streams every group
+    once a prefill call: once for a lock-step batch (mixtral's ring), once a
+    request where requests prefill one at a time (qwen3-moe's pages)."""
+    from repro_torch.launch.serve import lock_step
+
     ps, es, plan = res["param_stats"], res["expert_stats"], res["param_plan"]
     rc = res["param_residency"]
     calls = len(res["routes"]) // plan.n_layers  # decode steps, the warm-up's too
+    prefills = 1 if lock_step(plan.cfg) else res["generated"].shape[0]
     routed = sum(res["routes"])
     per_step = plan.embed_bytes + plan.n_layers * plan.nonexpert_layer_bytes + plan.head_fetch_bytes
     checks = {
@@ -1448,23 +1557,24 @@ def check_moe_counts(name: str, res: dict, budget_bytes: int, *, disk: bool = Fa
         "expert resident hits": (es.cache_hits, 0),
         "pipeline H2D requests": (ps.h2d_requests, ps.unique_group_fetches),
         "pipeline groups": (ps.unique_group_fetches + ps.cache_hits,
-                            plan.n_groups + calls * (plan.n_layers + 2)),
+                            prefills * plan.n_groups + calls * (plan.n_layers + 2)),
     }
     if not cached:
-        checks["pipeline bytes"] = (ps.bytes_h2d, sum(plan.fetch_sequence_bytes()) + calls * per_step)
+        checks["pipeline bytes"] = (ps.bytes_h2d,
+                                    prefills * sum(plan.fetch_sequence_bytes()) + calls * per_step)
         checks["pipeline hits"] = (ps.cache_hits, 0)
     if disk:
         checks["expert disk requests"] = (es.disk_requests, routed)
         checks["pipeline disk requests"] = (ps.disk_requests, ps.unique_group_fetches)
     for what, (got, want) in checks.items():
         if got != want:
-            raise SystemExit(f"2m {name}: {what} {got}, the plan and routing give {want}")
+            raise SystemExit(f"{name}: {what} {got}, the plan and routing give {want}")
     for st_ in (ps, es):
         if st_.per_tier()["h2d"]["requests_per_fetched_device_group"] != 1.0:
-            raise SystemExit(f"2m {name}: not one H2D request a fetched group")
+            raise SystemExit(f"{name}: not one H2D request a fetched group")
     held = ps.peak_inflight_bytes + es.peak_inflight_bytes + rc["peak_resident_bytes"]
     if not held <= res["schedule_peak"] <= budget_bytes:
-        raise SystemExit(f"2m {name}: streamed + cached {held} B, the analyzer's peak "
+        raise SystemExit(f"{name}: streamed + cached {held} B, the analyzer's peak "
                          f"{res['schedule_peak']} B, the budget {budget_bytes} B")
 
 
@@ -1502,6 +1612,36 @@ def moe_home_fits(plan, margin_bytes: int) -> tuple[bool, int]:
     return avail >= plan.total_param_bytes + margin_bytes, avail
 
 
+def expert_plan(phase: str, cfg, budget_mb: float):
+    """``cfg``'s expert-split plan under ``budget_mb``, which must hold the
+    distance-1 floor and leave a residency cache smaller than one expert
+    group (so no expert is ever resident: every routed one is fetched)."""
+    from repro_torch.core.weightstream import WeightStreamPlan
+    from repro_torch.train import steps as st
+
+    plan = WeightStreamPlan(cfg, st.abstract_params(cfg), expert_stream=True,
+                            device_budget_mb=budget_mb)
+    floor = plan.peak_device_bytes(1)
+    log(f"  plan: {plan.n_groups} groups ({plan.per_expert_bytes} B an expert group, "
+        f"{plan.nonexpert_layer_bytes} B a non-expert group), {plan.total_param_bytes} B; "
+        f"budget {int(budget_mb * 1e6)} B over the distance-1 floor {floor} B, distance cap "
+        f"{plan.max_distance_for_budget()}, cache {plan.residency_capacity_bytes()} B")
+    if not floor <= budget_mb * 1e6 or plan.residency_capacity_bytes() >= plan.per_expert_bytes:
+        raise SystemExit(f"{phase}: the budget must hold the distance-1 floor and leave the cache "
+                         "smaller than one expert group")
+    return plan
+
+
+def serve_schedule(plan, fan_in: int):
+    """The analyzer's report of ``plan``'s serve schedule at its budget's
+    distance and cache, ``fan_in`` routed experts a MoE stage."""
+    from repro_torch.core import schedcheck as sc
+
+    return sc.analyze_serve_schedule(plan, distance=plan.max_distance_for_budget(),
+                                     cache_capacity=plan.residency_capacity_bytes(),
+                                     fan_in=fan_in)
+
+
 def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
     """Phase 2m: full-width mixtral-8x7b (or ``full``) served through the MoE
     layers with the experts streamed route-aware from pinned host and disk.
@@ -1509,7 +1649,6 @@ def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
     import shutil
 
     from repro_torch.configs import get_config
-    from repro_torch.core import schedcheck as sc
     from repro_torch.core.refspec import AUTO
     from repro_torch.core.weightstream import WeightStreamPlan
     from repro_torch.launch import serve as sv
@@ -1526,16 +1665,7 @@ def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
         f"{full.moe_top_k}, window {full.window}, {full.dtype}; {total:,} parameters at "
         f"{full.n_layers} layers; batch {MOE_BATCH}, prompt {MOE_PROMPT}, gen {MOE_GEN}; {smi}")
     budget = int(MOE_BUDGET_MB * 1e6)
-    plan = WeightStreamPlan(cfg, st.abstract_params(cfg), expert_stream=True,
-                            device_budget_mb=MOE_BUDGET_MB)
-    floor = plan.peak_device_bytes(1)
-    log(f"  plan: {plan.n_groups} groups ({plan.per_expert_bytes} B an expert group, "
-        f"{plan.nonexpert_layer_bytes} B a non-expert group), {plan.total_param_bytes} B; "
-        f"budget {budget} B over the distance-1 floor {floor} B, distance cap "
-        f"{plan.max_distance_for_budget()}, cache {plan.residency_capacity_bytes()} B")
-    if not floor <= budget or plan.residency_capacity_bytes() >= plan.per_expert_bytes:
-        raise SystemExit("2m: the budget must hold the distance-1 floor and leave the cache "
-                         "smaller than one expert group")
+    plan = expert_plan("2m", cfg, MOE_BUDGET_MB)
 
     # (a) 4 layers on the card: the bitwise baseline
     params = st.init_params(cfg, SEED, device)
@@ -1605,11 +1735,8 @@ def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
                   gen=MOE_FULL_GEN, warmup=False, **stream)
     log(f"  (e) host MemAvailable after the run {mem_available()} B")
     del bhome
-    res["schedule_peak"] = sc.analyze_serve_schedule(
-        bplan, distance=bplan.max_distance_for_budget(),
-        cache_capacity=bplan.residency_capacity_bytes(),
-        fan_in=full.moe_top_k * MOE_BATCH).peak_bytes
-    check_moe_counts("(e)", res, budget)
+    res["schedule_peak"] = serve_schedule(bplan, full.moe_top_k * MOE_BATCH).peak_bytes
+    check_moe_counts("2m (e)", res, budget)
     whole = expert_bytes_per_layer_step(res)  # held to (c)'s below
     gen = res["generated"]
     if gen.shape != (MOE_BATCH, MOE_FULL_GEN) or gen.min() < 0 or gen.max() >= big.vocab_size:
@@ -1619,17 +1746,15 @@ def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
     home = plan.init_home(st.init_params(cfg, SEED, device))  # (a)'s weights, at the host
     reset_peak(device)
 
-    # (b) routed at pinned host, distances 0, 1 (no cache) and auto (the default cache)
-    peak = sc.analyze_serve_schedule(plan, distance=plan.max_distance_for_budget(),
-                                     cache_capacity=plan.residency_capacity_bytes(),
-                                     fan_in=full.moe_top_k * MOE_BATCH).peak_bytes
+    # (b) routed at pinned host, distance 1 (no cache) and auto (the default cache)
+    peak = serve_schedule(plan, full.moe_top_k * MOE_BATCH).peak_bytes
     routed = {}
-    for dist, cache in ((0, 0.0), (1, 0.0), (AUTO, None)):
+    for dist, cache in ((1, 0.0), (AUTO, None)):
         name = f"(b) routed, pinned host, distance {dist}"
         res = moe_run(cfg, home, name, smi, gen=MOE_GEN, expect=want, param_distance=dist,
                       param_cache_mb=cache, **stream)
         res["schedule_peak"] = peak
-        check_moe_counts(name, res, budget, cached=cache is None)
+        check_moe_counts(f"2m {name}", res, budget, cached=cache is None)
         if any(res["launches"][k] != a["launches"][k] for k in ("flash_attention",
                                                                  "decode_attention")):
             raise SystemExit(f"2m {name}: launches {res['launches']} differ from (a)'s")
@@ -1664,7 +1789,7 @@ def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
     finally:
         shutil.rmtree(spill, ignore_errors=True)
     res["schedule_peak"] = peak
-    check_moe_counts("(d)", res, budget, disk=True)
+    check_moe_counts("2m (d)", res, budget, disk=True)
 
     # (f) the paged session at pinned-host pages, the experts routed from the
     # pinned-host home.  A ring cache (mixtral's window) is not pageable; at
@@ -1690,21 +1815,171 @@ def phase_moe(smi: str, device: str = "cuda", full=None) -> dict:
     return a["launches"]
 
 
-def phase_check(cfg, res: dict, prompt: int, phase: str) -> None:
+def tree_bytes(tree) -> int:
+    """Bytes of a tree's tensor leaves (meta tensors too)."""
+    from repro_torch.core import tree as tr
+
+    return sum(x.numel() * x.element_size() for x in tr.leaves(tree))
+
+
+def device_init(phase: str, cfg, device: str):
+    """``init_params(cfg, SEED, device)``, its wall and peak allocation
+    logged beside the weights' bytes.  Built group by group, it holds at
+    most the finished tree and one layer's f32 slice, with one leaf's draw
+    beside it (the f32 shell before the layers): the peak must stay under
+    the weights plus twice the larger f32 unit (a whole f32 draw of
+    internlm2-20b beside its cast, ~119 GB, is more than the card)."""
+    from repro_torch.train import steps as st
+
+    reset_peak(device)
+    t0 = time.perf_counter()
+    params = st.init_params(cfg, SEED, device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    weights = tree_bytes(params.as_dict())
+    blocks = tree_bytes(params.as_dict()["blocks"])
+    f32 = 32 / torch.finfo(cfg.compute_dtype).bits  # an f32 draw's bytes per compute-dtype byte
+    unit = f32 * max(blocks / cfg.n_layers, weights - blocks)
+    peak = peak_allocated(device)
+    log(f"  {phase} group-wise init on {device}: {wall:.1f} s, {weights} B of weights, peak "
+        f"allocated {peak} B ({peak / max(weights, 1):.3f}x the weights; bound {weights + 2 * unit:.0f}"
+        f" B: the weights and twice the larger f32 unit, layer or shell)")
+    if peak > weights + 2 * unit:
+        raise SystemExit(f"{phase}: the group-wise init peaked at {peak} B, above {weights + 2 * unit} B")
+    return params
+
+
+def phase_qwen3(smi: str, device: str = "cuda", full=None) -> dict:
+    """Phase 2q: full-width qwen3-moe-235b-a22b (or ``full``) cut to
+    ``Q_LAYERS`` layers, served through the entry point at 2m's batch,
+    prompt and gen: (a) device-resident, the weights built group by group on
+    the card, both kernels launched at 64 query heads over 4, the logits
+    within LOGIT_RTOL of the plain path's; (b) the experts routed from a
+    pinned-host home built group by group, tokens bitwise (a)'s, at most
+    ``Q_EXPERT_SHARE`` of a layer's expert bytes a decode step.  Returns
+    (a)'s launches (for phase 5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import schedcheck as sc
+    from repro_torch.core.weightstream import WeightStreamPlan
+    from repro_torch.train import steps as st
+
+    t_phase = time.perf_counter()
+    full = dataclasses.replace(full or get_config(Q_ARCH), attn_impl="pallas")
+    cfg = dataclasses.replace(full, n_layers=Q_LAYERS)
+    total, active = full.param_count()
+    log(f"phase 2q serve {full.name}: d_model {full.d_model}, {full.n_heads}/{full.n_kv_heads} "
+        f"heads, head_dim {full.head_dim}, qk_norm {full.qk_norm}, {full.n_experts} experts of "
+        f"d_ff {full.d_ff} top-{full.moe_top_k}, vocab {full.vocab_size}, tied "
+        f"{full.tie_embeddings}, {full.dtype}; {total:,} parameters ({active:,} active) at "
+        f"{full.n_layers} layers, {cfg.n_layers} here; batch {MOE_BATCH}, prompt {MOE_PROMPT}, "
+        f"gen {MOE_GEN}; {smi}")
+
+    # (a) device-resident: the bitwise baseline
+    params = device_init("2q (a)", cfg, device)
+    a = moe_run(cfg, params, "2q (a) device-resident", smi, gen=MOE_GEN, device=device)
+    want = a["generated"]
+    if want.shape != (MOE_BATCH, MOE_GEN) or want.min() < 0 or want.max() >= cfg.vocab_size:
+        raise SystemExit(f"2q (a): generated tokens malformed: {want.shape}")
+    weights = st.abstract_params(cfg)
+    wbytes = tree_bytes(weights)
+    log(f"  2q (a) first request {want[0].tolist()}; peak allocated {a['max_memory_allocated']} B "
+        f"against {wbytes} B of weights ({a['max_memory_allocated'] / wbytes:.3f}x)")
+    if device == "cuda":
+        if min(a["launches"][k] for k in ("flash_attention", "decode_attention")) <= 0:
+            raise SystemExit(f"2q (a): a kernel of the path was not launched: {a['launches']}")
+        serve_rooflines("2q (a)", cfg, a, MOE_PROMPT, smi)
+    prompts = np.random.default_rng(SEED + 1).integers(1, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                                                      dtype=np.int32)  # serve()'s
+    moe_logit_check(cfg, params, torch.from_numpy(prompts).long().to(device), device, phase="2q",
+                    hold_routing=True)
+    del params
+    reset_peak(device)
+
+    # (b) the experts routed from pinned host, under the distance-1 floor
+    # rounded up to Q_BUDGET_ROUND bytes
+    floor = WeightStreamPlan(cfg, weights, expert_stream=True).peak_device_bytes(1)
+    budget_mb = -(-floor // Q_BUDGET_ROUND) * Q_BUDGET_ROUND / 1e6
+    plan = expert_plan("2q", cfg, budget_mb)
+    fan_in = full.moe_top_k * MOE_BATCH
+    report = sc.verify_schedule(serve_schedule(plan, fan_in))
+    log(f"  2q (b) {report}".replace("\n", "\n  "))
+    free_host(device)
+    fits, avail = moe_home_fits(plan, MOE_HOST_MARGIN)
+    log(f"  2q (b) home {plan.total_param_bytes} B, host MemAvailable {avail} B (margin "
+        f"{MOE_HOST_MARGIN} B)")
+    if not fits:
+        raise SystemExit(f"2q (b): this machine's host cannot hold the {plan.total_param_bytes} B "
+                         f"home with {MOE_HOST_MARGIN} B to spare ({avail} B available)")
+    t0 = time.perf_counter()
+    home = st.init_weight_streamed_params(cfg, plan, SEED, device)
+    log(f"  2q (b) group-wise init to the host: {time.perf_counter() - t0:.1f} s, host "
+        f"MemAvailable then {mem_available()} B")
+    name = "2q (b) routed, pinned host, distance auto"
+    res = moe_run(cfg, home, name, smi, gen=Q_STREAM_GEN, expect=want[:, :Q_STREAM_GEN],
+                  warmup=False, param_kind="pinned_host", expert_stream=True,
+                  device_budget_mb=budget_mb, device=device)
+    del home
+    res["schedule_peak"] = report.peak_bytes
+    check_moe_counts(name, res, int(budget_mb * 1e6))
+    if device == "cuda" and min(res["launches"][k] for k in ("flash_attention",
+                                                             "decode_attention")) <= 0:
+        raise SystemExit(f"{name}: a kernel of the path was not launched: {res['launches']}")
+    routed = expert_bytes_per_layer_step(res)
+    every = cfg.n_experts * plan.per_expert_bytes  # the all-expert figure, from the plan
+    log(f"  2q (b) expert bytes a layer a decode step: routed {routed:.0f} B ({routed / every:.4f} "
+        f"of the plan's all-expert {every} B; at most {fan_in} x {plan.per_expert_bytes} B = "
+        f"{fan_in * plan.per_expert_bytes} B, {Q_EXPERT_SHARE} of all; 2m's mixtral reads 0.435)")
+    if not routed <= min(fan_in * plan.per_expert_bytes, Q_EXPERT_SHARE * every):
+        raise SystemExit(f"2q (b): {routed} expert B a layer a decode step, above {fan_in} "
+                         f"experts or {Q_EXPERT_SHARE} of the plan's all-expert {every} B")
+    log(f"  phase 2q done in {time.perf_counter() - t_phase:.1f} s")
+    return a["launches"]
+
+
+def phase_dense(smi: str, device: str = "cuda", fulls=None) -> dict:
+    """Phase 2d: each of ``DENSE_ARCHS`` (or the configs ``fulls``) at full
+    width and depth, its weights built group by group on the card, served
+    through the entry point (phase 2's batch, prompt and gen, unpaged device
+    caches, both kernels launched, a ``roofline`` line), then its output
+    checked and the kernel path's logits held to the plain path's at
+    ``DENSE_CHECK_LAYERS`` layers; each model freed before the next.
+    Returns each config's launches by name (for phase 5)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for full in fulls or [get_config(a) for a in DENSE_ARCHS]:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(full, attn_impl="pallas")
+        params = device_init(f"2d {cfg.name}", cfg, device)
+        res, out[cfg.name] = phase_serve(cfg, PROMPT, f"2d {cfg.name}",
+                                         ("flash_attention", "decode_attention"), smi,
+                                         params=params, device=device)
+        del params
+        reset_peak(device)
+        phase_check(dataclasses.replace(cfg, n_layers=DENSE_CHECK_LAYERS), res, PROMPT,
+                    f"3d {cfg.name}", device)
+        log(f"  phase 2d {cfg.name} done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_check(cfg, res: dict, prompt: int, phase: str, device: str = "cuda") -> None:
+    """``res``'s tokens well formed, and the kernel path's prefill and first
+    decode logits within LOGIT_RTOL of the plain path's on ``cfg`` (the
+    served config, or its first layers) from ``SEED``, one prompt."""
     from repro_torch.launch.serve import step_pos
     from repro_torch.train import steps as st
 
-    log(f"phase {phase} output checks ({cfg.name})")
+    log(f"phase {phase} output checks ({cfg.name}, {cfg.n_layers} layers)")
     gen = res["generated"]
     if gen.shape != (BATCH, GEN) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
         raise SystemExit(f"generated tokens malformed: shape {gen.shape}, "
                          f"range [{gen.min()}, {gen.max()}]")
     log(f"  generated {gen.shape} int32 in [0, {cfg.vocab_size}); first request {gen[0, :8].tolist()}...")
     # the kernel path against the plain path on the full-width model
-    params = st.init_params(cfg, SEED, "cuda")
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    tokens = torch.randint(1, cfg.vocab_size, (1, prompt), generator=g, device="cuda")
-    pos = step_pos(cfg, 1, prompt, "cuda")  # the serve loop's, on its schedule
+    params = st.init_params(cfg, SEED, device)
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    tokens = torch.randint(1, cfg.vocab_size, (1, prompt), generator=g, device=device)
+    pos = step_pos(cfg, 1, prompt, device)  # the serve loop's, on its schedule
     out = {}
     for impl in ("pallas", "xla"):
         c = dataclasses.replace(cfg, attn_impl=impl)
@@ -1860,16 +2135,17 @@ def train_cfg(cfg, **kw):
     return dataclasses.replace(cfg, attn_impl="xla", remat="full", loss_chunk=512, **kw)
 
 
-def train_batch(cfg, step: int, device="cuda") -> dict:
+def train_batch(cfg, step: int, device="cuda", seq: int = TRAIN_SEQ) -> dict:
     """The launcher's batch for ``step``, on the card."""
     from repro_torch.data import SyntheticConfig, synthetic_batch
 
-    sc = SyntheticConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    sc = SyntheticConfig(cfg.vocab_size, seq, TRAIN_BATCH, seed=SEED)
     return {k: v.to(device) for k, v in synthetic_batch(cfg, sc, step).items()}
 
 
 def train_run(cfg, ckpt_dir: Path, *, steps: int = TRAIN_STEPS, run: bool = False,
-              keep_after=(), setup=None, checkpoint_every: int = 100, **kw) -> dict:
+              keep_after=(), setup=None, checkpoint_every: int = 100, seq: int = TRAIN_SEQ,
+              **kw) -> dict:
     """Train ``cfg`` through the launcher's ``build_trainer``: with ``run``,
     its driver's ``run()`` (the restart loop and checkpoints, the final one
     included); else the trainer's own state, loader and step for ``steps``
@@ -1885,7 +2161,7 @@ def train_run(cfg, ckpt_dir: Path, *, steps: int = TRAIN_STEPS, run: bool = Fals
 
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     driver = build_trainer(
-        cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, opt_cfg=AdamWConfig(**TRAIN_OPT),
+        cfg, global_batch=TRAIN_BATCH, seq_len=seq, opt_cfg=AdamWConfig(**TRAIN_OPT),
         driver_cfg=DriverConfig(total_steps=steps, checkpoint_every=checkpoint_every,
                                 checkpoint_dir=str(ckpt_dir), log_every=0),
         seed=SEED, device="cuda", **kw)
@@ -2041,7 +2317,7 @@ def phase_train(cfg, smi: str) -> dict:
     flops = roofline_line("6 (a)", tcfg, "train", TRAIN_SEQ, TRAIN_BATCH, wall, smi)
     log(f"  (a) device: losses {[round(x, 4) for x in losses]}; a second run from the same init "
         f"bitwise equal (losses, parameters)")
-    log(f"  (a) step wall {wall * 1e3:.3f} ms (median of steps 2-7; runs {[round(w * 1e3, 3) for w in a['walls']]} "
+    log(f"  (a) step wall {wall * 1e3:.3f} ms (median of steps 2-{TRAIN_STEPS - 1}; runs {[round(w * 1e3, 3) for w in a['walls']]} "
         f"/ {[round(w * 1e3, 3) for w in a2['walls']]} ms), {tokens / wall:.1f} tok/s, model "
         f"{flops / wall / 1e12:.2f} TFLOP/s = {flops / wall / BF16_FLOP_PER_S:.4f} of 989 TFLOP/s; "
         f"max_memory_allocated {peak} B; the driver's run {a['seconds']:.1f} s (its final "
@@ -2508,13 +2784,13 @@ def phase_train_streamed(cfg, ref: dict, smi: str, device="cuda",
 
     shutil.rmtree(spill, ignore_errors=True)
     store = SpillStore(spill)
-    # (b) pinned host at distance 0, 1 and auto (last: the pinned buffers the
+    # (b) pinned host at distance 1 and auto (last: the pinned buffers the
     # drains allocate are then warm); (c) disk, one step: the fsync'd
     # writeback of every group
     runs = [dict(name="(a) device", kind="device", distance="auto", steps=W_TRAIN_STEPS)]
     runs += [dict(name=f"(b) pinned_host d={d}", kind="pinned_host", distance=d,
                   steps=W_TRAIN_STEPS if d == "auto" else 1, profile=d == "auto")
-             for d in (0, 1, "auto")]
+             for d in W_TRAIN_DISTANCES]
     runs.append(dict(name="(c) disk_host", kind="disk_host", distance="auto",
                      steps=W_TRAIN_DISK_STEPS, store=store))
     try:
@@ -2550,7 +2826,7 @@ def phase_train_streamed(cfg, ref: dict, smi: str, device="cuda",
                     {w: auto["steps"][0][w]["h2d_requests"] for w in ("param", "opt")})
     log(f"  6w: (a)'s step-0 loss {a['losses'][0]} against phase 6 (a)'s monolithic "
         f"{ref['losses'][0]} (|diff| {abs(a['losses'][0] - ref['losses'][0]):.3e}); peak streamed "
-        f"at d=0, 1 the plan's windows {window(0)}, {window(1)} B, at auto within "
+        f"at d=1 the plan's window {window(1)} B, at auto within "
         f"[{window(1)}, {window(max_d)}] B; the head's home one residency hit a step after the "
         f"first; max_memory_allocated beside phase 6 (a)'s {ref['peak']} B")
     log(f"  phase 6w done in {time.perf_counter() - t_phase:.1f} s")
@@ -2590,11 +2866,13 @@ def phase_xlstm_serve(smi: str, device: str = "cuda", full=None) -> None:
     from repro_torch.train import steps as st
 
     t_phase = time.perf_counter()
-    cfg = full or get_config("xlstm-1.3b")
-    n_params = sum(x.numel() for x in tr.leaves(st.abstract_params(cfg)))
-    log(f"phase 2x serve {cfg.name}: {cfg.n_layers} layers ({cfg.n_layers // cfg.slstm_every} periods "
-        f"of {cfg.slstm_every - 1} mLSTM + sLSTM), d_model {cfg.d_model}, {cfg.n_heads} heads of "
-        f"{cfg.head_dim}, vocab {cfg.vocab_size}, tied, {cfg.dtype}; {n_params:,} parameters; "
+    whole = full or get_config("xlstm-1.3b")
+    n_params = sum(x.numel() for x in tr.leaves(st.abstract_params(whole)))
+    cfg = dataclasses.replace(whole, n_layers=min(XL_SERVE_LAYERS, whole.n_layers))
+    log(f"phase 2x serve {cfg.name}: {cfg.n_layers} of {whole.n_layers} layers "
+        f"({cfg.n_layers // cfg.slstm_every} periods of {cfg.slstm_every - 1} mLSTM + sLSTM), "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}, "
+        f"tied, {cfg.dtype}; {n_params:,} parameters at {whole.n_layers} layers; "
         f"batch {XL_BATCH}, prompt {XL_PROMPT} (chunks of {cfg.mlstm_chunk}), gen {XL_GEN}, "
         f"lock-step, device-resident; {smi}")
     if full is None and n_params != XL_PARAMS:
@@ -2750,7 +3028,7 @@ def phase_xlstm_train(smi: str) -> None:
 
     t_phase = time.perf_counter()
     tcfg = train_cfg(get_config("xlstm-1.3b"))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = TRAIN_BATCH * XL_SEQ
     since = [t_phase]
 
     def lap() -> float:
@@ -2759,16 +3037,16 @@ def phase_xlstm_train(smi: str) -> None:
         return dt
 
     log(f"phase 6x train {tcfg.name}: {XL_PARAMS:,} parameters, {tcfg.dtype}, remat={tcfg.remat}, "
-        f"loss_chunk {tcfg.loss_chunk}; batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, AdamW {TRAIN_OPT}; "
+        f"loss_chunk {tcfg.loss_chunk}; batch {TRAIN_BATCH}, seq {XL_SEQ}, AdamW {TRAIN_OPT}; "
         f"{smi}")
     reset_peak("cuda")
-    a = train_run(tcfg, ROOT / "build" / "train-ckpt-x", steps=XL_TRAIN_STEPS)
+    a = train_run(tcfg, ROOT / "build" / "train-ckpt-x", steps=XL_TRAIN_STEPS, seq=XL_SEQ)
     peak = torch.cuda.max_memory_allocated()
     losses = [loss for _, loss in a["losses"]]
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"6x (a): losses not finite or not falling: {losses}")
     wall = median(a["walls"][1:])
-    flops = roofline_line("6x (a)", tcfg, "train", TRAIN_SEQ, TRAIN_BATCH, wall, smi)
+    flops = roofline_line("6x (a)", tcfg, "train", XL_SEQ, TRAIN_BATCH, wall, smi)
     log(f"  (a) AdamW on the card, {XL_TRAIN_STEPS} steps: losses {[round(x, 4) for x in losses]}; "
         f"step walls {[round(w * 1e3, 1) for w in a['walls']]} ms, median of steps 1-"
         f"{XL_TRAIN_STEPS - 1} {wall * 1e3:.1f} ms = {tokens / wall:.1f} tok/s, model "
@@ -2790,7 +3068,7 @@ def phase_xlstm_train(smi: str) -> None:
     if plan.layout != "period" or not budget_mb * 1e6 < plan.total_param_bytes:
         raise SystemExit(f"6x (b): layout {plan.layout}, budget {budget_mb} MB")
     streamed_train("6x (b)", tcfg, plan, smi, home_pair(XL_W_STEPS),
-                   batch_fn=lambda k: train_batch(tcfg, k), tokens=tokens)
+                   batch_fn=lambda k: train_batch(tcfg, k, seq=XL_SEQ), tokens=tokens)
     log(f"  phase 6x done in {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2991,7 +3269,7 @@ def phase_audio_serve(smi: str, device: str = "cuda", full=None) -> dict:
     # (b) the paged session at each page home
     spill = ROOT / "build" / "spill-audio"
     page = dict(kv_page_len=PAGE_LEN, hot_pages=HOT_PAGES, distance="auto")
-    for kind, g in (("device", GEN), ("pinned_host", GEN), ("disk_host", AU_DISK_GEN)):
+    for kind, g in (("device", GEN), ("pinned_host", AU_W_GEN), ("disk_host", AU_DISK_GEN)):
         shutil.rmtree(spill, ignore_errors=True)
         res, launches = run(f"(b) paged, {kind} pages", kv_kind=kind, gen=g,
                             spill_dir=str(spill) if kind == "disk_host" else None, **page)
@@ -3500,7 +3778,8 @@ def host_cost(cfg) -> None:
 
 
 def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict, mlaunches: dict,
-                alaunches: dict, sweep: list, train: dict) -> list:
+                alaunches: dict, qlaunches: dict, dlaunches: dict, sweep: list, train: dict) -> list:
+    from repro_torch.configs import get_config
     from repro_torch.core.refspec import PrefetchSpec
     from repro_torch.kernels.rglru_scan import linear_recurrence, linear_recurrence_ref
     from repro_torch.kernels.streamed_matmul import matmul_ref, streamed_matmul
@@ -3543,6 +3822,17 @@ def phase_times(cfg, hcfg, errs: dict, launches: dict, hlaunches: dict, mlaunche
                   json.loads(VL_RESULT.read_text())["flash_attention"],
                   errs["flash_attention_vlm"], flush),
     ]
+    # qwen3-moe-235b-a22b (phase 2q (a)) and internlm2-20b (phase 2d): one
+    # request's prefill, and the batch's last decode step over its prompt +
+    # gen slots
+    for arch, b, p, g, lnch in ((Q_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN, qlaunches),
+                                ("internlm2-20b", BATCH, PROMPT, GEN, dlaunches["internlm2-20b"])):
+        c = get_config(arch)
+        key = "qwen3" if arch == Q_ARCH else arch
+        rows.append(flash_row(arch, 1, p, c.n_heads, c.n_kv_heads, c.head_dim, 0,
+                              lnch["flash_attention"], errs[f"flash_attention_{key}"], flush))
+        rows.append(decode_row(arch, p + g, c.n_heads, c.n_kv_heads, c.head_dim, [p + g - 1] * b,
+                               lnch["decode_attention"], errs[f"decode_attention_{key}"], flush))
     # the recurrence of one rec layer's prefill: read a and b, write h, f32
     shape = (BATCH, HYB_PROMPT, hcfg.lru_width)
     a, b = lru_inputs(*shape)
@@ -4409,6 +4699,10 @@ def main() -> int:
     mlaunches = phase_moe(smi)
     phase_check(cfg, res, PROMPT, "3")
     del res
+    at("phase 2q")
+    qlaunches = phase_qwen3(smi)
+    at("phase 2d")
+    dlaunches = phase_dense(smi)
     at("phase 2b")
     hres, hlaunches = phase_serve(hcfg, HYB_PROMPT, "2b",
                                   ("rglru_scan", "flash_attention", "decode_attention"), smi)
@@ -4425,7 +4719,8 @@ def main() -> int:
     at("phase 6w")
     phase_train_streamed(cfg, train, smi)
     at("phase 5")
-    rows = phase_times(cfg, hcfg, errs, launches, hlaunches, mlaunches, alaunches, sweep, train)
+    rows = phase_times(cfg, hcfg, errs, launches, hlaunches, mlaunches, alaunches, qlaunches,
+                       dlaunches, sweep, train)
     at("phase 7")
     phase_tables(smi)
     at("phase 8s")

@@ -125,9 +125,13 @@ def _init_block(cfg: ModelConfig, kind: str, generator: torch.Generator, device)
 
 
 def _stack(trees: list) -> dict:
+    """Stack the trees' leaves on a new leading axis; one tree's leaves
+    gain the axis as views (a one-layer slice of the group-wise init holds
+    one f32 copy, not two)."""
     first = trees[0]
     return {
-        k: _stack([t[k] for t in trees]) if isinstance(v, dict) else torch.stack([t[k] for t in trees])
+        k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+        else v.unsqueeze(0) if len(trees) == 1 else torch.stack([t[k] for t in trees])
         for k, v in first.items()
     }
 

@@ -433,12 +433,48 @@ def make_paged_decode_step(cfg: ModelConfig, mesh=None,
     return paged_decode_step
 
 
-def init_params(cfg: ModelConfig, seed: int, device) -> ParamTree:
-    """Serving parameters: f32 init from ``seed`` on ``device``, cast to the
-    compute dtype (as the JAX package's ``init_train_state`` casts them)."""
-    device = torch.device(device)
-    params = transformer.init_model(cfg, make_generator(seed, device), device)
-    return params.to(cfg.compute_dtype)
+def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None) -> ParamTree:
+    """Serving parameters in the compute dtype from ``seed`` on ``device``:
+    bitwise ``transformer.init_model(cfg, generator(seed))`` cast to the
+    compute dtype (as the JAX package's ``init_train_state`` casts them),
+    built group by group so that a model near the card's size fits.
+
+    The shell is drawn first, then each layer (a period unit of a
+    period-scanned stack) in :func:`~repro_torch.models.transformer.init_model`'s
+    draw order, each cast into leaves allocated once in the compute dtype:
+    at most one layer's f32 slice is held beside the finished tree."""
+    dev = resolve_device(device)
+    dtype = cfg.compute_dtype
+    gen = make_generator(seed, dev)
+    shell = transformer.init_model_shell(cfg, gen, dev)
+    tree = {k: tr.tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, shell.pop(k))
+            for k in list(shell)}
+    blocks = tr.tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype, device=dev),
+                         abstract_params(cfg)["blocks"])
+
+    def put(dst: dict, src: dict, i: Optional[int]) -> None:
+        # copy_ casts as .to(dtype) does, without a second copy of the slice
+        for k, v in src.items():
+            if isinstance(v, Mapping):
+                put(dst[k], v, i)
+            else:
+                (dst[k] if i is None else dst[k][i:i + 1]).copy_(v)
+
+    if cfg.uniform_blocks and cfg.use_scan:
+        for i in range(cfg.n_layers):
+            put(blocks, transformer.init_model_slice(cfg, gen, dev, i, i + 1), i)
+        lo = cfg.n_layers
+    elif cfg.period_scan:
+        lo = cfg.n_layers // cfg.scan_period
+        for j in range(lo):
+            put(blocks["periods"], transformer.init_model_period_slice(cfg, gen, dev, j, j + 1), j)
+        lo *= cfg.scan_period
+    else:
+        lo = 0
+    for i in range(lo, cfg.n_layers):  # named blocks: a period stack's tail, or unrolled
+        put(blocks, transformer.init_model_slice(cfg, gen, dev, i, i + 1), None)
+    tree["blocks"] = blocks
+    return ParamTree(tree)
 
 
 def abstract_caches(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
